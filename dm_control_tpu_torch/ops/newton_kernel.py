@@ -1,0 +1,233 @@
+"""Batched projected-Newton constraint solve: CUDA kernel and plain twin.
+
+The port of `dm_control_tpu/ops/newton_kernel.py` (K2).  Per environment
+it minimises 0.5 (x - a)' M (x - a) + sum_i c_i((J x - aref)_i) with the
+reference's exit rule and returns qacc (B, nv) and the row forces
+(B, nefc).
+
+A CPU tensor goes to `newton_solve_plain`, the batched torch core (the
+counterpart of `solver._solve_core_xla`, with one done mask per lane in
+place of the single-environment while loop).  A CUDA tensor goes to the
+kernel in `csrc/newton_kernel.cu` or raises.  The kernel's own limit
+(nv <= MAX_NV, its thread-local array size) replaces the TPU kernel's
+VMEM gate: a larger model raises on the card.  Layouts with elliptic
+cones (the TPU kernel's `ell_terms` branch) are not ported yet and raise.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from dm_control_tpu_torch._src import efc
+from dm_control_tpu_torch.ops import build
+from dm_control_tpu_torch.ops import linalg_kernel
+
+# thread-local array size of the kernel (csrc/newton_kernel.cu MAX_NV)
+MAX_NV = 32
+
+LAUNCHES = {'newton_solve_batched': 0}
+
+
+def reset_launches() -> None:
+  LAUNCHES['newton_solve_batched'] = 0
+
+
+# ---------------------------------------------------------------------------
+# Plain version: the batched torch core.
+# ---------------------------------------------------------------------------
+
+
+def _diag_terms(jar, d_, fl, active, is_eq, is_fr, is_one):
+  """Per-row force / quadratic-zone weight / per-lane cost (B, nefc)."""
+  f_eq = -d_ * jar
+  f_one = torch.where(jar < 0, f_eq, 0.0)
+  f_fr = torch.maximum(torch.minimum(f_eq, fl), -fl)
+  on = active > 0
+  f = torch.where(is_eq, f_eq, torch.where(is_fr, f_fr,
+                                           torch.where(is_one, f_one, 0.0)))
+  f = torch.where(on, f, 0.0)
+  quad_fr = d_ * jar.abs() <= fl
+  quad = is_eq | (is_fr & quad_fr) | (is_one & (jar < 0))
+  w = torch.where(quad & on, d_, 0.0)
+  c_quad = 0.5 * d_ * jar * jar
+  lin = fl * jar.abs() - 0.5 * fl * fl / torch.clamp(d_, min=1e-14)
+  c_fr = torch.where(quad_fr, c_quad, lin)
+  c_one = torch.where(jar < 0, c_quad, 0.0)
+  c = torch.where(is_eq, c_quad, torch.where(is_fr, c_fr,
+                                             torch.where(is_one, c_one, 0.0)))
+  cost = torch.where(on, c, 0.0).sum(-1)
+  return f, w, cost
+
+
+def newton_solve_plain(J, M, aref, d_, fl, active, a, warm, *, types, niter,
+                       ls_iter, tol, meaninertia, return_iters=False):
+  """Batched projected Newton with per-lane exit (plain torch).
+
+  J (B, nefc, nv), M (B, nv, nv), aref/d_/fl/active (B, nefc) with active
+  as 0/1 floats, a/warm (B, nv); `types` the (nefc,) row types.  A lane
+  that meets the exit rule is frozen while the others iterate, which is
+  the single-environment loop's result lane by lane.
+  """
+  B, nefc, nv = J.shape
+  types = torch.as_tensor(types, device=J.device)
+  is_eq = types == efc.EQUALITY
+  is_fr = types == efc.FRICTION
+  is_one = types == efc.ONESIDED
+  scale = 1.0 / (max(meaninertia, 1e-12) * max(nv, 1))
+  eye_reg = 1e-12 * torch.eye(nv, dtype=J.dtype, device=J.device)
+
+  def mv(A, x):
+    return torch.einsum('buv,bv->bu', A, x)
+
+  def eval_point(x, jar):
+    f, w, c = _diag_terms(jar, d_, fl, active, is_eq, is_fr, is_one)
+    mxa = mv(M, x - a)
+    cost = 0.5 * ((x - a) * mxa).sum(-1) + c
+    grad = mxa - torch.einsum('bev,be->bv', J, f)
+    return w, cost, grad, mxa
+
+  # start from the better of qacc_smooth / warmstart
+  jar_a = mv(J, a) - aref
+  jar_w = mv(J, warm) - aref
+  w_a, cost_a, grad_a, mxa_a = eval_point(a, jar_a)
+  w_w, cost_w, grad_w, mxa_w = eval_point(warm, jar_w)
+  use_warm = (cost_w < cost_a)[:, None]
+  x = torch.where(use_warm, warm, a)
+  jar = torch.where(use_warm, jar_w, jar_a)
+  w = torch.where(use_warm, w_w, w_a)
+  grad = torch.where(use_warm, grad_w, grad_a)
+  mxa = torch.where(use_warm, mxa_w, mxa_a)
+  cost = torch.minimum(cost_w, cost_a)
+  done = ~(scale * torch.linalg.vector_norm(grad, dim=-1) >= tol)
+  iters = torch.zeros(B, dtype=torch.int32, device=J.device)
+
+  it = 0
+  while it < niter and not bool(done.all()):
+    h = M + torch.einsum('bev,be,beu->bvu', J, w, J) + eye_reg
+    L = linalg_kernel.cholesky_plain(h)
+    delta = -linalg_kernel.cho_solve_plain(L, grad)
+    djar = mv(J, delta)
+    dmd = (delta * mv(M, delta)).sum(-1)
+    gma = (delta * mxa).sum(-1)
+
+    alpha = torch.ones_like(dmd)
+    lo = torch.zeros_like(dmd)
+    hi = torch.full_like(dmd, 4.0)
+    for _ in range(ls_iter):
+      f_a, w_a, _ = _diag_terms(jar + alpha[:, None] * djar, d_, fl, active,
+                                is_eq, is_fr, is_one)
+      dp = gma + alpha * dmd - (f_a * djar).sum(-1)
+      ddp = dmd + (w_a * djar * djar).sum(-1)
+      lo = torch.where(dp < 0, torch.maximum(lo, alpha), lo)
+      hi = torch.where(dp > 0, torch.minimum(hi, alpha), hi)
+      alpha_n = alpha - dp / torch.clamp(ddp, min=1e-14)
+      alpha = torch.where((alpha_n > lo) & (alpha_n < hi), alpha_n,
+                          0.5 * (lo + hi))
+
+    x_new = x + alpha[:, None] * delta
+    jar_new = jar + alpha[:, None] * djar
+    w_n, cost_n, grad_n, mxa_n = eval_point(x_new, jar_new)
+    improved = (cost_n < cost) & ~done
+    sel = improved[:, None]
+    x = torch.where(sel, x_new, x)
+    jar = torch.where(sel, jar_new, jar)
+    w = torch.where(sel, w_n, w)
+    grad = torch.where(sel, grad_n, grad)
+    mxa = torch.where(sel, mxa_n, mxa)
+    new_cost = torch.where(improved, cost_n, cost)
+    improvement = scale * (cost - new_cost)
+    cost = new_cost
+    gradient = scale * torch.linalg.vector_norm(grad, dim=-1)
+    keep = (improvement >= tol) & (gradient >= tol)
+    iters += (~done).to(torch.int32)
+    done = done | ~keep
+    it += 1
+
+  # exact final forces (outputs are a pure function of x)
+  jar = mv(J, x) - aref
+  f, _, _ = _diag_terms(jar, d_, fl, active, is_eq, is_fr, is_one)
+  if return_iters:
+    return x, f, iters
+  return x, f
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrapper.
+# ---------------------------------------------------------------------------
+
+
+def _types_on(lay: efc.Layout, device) -> torch.Tensor:
+  key = ('types_i32', str(device))
+  t = lay._cache.get(key)
+  if t is None:
+    t = torch.as_tensor(lay.types, dtype=torch.int32, device=device)
+    lay._cache[key] = t
+  return t
+
+
+def newton_solve_batched(J, M, aref, d_, fl, active, a, warm, *, lay,
+                         niter: int, ls_iter: int, tol: float,
+                         meaninertia: float, return_iters: bool = False):
+  """Batched Newton solve: the CUDA kernel on CUDA tensors.
+
+  Args (batch-first): J (B, nefc, nv), M (B, nv, nv), aref/d_/fl/active
+  (B, nefc) with active as 0/1 floats, a/warm (B, nv); lay: the model's
+  efc.Layout.  Returns qacc (B, nv), force (B, nefc) and, if asked, the
+  per-lane iteration count (B,).
+  """
+  if lay.ell_groups:
+    raise NotImplementedError(
+        'elliptic friction cones: the Newton kernel\'s ell_terms branch '
+        '(K2-ell) is not ported yet')
+  kw = dict(niter=niter, ls_iter=ls_iter, tol=tol, meaninertia=meaninertia,
+            return_iters=return_iters)
+  if J.device.type == 'cpu':
+    return newton_solve_plain(J, M, aref, d_, fl, active, a, warm,
+                              types=lay.types, **kw)
+  if J.device.type != 'cuda':
+    raise ValueError(f'newton_solve_batched: tensors on {J.device}')
+  if J.dim() != 3:
+    raise ValueError(f'J must be (B, nefc, nv), got {tuple(J.shape)}')
+  B, nefc, nv = J.shape
+  if not 1 <= nv <= MAX_NV:
+    raise ValueError(f'nv={nv} outside the kernel limit 1..{MAX_NV}')
+  if nefc != lay.nefc or nefc < 1:
+    raise ValueError(f'nefc={nefc} does not match the layout ({lay.nefc})')
+  if not 1 <= B < 2 ** 31 or niter < 1 or ls_iter < 0:
+    raise ValueError('batch, niter or ls_iter outside the kernel limits')
+  shapes = {'M': (M, (B, nv, nv)), 'aref': (aref, (B, nefc)),
+            'D': (d_, (B, nefc)), 'frictionloss': (fl, (B, nefc)),
+            'active': (active, (B, nefc)), 'a': (a, (B, nv)),
+            'warm': (warm, (B, nv)), 'J': (J, (B, nefc, nv))}
+  for name, (t, shape) in shapes.items():
+    if t.device != J.device or t.dtype != torch.float32:
+      raise TypeError(f'{name}: kernel takes float32 on {J.device}, got '
+                      f'{t.dtype} on {t.device}')
+    if tuple(t.shape) != shape:
+      raise ValueError(f'{name}: shape {tuple(t.shape)} != {shape}')
+
+  j_t = J.permute(2, 1, 0).contiguous()         # (nv, nefc, B)
+  m_t = M.permute(1, 2, 0).contiguous()         # (nv, nv, B)
+  rows = [x.permute(1, 0).contiguous() for x in (aref, d_, fl, active)]
+  a_t, w_t = a.permute(1, 0).contiguous(), warm.permute(1, 0).contiguous()
+  for t in [j_t, m_t, a_t, w_t] + rows:
+    assert t.is_contiguous()
+  x_t = torch.empty((nv, B), dtype=torch.float32, device=J.device)
+  f_t = torch.empty((nefc, B), dtype=torch.float32, device=J.device)
+  iters = torch.empty((B,), dtype=torch.int32, device=J.device)
+  jar = torch.empty((nefc, B), dtype=torch.float32, device=J.device)
+  djar = torch.empty_like(jar)
+  scale = 1.0 / (max(meaninertia, 1e-12) * max(nv, 1))
+  lib = build.library()
+  err = lib.dmc_newton_solve(
+      j_t.data_ptr(), m_t.data_ptr(), rows[0].data_ptr(), rows[1].data_ptr(),
+      rows[2].data_ptr(), rows[3].data_ptr(), a_t.data_ptr(),
+      w_t.data_ptr(), _types_on(lay, J.device).data_ptr(), x_t.data_ptr(),
+      f_t.data_ptr(), iters.data_ptr(), jar.data_ptr(), djar.data_ptr(),
+      nefc, nv, B, int(niter), int(ls_iter), float(tol), float(scale),
+      torch.cuda.current_stream().cuda_stream)
+  build.check(err, 'dmc_newton_solve')
+  LAUNCHES['newton_solve_batched'] += 1
+  if return_iters:
+    return x_t.permute(1, 0), f_t.permute(1, 0), iters
+  return x_t.permute(1, 0), f_t.permute(1, 0)

@@ -1,0 +1,105 @@
+"""Where a control step of the PyTorch/CUDA port spends its time.
+
+Run on a machine with one CUDA device, from the root of a checkout:
+
+    python3 tools/torch_profile_step.py
+
+Builds walker-walk at batch 4096 (bench.py's batch) on the card, warms it
+up, then runs the same window of 3 control steps three ways and prints,
+per control step:
+
+  * untraced: wall time, with the stream synchronised at both ends;
+  * torch.profiler: CUDA kernels launched and summed kernel time, then the
+    device's idle share, 1 - kernel time / untraced wall time, and the
+    kernels that take the most device time;
+  * cProfile: host time by Python function (cProfile slows the host, so
+    read its shares, not its times), and the share of `types.mirror`.
+
+Prints the card's name and power limit, the host's architecture, the cores
+this process may use and the load average first.
+"""
+
+import cProfile
+import os
+import platform
+import pstats
+import subprocess
+import sys
+import time
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from dm_control_tpu_torch import suite  # noqa: E402
+from dm_control_tpu_torch.parallel import BatchedEnv  # noqa: E402
+
+BATCH = 4096
+STEPS = 3
+
+
+def main():
+  if not torch.cuda.is_available():
+    sys.exit('needs a CUDA device')
+  print(subprocess.run(
+      ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
+      capture_output=True, text=True, check=True).stdout.strip())
+  print(f'host: {platform.machine()}; {len(os.sched_getaffinity(0))} cores; '
+        f'load average {os.getloadavg()}')
+  env = BatchedEnv(suite.build_task('walker', 'walk'), BATCH)
+  gen = torch.Generator(device='cuda')
+  gen.manual_seed(0)
+  state = env.reset()
+  state, _ = env.rollout_fn(30)(state, gen)       # warm, walkers on the floor
+  run = env.rollout_fn(STEPS)
+
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  state, _ = run(state, gen)
+  torch.cuda.synchronize()
+  wall = time.perf_counter() - t0
+
+  with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    t0 = time.perf_counter()
+    state, _ = run(state, gen)
+    torch.cuda.synchronize()
+    wall_traced = time.perf_counter() - t0
+  kernels = [e for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+  busy_us = sum(e.device_time for e in kernels)
+  print(f'walker-walk@{BATCH}: {wall / STEPS * 1e3:.2f} ms per control step '
+        f'(wall, untraced), {wall_traced / STEPS * 1e3:.2f} ms (wall, '
+        f'traced), {len(kernels) / STEPS:.0f} CUDA kernels per control step, '
+        f'{busy_us / STEPS / 1e3:.2f} ms kernel time per control step, '
+        f'device idle share {1 - busy_us / 1e6 / wall:.3f} (of untraced wall)')
+  by_name = {}
+  for e in kernels:
+    t, c = by_name.get(e.name, (0.0, 0))
+    by_name[e.name] = (t + e.device_time, c + 1)
+  print('kernel time per control step, top 15:')
+  for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
+    print(f'  {t / STEPS / 1e3:8.3f} ms  {c / STEPS:7.0f} calls  {name[:90]}')
+
+  prof_host = cProfile.Profile()
+  torch.cuda.synchronize()
+  prof_host.enable()
+  state, _ = run(state, gen)
+  torch.cuda.synchronize()
+  prof_host.disable()
+  stats = pstats.Stats(prof_host)
+  total = stats.total_tt
+  print(f'host under cProfile: {total / STEPS * 1e3:.2f} ms per control step; '
+        'top 12 functions by own time (share of that):')
+  rows = sorted(stats.stats.items(), key=lambda kv: -kv[1][2])
+  for (path, line, fn), (_, ncalls, tottime, cumtime, _) in rows[:12]:
+    print(f'  {tottime / total:6.3f}  {ncalls / STEPS:7.0f} calls  '
+          f'{os.path.basename(path)}:{line}({fn})')
+  for (path, line, fn), (_, ncalls, _, cumtime, _) in rows:
+    if fn == 'mirror' and path.endswith('types.py'):
+      print(f'types.mirror: {ncalls / STEPS:.0f} calls per control step, '
+            f'{cumtime / total:.3f} of host time (cumulative)')
+
+
+if __name__ == '__main__':
+  main()
