@@ -19,18 +19,28 @@ any failure exits non-zero and no phase catches its own failure:
      the plain float64 optimum: mean <= 1e-4, max <= 5e-2 and <= 10% of
      lanes above 1e-3 (tests/test_pallas.py), each error scaled by
      max(1, the lane's largest |ref|);
-  3. reference: one control step of 64 walker-walk lanes on the card at
-     float32 against the port's float64 CPU path (plain versions) from
-     the same state;
+     K2-ell (the Newton solve's elliptic-cone branch) on finger-spin
+     solver inputs at batch 4096 rich in contacts (joint angles drawn by
+     the port's randomizer, kept where they touch, random velocities so
+     that contacts slide), with the same bounds against plain float32
+     and float64, converged and after one Newton iteration (which
+     depends on the Hessian's and the line search's cone terms);
+  3. reference: one control step of 64 walker-walk lanes, and of 64
+     finger-spin lanes in contact, on the card at float32 against the
+     port's float64 CPU path (plain versions) from the same state;
   4. rollout: BatchedEnv(walker-walk, batch_size=4096) on the card, reset,
-     50 control steps (500 physics substeps) through `rollout_fn`: every
-     state finite, rewards in [0, 1], each kernel's launch count exactly
-     its expected count per control step;
+     50 control steps (500 physics substeps) through `rollout_fn`; then
+     BatchedEnv(finger-spin, 4096), three runs of reset and 50 control
+     steps (100 substeps): every state finite, rewards in [0, 1], each
+     kernel's launch count exactly its expected count per control step;
+     then finger-spin with an episode limit of 3 control steps, which
+     sends every lane through the reset pool;
   5. timing: each kernel and its plain version with CUDA events at the
      main path's shapes, and, for K1, the one torch.linalg call that
      computes the same function (`library_ms`, never used by the port).
 
-Output: the card's name and power limit (nvidia-smi), env-steps/s, one
+Output: the card's name and power limit (nvidia-smi), env-steps/s of
+walker-walk@4096 and finger-spin@4096 (the median of three runs), one
 `{"kernels": [...]}` JSON line, and last the
 `{"ok": true, "device": {...}}` line.  The nvcc/ptxas log of the build
 is in dm_control_tpu_torch/_build/build.log; its register and spill lines
@@ -53,22 +63,37 @@ PEAK_F32 = 67e12
 # the substep loop, 1x as the sync and 1x at the end of step(); the acc
 # stage and euler run 9x in the loop and 1x in step()
 PER_STEP = {'cholesky_batched': 11, 'cho_solve_batched': 10,
-            'chol_solve_batched': 10, 'newton_solve_batched': 10}
+            'chol_solve_batched': 10, 'newton_solve_batched': 10,
+            'newton_solve_ell': 0}
 # launches of one forward() (an auto-reset of done lanes)
 PER_RESET = {'cholesky_batched': 1, 'cho_solve_batched': 1,
-             'chol_solve_batched': 0, 'newton_solve_batched': 1}
+             'chol_solve_batched': 0, 'newton_solve_batched': 1,
+             'newton_solve_ell': 0}
+# expected launches per finger-spin control step (n_sub = 2): step1 runs
+# 1x in the substep loop, 1x as the sync and 1x at the end of step(); the
+# acc stage (solve_m, then the solve, which is K2-ell: finger's contacts
+# are elliptic) and euler (damped joints: K1b) run 1x in the loop and 1x
+# in step().  Its auto-resets come from the reset pool: no launches.
+FINGER_PER_STEP = {'cholesky_batched': 3, 'cho_solve_batched': 2,
+                   'chol_solve_batched': 2, 'newton_solve_batched': 0,
+                   'newton_solve_ell': 2}
+FINGER_RUNS = 3
 REPLACES = {
     'cholesky_batched': 'dm_control_tpu/ops/linalg_kernel.py:118',
     'chol_solve_batched': 'dm_control_tpu/ops/linalg_kernel.py:142',
     'cho_solve_batched': 'dm_control_tpu/ops/linalg_kernel.py:166',
     'newton_solve_batched': 'dm_control_tpu/ops/newton_kernel.py:491',
+    'newton_solve_ell': 'dm_control_tpu/ops/newton_kernel.py:207',
 }
 SOURCES = {
     'cholesky_batched': 'dm_control_tpu_torch/csrc/linalg_kernel.cu',
     'chol_solve_batched': 'dm_control_tpu_torch/csrc/linalg_kernel.cu',
     'cho_solve_batched': 'dm_control_tpu_torch/csrc/linalg_kernel.cu',
     'newton_solve_batched': 'dm_control_tpu_torch/csrc/newton_kernel.cu',
+    'newton_solve_ell': 'dm_control_tpu_torch/csrc/newton_kernel.cu',
 }
+# K2's bounds (tests/test_pallas.py) on the lane-scaled error
+K2_MEAN, K2_MAX, K2_LANES = 1e-4, 5e-2, 0.1
 
 
 def log(msg):
@@ -108,16 +133,116 @@ def bound_ms(nbytes, flops):
   return max(t_bytes, t_ops) * 1e3, 'bytes' if t_bytes >= t_ops else 'operations'
 
 
-def newton_flops(nefc, nv, ls_iter, iters):
+def newton_flops(nefc, nv, ls_iter, iters, cones=None):
   """FLOPs the Newton solve needs for these lanes' iteration counts: the
   warmstart choice and final forces (3 J products and 2 row sweeps), then
   per iteration the H = M + J'WJ build, the Cholesky and substitutions,
-  J delta, the line search sweeps, the new cost and the gradient."""
+  J delta, the line search sweeps, the new cost and the gradient.
+
+  `cones` (B,), each lane's active elliptic contacts, adds K2-ell's work
+  on them: ~60 FLOPs to evaluate one contact's zone, force, cost and 3x3
+  block, done 3x at the start and end and (ls_iter + 3)x per iteration
+  (gradient, Hessian, line search, new cost); per iteration also its
+  J_c' W_c J_c (9 nv + 3 nv (nv + 1) multiply-adds), its J' f (6 nv) and
+  its line-search phi'/phi'' terms (24 per step)."""
   start = 3 * 2 * nefc * nv + 2 * nv * nv + 2 * 8 * nefc
   per_iter = (nefc * nv * (nv + 1) + nv ** 3 / 3 + 2 * nv * nv
               + 2 * nefc * nv + 2 * nv * nv + ls_iter * 10 * nefc
               + 2 * nv * nv + 8 * nefc + 2 * nv * nv + 2 * nefc * nv)
-  return float(len(iters) * start + iters.double().sum().item() * per_iter)
+  total = len(iters) * start + iters.double().sum().item() * per_iter
+  if cones is not None:
+    cone_iter = (60 * (ls_iter + 3) + 18 * nv + 6 * nv * (nv + 1)
+                 + 6 * nv + 24 * ls_iter)
+    total += (cones.double() * (3 * 60 + iters.double() * cone_iter)
+              ).sum().item()
+  return float(total)
+
+
+def k2_check(what, x, ref, gate, bounds=None):
+  """Print the lane-scaled error of x against ref, and the
+  component-scaled one for the record; with `gate`, assert the K2 bounds
+  (or `bounds`, (mean, max, lanes)) on the lane-scaled one.  Returns the
+  lane-scaled (mean, max, lanes above 1e-3)."""
+  B = x.shape[0]
+  stats = {}
+  for how, err in (('lane-scaled', lane_scaled_err(x, ref)),
+                   ('component-scaled', scaled_err(x, ref))):
+    mean, mx = err.mean().item(), err.max().item()
+    lanes_bad = int((err.max(dim=1).values > 1e-3).sum())
+    stats[how] = (mean, mx, lanes_bad)
+    log(f'#   {what}, {how}: mean {mean:.2e} max {mx:.2e} '
+        f'lanes>1e-3 {lanes_bad}')
+  if gate:
+    b_mean, b_max, b_lanes = bounds or (K2_MEAN, K2_MAX, int(K2_LANES * B))
+    mean, mx, lanes_bad = stats['lane-scaled']
+    assert mean <= b_mean, f'{what}: mean {mean:.2e} > {b_mean:.2e}'
+    assert mx <= b_max, f'{what}: max {mx:.2e} > {b_max:.2e}'
+    assert lanes_bad <= b_lanes, f'{what}: {lanes_bad} lanes > {b_lanes}'
+  return stats['lane-scaled']
+
+
+def ell_gates(what, x_k, x_p, x_64):
+  """K2's bounds on the kernel's x_k against the plain float32 solve x_p
+  and the plain float64 one x_64.  Where plain float32 itself misses a
+  bound against float64, the kernel is held to no more than 2x plain
+  float32's own error on that statistic."""
+  k2_check(f'{what} kernel vs plain float32', x_k, x_p, gate=True)
+  p32 = k2_check(f'{what} plain float32 vs plain float64', x_p.double(),
+                 x_64, gate=False)
+  limits = (K2_MEAN, K2_MAX, int(K2_LANES * x_k.shape[0]))
+  bounds = tuple(lim if p <= lim else 2 * p for p, lim in zip(p32, limits))
+  if bounds != limits:
+    log(f'#   plain float32 misses a K2 bound against float64: the kernel '
+        f'is held to (mean, max, lanes) <= {bounds}')
+  k2_check(f'{what} kernel vs plain float64', x_k.double(), x_64,
+           gate=True, bounds=bounds)
+
+
+def finger_solver_inputs(m, lay, B, gen, dev):
+  """finger-spin solver inputs for B lanes in contact, float32 on dev.
+
+  Joint angles are drawn by the port's randomizer and kept where
+  `has_contacts` is true (~9% of draws); the joint velocities are
+  N(0, 2^2) so that contacts slide, the controls uniform.  The pipeline
+  then runs up to the solve.  Returns (solver args, the forward Data)."""
+  import torch
+  from dm_control_tpu_torch._src import forward
+  from dm_control_tpu_torch.suite import base
+  kept = []
+  while sum(len(q) for q in kept) < B:
+    d = forward.make_data(m, 8 * B, torch.float32, dev)
+    q = base.randomize_limited_and_rotational_joints(m, d.qpos, gen)
+    kept.append(q[base.has_contacts(m, d.replace(qpos=q))])
+  q = torch.cat(kept)[:B]
+  v = 2 * torch.randn((B, m.nv), generator=gen, device=dev)
+  u = 2 * torch.rand((B, m.nu), generator=gen, device=dev) - 1
+  d = forward.make_data(m, B, torch.float32, dev).replace(qpos=q, qvel=v,
+                                                          ctrl=u)
+  d = forward.step1(m, d, skipsensor=True)
+  d = forward.actuation(m, d)
+  d = forward.fwd_acceleration(m, d)
+  args = (d.efc_J, d.qM, d.efc_aref, d.efc_D, d.efc_frictionloss,
+          d.efc_active.to(torch.float32), d.qacc_smooth, d.qacc_smooth)
+  return args, d
+
+
+def cone_zones(lay, J, aref, active, x):
+  """Active elliptic contacts at the solution x, and the shares of them
+  in the top, bottom and middle zones."""
+  import torch
+  rows, mu, scale = lay.ell_groups[3]
+  jar = torch.einsum('bev,bv->be', J, x) - aref
+  rows_t = torch.as_tensor(rows, device=J.device)
+  y = jar[:, rows_t] * torch.as_tensor(scale, dtype=J.dtype, device=J.device)
+  mu_t = torch.as_tensor(mu, dtype=J.dtype, device=J.device)
+  n, t = y[..., 0], y[..., 1:].norm(dim=-1).clamp(min=1e-15)
+  on = active[:, rows_t[:, 0]] > 0
+  top, bottom = n >= mu_t * t, mu_t * n <= -t
+  mid = ~top & ~bottom
+  count = int(on.sum())
+  return on, {z: int((mask & on).sum()) / max(count, 1)
+              for z, mask in (('top', top), ('bottom', bottom),
+                              ('mid', mid))}
 
 
 def main() -> int:
@@ -135,6 +260,7 @@ def main() -> int:
   from dm_control_tpu_torch.ops import linalg_kernel as lk
   from dm_control_tpu_torch.ops import newton_kernel as nk
   from dm_control_tpu_torch.parallel import BatchedEnv
+  from dm_control_tpu_torch.parallel import runner
 
   dev = torch.device('cuda')
   name = torch.cuda.get_device_name(0)
@@ -214,28 +340,94 @@ def main() -> int:
   # component-scaled readings are printed for the record: on walker's
   # first floor impacts they fail 5e-2 for the plain float32 solve itself
   # against float64, so they measure float32, not the kernel.
-  def k2_check(what, x, ref, gate):
-    for how, err in (('lane-scaled', lane_scaled_err(x, ref)),
-                     ('component-scaled', scaled_err(x, ref))):
-      mean, mx = err.mean().item(), err.max().item()
-      lanes_bad = int((err.max(dim=1).values > 1e-3).sum())
-      log(f'#   {what}, {how}: mean {mean:.2e} max {mx:.2e} '
-          f'lanes>1e-3 {lanes_bad}')
-      if gate and how == 'lane-scaled':
-        assert mean <= 1e-4, f'K2 {what}: mean {mean:.2e} > 1e-4'
-        assert mx <= 5e-2, f'K2 {what}: max {mx:.2e} > 5e-2'
-        assert lanes_bad <= BATCH // 10, f'K2 {what}: {lanes_bad} lanes'
-
-  k2_check('kernel vs plain float32', x_k, x_p, gate=True)
-  k2_check('kernel vs plain float64', x_k.double(), x_64, gate=True)
-  k2_check('plain float32 vs plain float64', x_p.double(), x_64, gate=False)
+  k2_check('K2 kernel vs plain float32', x_k, x_p, gate=True)
+  k2_check('K2 kernel vs plain float64', x_k.double(), x_64, gate=True)
+  k2_check('K2 plain float32 vs plain float64', x_p.double(), x_64,
+           gate=False)
   k2_err = (x_k - x_p).abs().max().item()
+
+  # K2-ell on finger-spin inputs rich in contacts, same bounds (ell_gates).
+  f_task = suite.build_task('finger', 'spin')      # CUDA by default
+  fm = f_task.model
+  f_lay = efc.layout(fm)
+  ell_args, f_d = finger_solver_inputs(fm, f_lay, BATCH, gen, dev)
+  ell_kw = dict(niter=int(fm.opt.iterations), ls_iter=solver.LS_ITERATIONS,
+                tol=solver.effective_tol(fm.opt.tolerance, torch.float32),
+                meaninertia=float(fm.stat_meaninertia))
+  nk.reset_launches()
+  xe_k, fe_k, ell_iters = nk.newton_solve_batched(
+      *ell_args, lay=f_lay, return_iters=True, **ell_kw)
+  assert nk.LAUNCHES == {'newton_solve_batched': 0, 'newton_solve_ell': 1}
+  plain_kw = dict(types=f_lay.types, ell_groups=f_lay.ell_groups)
+  xe_p, fe_p, ell_iters_p = nk.newton_solve_plain(
+      *ell_args, **plain_kw, return_iters=True, **ell_kw)
+  xe_64, fe_64 = nk.newton_solve_plain(
+      *[a.double() for a in ell_args], **plain_kw,
+      **dict(ell_kw, tol=solver.effective_tol(fm.opt.tolerance,
+                                              torch.float64)))
+  on, zones = cone_zones(f_lay, ell_args[0].double(), ell_args[2].double(),
+                         ell_args[5], xe_64)
+  cones = on.sum(dim=1)
+  lanes_on = float((cones > 0).double().mean())
+  log(f'# phase kernels: newton_solve_ell B={BATCH} nefc={f_lay.nefc} '
+      f'nv={fm.nv} ncg={len(f_lay.ell_groups[3][0])}: lanes with an active '
+      f'elliptic row {lanes_on:.4f}; active contacts {int(cones.sum())} '
+      f'(mean {cones.double().mean().item():.2f} per lane), zones at the '
+      f'float64 optimum top {zones["top"]:.4f} bottom '
+      f'{zones["bottom"]:.4f} mid {zones["mid"]:.4f}; iterations mean '
+      f'{ell_iters.float().mean().item():.2f} max {int(ell_iters.max())} '
+      f'(plain float32: mean {ell_iters_p.float().mean().item():.2f} max '
+      f'{int(ell_iters_p.max())}; lanes above 20: kernel '
+      f'{int((ell_iters > 20).sum())}, plain {int((ell_iters_p > 20).sum())}; '
+      f'lanes with the same count '
+      f'{float((ell_iters == ell_iters_p).double().mean()):.4f})')
+  assert lanes_on >= 0.9, 'K2-ell inputs: too few lanes in contact'
+  assert zones['bottom'] >= 0.01 and zones['mid'] >= 0.01, zones
+  assert torch.isfinite(fe_k).all() and torch.isfinite(xe_k).all()
+  ell_gates('K2-ell', xe_k, xe_p, xe_64)
+  for what, f, ref in (('kernel vs plain float32', fe_k, fe_p),
+                       ('kernel vs plain float64', fe_k.double(), fe_64),
+                       ('plain float32 vs plain float64', fe_p.double(),
+                        fe_64)):
+    err = lane_scaled_err(f, ref)
+    log(f'#   K2-ell forces, {what} (record): lane-scaled mean '
+        f'{err.mean().item():.2e} max {err.max().item():.2e}')
+  ell_err = (xe_k - xe_p).abs().max().item()
+  # The optimum does not depend on the Hessian or on the line search's
+  # phi'': a wrong cone block there changes only the path to it.  One
+  # Newton iteration does.  With no line-search step it lands on
+  # a - H^-1 grad (the cone blocks of H); with one, alpha = 1 - phi'(1) /
+  # phi''(1) (the cone blocks of phi'').  Where the step is exact, phi'(1)
+  # is rounding and alpha_n rounds to 1.0 in float32, which the guarded
+  # Newton's strict bracket test sends to the bisection midpoint, 2.5 or
+  # 0.5, lane by lane: so the one-step iterate is held only on the lanes
+  # where the float64 line search moves alpha off 1, where phi'' sets it.
+  one = {}
+  for ls in (0, 1):
+    kw1 = dict(ell_kw, niter=1, ls_iter=ls)
+    one[ls] = (
+        nk.newton_solve_batched(*ell_args, lay=f_lay, **kw1)[0],
+        nk.newton_solve_plain(*ell_args, **plain_kw, **kw1)[0],
+        nk.newton_solve_plain(
+            *[a.double() for a in ell_args], **plain_kw,
+            **dict(kw1, tol=solver.effective_tol(fm.opt.tolerance,
+                                                 torch.float64)))[0])
+  moved = lane_scaled_err(one[0][2], ell_args[6].double()).amax(dim=1) > 1e-3
+  off = lane_scaled_err(one[1][2], one[0][2]).amax(dim=1) > 1e-3
+  log(f'# phase kernels: newton_solve_ell, one Newton iteration: lanes '
+      f'whose step moves qacc {float(moved.double().mean()):.4f}; lanes '
+      f'whose one line-search step moves alpha off 1 '
+      f'{float(off.double().mean()):.4f}')
+  assert float(moved.double().mean()) >= 0.5, 'K2-ell one step: no step'
+  assert float(off.double().mean()) >= 0.2, 'K2-ell one step: alpha at 1'
+  ell_gates('K2-ell one iteration, no line search,', *one[0])
+  ell_gates('K2-ell one iteration, one line-search step, alpha off 1,',
+            *(x[off] for x in one[1]))
 
   # -- 3. against the float64 CPU path on a small input -------------------------
   cpu_task = suite.build_task('walker', 'walk', device='cpu')
   lanes = slice(0, 64)
-  small = {f: getattr(state.data, f)[lanes] for f in forward._STATE_FIELDS
-           if f != 'model_var'}
+  small = {f: x[lanes] for f, x in forward.state_of(state.data).items()}
   ctrl = torch.rand((64, m.nu), generator=gen, device=dev) * 2 - 1
   d_gpu = forward.make_data(m, 64, torch.float32, dev).replace(**small)
   d_cpu = forward.make_data(cpu_task.model, 64, torch.float64, 'cpu').replace(
@@ -250,6 +442,25 @@ def main() -> int:
     log(f'# phase reference: {f} after one control step, float32 card vs '
         f'float64 CPU: max scaled err {e.max().item():.2e}')
     assert e.max().item() <= 1e-2, f'{f} disagrees with the CPU reference'
+
+  # finger-spin: 64 lanes in contact from the K2-ell inputs
+  f_cpu = suite.build_task('finger', 'spin', device='cpu')
+  small = {f: x[lanes] for f, x in forward.state_of(f_d).items()}
+  ctrl = torch.rand((64, fm.nu), generator=gen, device=dev) * 2 - 1
+  d_gpu = forward.make_data(fm, 64, torch.float32, dev).replace(**small)
+  d_cpu = forward.make_data(f_cpu.model, 64, torch.float64, 'cpu').replace(
+      **{k: v.cpu().double() if v.is_floating_point() else v.cpu()
+         for k, v in small.items()})
+  d_gpu = forward.substeps(fm, d_gpu.replace(ctrl=ctrl),
+                           f_task.n_sub_steps())
+  d_cpu = forward.substeps(f_cpu.model,
+                           d_cpu.replace(ctrl=ctrl.cpu().double()),
+                           f_task.n_sub_steps())
+  for f in ('qpos', 'qvel'):
+    e = scaled_err(getattr(d_gpu, f).cpu().double(), getattr(d_cpu, f))
+    log(f'# phase reference: finger-spin {f} after one control step, '
+        f'float32 card vs float64 CPU: max scaled err {e.max().item():.2e}')
+    assert e.max().item() <= 1e-2, f'finger {f} disagrees with the CPU path'
 
   # -- 4. the main path: walker-walk@4096 rollout --------------------------------
   run = env.rollout_fn(CONTROL_STEPS)
@@ -277,6 +488,66 @@ def main() -> int:
     assert n == want, f'{k}: {n} launches, expected {want}'
   log(f'# walker-walk@{BATCH} env-steps/s: {sps:.1f} (mean reward '
       f'{rewards.mean().item():.4f})')
+
+  # -- 4b. the main path: finger-spin@4096 rollout, three runs ------------------
+  f_env = BatchedEnv(f_task, BATCH)
+  f_run = f_env.rollout_fn(CONTROL_STEPS)
+  f_sps = []
+  for i in range(FINGER_RUNS):
+    state = f_env.reset(seed=i)
+    torch.cuda.synchronize()
+    lk.reset_launches()
+    nk.reset_launches()
+    resets0 = f_env.reset_calls
+    t0 = time.perf_counter()
+    state, rewards = f_run(state, gen)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    f_launches = dict(lk.LAUNCHES, **nk.LAUNCHES)
+    f_sps.append(BATCH * CONTROL_STEPS / dt)
+    log(f'# phase rollout: finger-spin@{BATCH} run {i} x {CONTROL_STEPS} '
+        f'control steps in {dt:.2f} s ({f_sps[-1]:.1f} env-steps/s); '
+        f'launches {f_launches}; mean reward {rewards.mean().item():.4f}')
+    for f, x in forward.state_of(state.data).items():
+      assert x.dtype == torch.bool or torch.isfinite(x).all(), f'{f} not finite'
+    assert tuple(rewards.shape) == (CONTROL_STEPS, BATCH)
+    assert bool(((rewards >= 0) & (rewards <= 1)).all()), 'finger reward'
+    assert f_env.reset_calls == resets0        # resets come from the pool
+    for k, n in f_launches.items():
+      want = FINGER_PER_STEP[k] * CONTROL_STEPS
+      assert n == want, f'finger {k}: {n} launches, expected {want}'
+  log(f'# finger-spin@{BATCH} env-steps/s: '
+      f'{sorted(f_sps)[len(f_sps) // 2]:.1f} (median of {FINGER_RUNS} runs: '
+      f'{", ".join(f"{v:.1f}" for v in f_sps)})')
+  launches['newton_solve_ell'] = f_launches['newton_solve_ell']
+
+  # -- 4c. finger-spin's reset pool on the card -------------------------------
+  # An episode limit of 0.06 s (3 control steps) sends every lane through
+  # the pool at the third step: each lane's integration state is then pool
+  # entry runner.pool_index(0, lane, B), and init_states is not called.
+  p_env = BatchedEnv(f_task, BATCH, time_limit=0.06)
+  state = p_env.reset(seed=FINGER_RUNS)
+  torch.cuda.synchronize()
+  lk.reset_launches()
+  nk.reset_launches()
+  resets0 = p_env.reset_calls
+  state, rewards = p_env.rollout_fn(3)(state, gen)
+  torch.cuda.synchronize()
+  p_launches = dict(lk.LAUNCHES, **nk.LAUNCHES)
+  taken = runner.pool_index(torch.zeros_like(state.episode_id),
+                            torch.arange(BATCH, device=dev), BATCH)
+  log(f'# phase rollout: finger-spin@{BATCH} x 3 control steps, episode '
+      f'limit 0.06 s: episodes ended {int(state.episode_id.sum())}; '
+      f'init_states resets {p_env.reset_calls - resets0}; launches '
+      f'{p_launches}')
+  assert bool((state.episode_id == 1).all() and (state.step_count == 0).all())
+  assert p_env.reset_calls == resets0, 'finger reset outside the pool'
+  for f, x in forward.state_of(state.data).items():
+    assert torch.equal(x, state.reset_pool[f][taken]), f'pool {f}'
+  assert bool(((rewards >= 0) & (rewards <= 1)).all()), 'finger reward'
+  for k, n in p_launches.items():
+    want = FINGER_PER_STEP[k] * 3
+    assert n == want, f'finger pool run {k}: {n} launches, expected {want}'
 
   # -- 5. timing at the main path's shapes ----------------------------------------
   A = d.qM.contiguous()
@@ -313,6 +584,18 @@ def main() -> int:
       lambda: nk.newton_solve_plain(*k2_args, types=lay.types, **k2_kw),
       None, k2_bytes,
       newton_flops(nefc, nv, solver.LS_ITERATIONS, iters), k2_err,
+      reps=10, plain_reps=2)
+  f_nv, f_nefc = fm.nv, f_lay.nefc
+  ncg = len(f_lay.ell_groups[3][0])
+  ell_bytes = (BATCH * 4 * (f_nefc * f_nv + f_nv * f_nv + 4 * f_nefc
+                            + 2 * f_nv + f_nv + f_nefc)
+               + 4 * (3 * ncg + ncg + f_nefc))
+  row('newton_solve_ell',
+      lambda: nk.newton_solve_batched(*ell_args, lay=f_lay, **ell_kw),
+      lambda: nk.newton_solve_plain(*ell_args, **plain_kw, **ell_kw),
+      None, ell_bytes,
+      newton_flops(f_nefc, f_nv, solver.LS_ITERATIONS, ell_iters,
+                   cones=cones.to(ell_iters.device)), ell_err,
       reps=10, plain_reps=2)
 
   log(smi)

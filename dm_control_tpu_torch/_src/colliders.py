@@ -1,9 +1,12 @@
 """Vectorized narrowphase colliders (torch).
 
 The port of the parts of `dm_control_tpu/_src/colliders.py` the walker
-path reaches: contact-parameter mixing, the contact frame, the
-plane-capsule collider and the `collide_all` dispatch.  Every other
-geom-type pair raises NotImplementedError naming the pair.
+and finger paths reach: contact-parameter mixing, the contact frame, the
+plane-capsule, plane-cylinder, capsule-capsule, capsule-cylinder and
+cylinder-cylinder colliders (with sphere-cylinder as their helper) and the
+`collide_all` dispatch.  A collider returns either one normal or a whole
+frame per contact; `collide_all` builds the frame from a normal.  Every
+other geom-type pair raises NotImplementedError naming the pair.
 """
 
 from __future__ import annotations
@@ -83,8 +86,179 @@ def _plane_capsule(p_pos, p_mat, p_size, c_pos, c_mat, c_size):
           torch.stack([frame, frame], -3))
 
 
+def _plane_cylinder(p_pos, p_mat, p_size, c_pos, c_mat, c_size):
+  """Up to 4 contacts: two rim points at each end cap (approximate rim)."""
+  n = p_mat[..., :, 2]
+  axis = c_mat[..., :, 2]
+  r = c_size[..., 0]
+  hl = c_size[..., 1]
+  # radial direction: -n projected onto the plane perpendicular to the axis
+  proj = -n + axis * (n * axis).sum(-1, keepdim=True)
+  pnorm = math.norm_safe(proj)
+  # axis ~ parallel to n: any radial direction
+  safe = (pnorm > 1e-8)[..., None]
+  radial = torch.where(safe, proj / torch.clamp(pnorm, min=1e-12)[..., None],
+                       c_mat[..., :, 0])
+  dists, poss = [], []
+  for sign_end in (1.0, -1.0):
+    end = c_pos + sign_end * hl[..., None] * axis
+    for sign_rad in (1.0, -1.0):
+      p = end + sign_rad * r[..., None] * radial
+      h = (n * (p - p_pos)).sum(-1)
+      dists.append(h)
+      poss.append(p - n * (h / 2)[..., None])
+  return (torch.stack(dists, -1), torch.stack(poss, -2),
+          torch.stack([n] * 4, -2))
+
+
+def _capsule_capsule(pos1, mat1, size1, pos2, mat2, size2):
+  """One contact between the closest points of the two axes; the second
+  slot is inactive padding."""
+  ax1, ax2 = mat1[..., :, 2], mat2[..., :, 2]
+  h1, h2 = size1[..., 1:2], size2[..., 1:2]
+  c1, c2 = math.closest_segment_to_segment_points(
+      pos1 - h1 * ax1, pos1 + h1 * ax1, pos2 - h2 * ax2, pos2 + h2 * ax2)
+  r1, r2 = size1[..., 0], size2[..., 0]
+  vec = c2 - c1
+  n = math.normalize(vec)
+  dist = math.norm_safe(vec) - r1 - r2
+  pos = c1 + n * (r1 + dist / 2)[..., None]
+  big = torch.full_like(dist, 1e10)
+  return (torch.stack([dist, big], -1), torch.stack([pos, pos], -2),
+          torch.stack([n, n], -2))
+
+
+def _sphere_cylinder(s_pos, s_mat, s_size, c_pos, c_mat, c_size):
+  """Sphere vs solid cylinder: side, cap and rim cases, branch-free."""
+  r_s = s_size[..., 0]
+  R = c_size[..., 0]
+  hl = c_size[..., 1]
+  local = torch.einsum('...ij,...i->...j', c_mat, s_pos - c_pos)
+  xy = local[..., :2]
+  z = local[..., 2]
+  r_xy = math.norm_safe(xy)
+  u_xy = xy / torch.clamp(r_xy, min=1e-12)[..., None]
+
+  inside = (r_xy < R) & (z.abs() < hl)
+  # outside: clamp to the solid cylinder
+  xy_c = torch.where((r_xy > R)[..., None], u_xy * R[..., None], xy)
+  z_c = torch.maximum(torch.minimum(z, hl), -hl)
+  closest_out = torch.cat([xy_c, z_c[..., None]], -1)
+  d_out = math.norm_safe(local - closest_out)
+  n_out = (local - closest_out) / torch.clamp(d_out, min=1e-12)[..., None]
+
+  # inside: push out through the nearest face (side vs cap)
+  d_side = R - r_xy
+  d_cap = hl - z.abs()
+  use_side = d_side < d_cap
+  zero = torch.zeros_like(z)[..., None]
+  n_in = torch.where(use_side[..., None], torch.cat([u_xy, zero], -1),
+                     torch.cat([torch.zeros_like(xy), torch.sign(z)[..., None]],
+                               -1))
+  d_in = -torch.where(use_side, d_side, d_cap)
+  closest_in = torch.where(
+      use_side[..., None], torch.cat([u_xy * R[..., None], z[..., None]], -1),
+      torch.cat([xy, (torch.sign(z) * hl)[..., None]], -1))
+
+  dist = torch.where(inside, d_in, d_out) - r_s
+  n_l = torch.where(inside[..., None], n_in, n_out)
+  surf_l = torch.where(inside[..., None], closest_in, closest_out)
+  # normal from the sphere (geom1) to the cylinder (geom2) = -outward
+  n = torch.einsum('...ij,...j->...i', c_mat, -n_l)
+  surf = c_pos + torch.einsum('...ij,...j->...i', c_mat, surf_l)
+  pos = (surf + s_pos + n * r_s[..., None]) / 2
+  return dist[..., None], pos[..., None, :], n[..., None, :]
+
+
+def _capsule_cylinder(cp_pos, cp_mat, cp_size, cy_pos, cy_mat, cy_size):
+  """Capsule vs cylinder: sphere-cylinder at the closest capsule point."""
+  ax_cp, ax_cy = cp_mat[..., :, 2], cy_mat[..., :, 2]
+  h_cp, h_cy = cp_size[..., 1:2], cy_size[..., 1:2]
+  c1, _ = math.closest_segment_to_segment_points(
+      cp_pos - h_cp * ax_cp, cp_pos + h_cp * ax_cp,
+      cy_pos - h_cy * ax_cy, cy_pos + h_cy * ax_cy)
+  d, p, n = _sphere_cylinder(c1, cp_mat, cp_size, cy_pos, cy_mat, cy_size)
+  return (torch.cat([d, torch.full_like(d, 1e10)], -1),
+          torch.cat([p, p], -2), torch.cat([n, n], -2))
+
+
+_RIM_SAMPLES = 8
+
+
+def _rim_points(pos, mat, r, h):
+  """(..., 2 * _RIM_SAMPLES, 3) world points on both rim circles."""
+  ang = np.linspace(0, 2 * np.pi, _RIM_SAMPLES, endpoint=False)
+  circ = np.stack([np.cos(ang), np.sin(ang), np.zeros_like(ang)], -1)
+  # (2, K, 3) local offsets for unit radius / unit half-length
+  circ = torch.as_tensor(circ, dtype=pos.dtype, device=pos.device)
+  ends = torch.as_tensor([-1.0, 1.0], dtype=pos.dtype, device=pos.device)
+  ez = torch.as_tensor([0.0, 0.0, 1.0], dtype=pos.dtype, device=pos.device)
+  local = (r[..., None, None, None] * circ
+           + h[..., None, None] * ends[:, None, None] * ez)
+  local = local.reshape(local.shape[:-3] + (2 * _RIM_SAMPLES, 3))
+  return pos[..., None, :] + torch.einsum('...ij,...kj->...ki', mat, local)
+
+
+def _deepest_point(points, c_pos, c_mat, c_size):
+  """Deepest of the points (..., k, 3) vs a solid cylinder:
+  (dist (..., 1), pos (..., 1, 3), normal (..., 1, 3))."""
+  shape = points.shape[:-1]
+  cpos_b = c_pos[..., None, :].expand(points.shape)
+  cmat_b = c_mat[..., None, :, :].expand(shape + (3, 3))
+  csize_b = c_size[..., None, :].expand(shape + (c_size.shape[-1],))
+  ssize_b = points.new_zeros(shape + (c_size.shape[-1],))
+  d, p, n = _sphere_cylinder(points, cmat_b, ssize_b, cpos_b, cmat_b, csize_b)
+  d, p, n = d[..., 0], p[..., 0, :], n[..., 0, :]
+  i = torch.argmin(d, dim=-1, keepdim=True)
+  return (torch.gather(d, -1, i),
+          torch.gather(p, -2, i[..., None].expand(i.shape + (3,))),
+          torch.gather(n, -2, i[..., None].expand(i.shape + (3,))))
+
+
+def _cylinder_cylinder(pos1, mat1, size1, pos2, mat2, size2):
+  """Cylinder vs cylinder with flat caps and sharp rims: the 2 deepest of
+  five candidates (the JAX package's analytic families):
+    1. side-side: sphere(r1) at the closest axis point vs solid cylinder 2,
+       kept only where the contact is radial on cylinder 1;
+    2./3. the deepest of 8 samples on each rim of one cylinder vs the
+       other solid cylinder (normals flipped for cylinder 2's rims);
+    4./5. the deepest axis endpoint of one cylinder vs the other (coaxial
+       stacks of equal radii).
+  """
+  r1, h1, ax1 = size1[..., 0], size1[..., 1:2], mat1[..., :, 2]
+  r2, h2, ax2 = size2[..., 0], size2[..., 1:2], mat2[..., :, 2]
+
+  p1, q1 = pos1 - h1 * ax1, pos1 + h1 * ax1
+  p2, q2 = pos2 - h2 * ax2, pos2 + h2 * ax2
+  c1, _ = math.closest_segment_to_segment_points(p1, q1, p2, q2)
+  d_ss, pos_ss, n_ss = _sphere_cylinder(c1, mat1, size1, pos2, mat2, size2)
+  align = torch.einsum('...i,...i->...', n_ss[..., 0, :], ax1).abs()
+  d_ss = torch.where(align[..., None] < 0.3, d_ss, 1e10)
+
+  d_r1, p_r1, n_r1 = _deepest_point(_rim_points(pos1, mat1, r1, h1),
+                                    pos2, mat2, size2)
+  d_r2, p_r2, n_r2 = _deepest_point(_rim_points(pos2, mat2, r2, h2),
+                                    pos1, mat1, size1)
+  d_e1, p_e1, n_e1 = _deepest_point(torch.stack([p1, q1], -2),
+                                    pos2, mat2, size2)
+  d_e2, p_e2, n_e2 = _deepest_point(torch.stack([p2, q2], -2),
+                                    pos1, mat1, size1)
+
+  dists = torch.cat([d_ss, d_r1, d_r2, d_e1, d_e2], -1)       # (..., 5)
+  poss = torch.cat([pos_ss, p_r1, p_r2, p_e1, p_e2], -2)
+  ns = torch.cat([n_ss, n_r1, -n_r2, n_e1, -n_e2], -2)        # geom1 -> 2
+  order = torch.argsort(dists, dim=-1, stable=True)[..., :2]
+  o3 = order[..., None].expand(order.shape + (3,))
+  return (torch.gather(dists, -1, order), torch.gather(poss, -2, o3),
+          torch.gather(ns, -2, o3))
+
+
 _COLLIDERS = {
     (GeomType.PLANE, GeomType.CAPSULE): _plane_capsule,
+    (GeomType.PLANE, GeomType.CYLINDER): _plane_cylinder,
+    (GeomType.CAPSULE, GeomType.CAPSULE): _capsule_capsule,
+    (GeomType.CAPSULE, GeomType.CYLINDER): _capsule_cylinder,
+    (GeomType.CYLINDER, GeomType.CYLINDER): _cylinder_cylinder,
 }
 
 
@@ -106,8 +280,13 @@ def collide_all(m: Model, d: Data) -> Data:
     g2 = mirror(m, ref, grp.g2)
     size1 = mirror(m, ref, m.geom_size[grp.g1])
     size2 = mirror(m, ref, m.geom_size[grp.g2])
-    dist, pos, frame = fn(d.geom_xpos[:, g1], d.geom_xmat[:, g1], size1,
-                          d.geom_xpos[:, g2], d.geom_xmat[:, g2], size2)
+    dist, pos, normal_or_frame = fn(
+        d.geom_xpos[:, g1], d.geom_xmat[:, g1], size1,
+        d.geom_xpos[:, g2], d.geom_xmat[:, g2], size2)
+    if normal_or_frame.dim() == pos.dim() + 1:
+      frame = normal_or_frame
+    else:
+      frame = make_frame(normal_or_frame)
     n = K * k
 
     def rep(x):

@@ -1,11 +1,12 @@
-"""Constraint assembly: joint limits and pyramidal contacts -> efc rows.
+"""Constraint assembly: dof friction loss, joint limits, contacts -> efc rows.
 
 The port of `dm_control_tpu/_src/constraint.py`, batch-first.  The row
 layout is the static one of `efc.layout`; every row family is one batched
 computation.  The soft-constraint parameterization (solref/solimp ->
 stiffness, damping, impedance, regularizer) is the JAX package's.
-Equality, friction-loss and tendon rows, ball-joint limits and elliptic
-contact rows are not ported yet and raise.
+Contacts give condim-1 normal rows, pyramid edges, or elliptic normal and
+friction rows.  Equality rows, tendon friction loss and tendon and
+ball-joint limits are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -65,7 +66,8 @@ class _Blocks:
     self.D, self.aref, self.frictionloss = [], [], []
     self.active = []
 
-  def add(self, J, pos, margin, solref, solimp, invweight, active):
+  def add(self, J, pos, margin, solref, solimp, invweight, active,
+          frictionloss=None):
     """One block of n rows: J (B, n, nv); the rest broadcast to (B, n)."""
     m, d = self.m, self.d
     B, n = J.shape[0], J.shape[1]
@@ -74,12 +76,14 @@ class _Blocks:
     k, b, imp = _kbi(m, solref, solimp, pmm)
     r = torch.clamp((1.0 - imp) / imp * invweight, min=1e-14)
     vel = torch.einsum('Bnv,Bv->Bn', J, d.qvel)
+    if frictionloss is None:
+      frictionloss = d.qpos.new_zeros((B, n))
     self.J.append(J)
     self.pos.append(bn(pos))
     self.margin.append(bn(margin))
     self.D.append(bn(1.0 / r))
     self.aref.append(bn(-b * vel - k * imp * pmm))
-    self.frictionloss.append(d.qpos.new_zeros((B, n)))
+    self.frictionloss.append(bn(frictionloss))
     self.active.append(bn(active))
 
   def finalize(self) -> Data:
@@ -107,13 +111,23 @@ def make_constraint(m: Model, d: Data) -> Data:
     return d
   lay = efc.layout(m)
   ref = d.qpos
-  if ((m.neq and not m.opt.disableflags & DisableBit.EQUALITY)
-      or lay.fric_dof.size or lay.fric_ten.size):
-    raise NotImplementedError(
-        'equality and friction-loss rows are not ported yet')
+  if m.neq and not m.opt.disableflags & DisableBit.EQUALITY:
+    raise NotImplementedError('equality rows are not ported yet')
+  if lay.fric_ten.size:
+    raise NotImplementedError('tendon friction-loss rows are not ported yet')
   if lay.lim_ball.size or lay.lim_ten.size:
     raise NotImplementedError('ball/tendon limit rows are not ported yet')
   blocks = _Blocks(m, d)
+
+  # --- dof friction loss (zero distance: no spring term, always active) -------
+  if lay.fric_dof.size:
+    idx = lay.fric_dof
+    zero = ref.new_zeros(idx.size)
+    blocks.add(mirror(m, ref, np.eye(m.nv)[idx]).expand(ref.shape[0], -1, -1),
+               zero, zero, mirror(m, ref, m.dof_solref[idx]),
+               mirror(m, ref, m.dof_solimp[idx]),
+               mirror(m, ref, m.dof_invweight0[idx]), zero == 0,
+               frictionloss=mirror(m, ref, m.dof_frictionloss[idx]))
 
   # --- joint limits (slide/hinge, vectorized) --------------------------------
   if lay.lim_jnt.size:
@@ -182,13 +196,12 @@ def contact_jacobians(m: Model, d: Data, lay: efc.Layout):
 
 
 def _contact_rows(m: Model, d: Data, lay: efc.Layout, blocks: _Blocks):
-  """All contact efc rows (condim-1 normals and pyramid edges)."""
+  """All contact efc rows: normals (condim 1 and elliptic), pyramid edges
+  and elliptic friction rows."""
   con = d.contact
   c = lay.contact
   ref = d.qpos
   B = ref.shape[0]
-  if c.ellf_row.size:
-    raise NotImplementedError('elliptic contact rows are not ported yet')
   nrows = lay.nefc - lay.n_noncontact
   base = lay.n_noncontact
   impratio = float(m.opt.impratio)
@@ -238,6 +251,18 @@ def _contact_rows(m: Model, d: Data, lay: efc.Layout, blocks: _Blocks):
     D[:, rows] = d_n[:, ci] / (2.0 * mu2 * (1.0 + mu2)) * impratio
     aref[:, rows] = (-b[:, ci] * vel
                      - (k * imp)[:, ci] * (dist[:, ci] - margin[:, ci]))
+    act[:, rows] = active[:, ci]
+
+  if c.ellf_row.size:
+    # elliptic friction rows: D scaled by (mu_dir / mu_1)^2 * impratio, no
+    # spring term, pos and margin 0
+    rows = mirror(m, ref, c.ellf_row - base)
+    ci = mirror(m, ref, c.ellf_con)
+    Jf = jdirs[:, ci, mirror(m, ref, c.ellf_dir)]
+    ratio = mirror(m, ref, c.friction[c.ellf_con, c.ellf_dir]) / mu1[ci]
+    J[:, rows] = Jf
+    D[:, rows] = d_n[:, ci] * ratio * ratio * impratio
+    aref[:, rows] = -b[:, ci] * torch.einsum('Brv,Bv->Br', Jf, d.qvel)
     act[:, rows] = active[:, ci]
 
   blocks.J.append(J)

@@ -369,6 +369,12 @@ _STATE_FIELDS = ('time', 'qpos', 'qvel', 'act', 'ctrl', 'qfrc_applied',
                  'xfrc_applied', 'qacc_warmstart', 'diverged', 'model_var')
 
 
+def state_of(d: Data) -> dict:
+  """The batched integration-state tensors of d, by field name (every
+  state field but `model_var`, which is not per lane)."""
+  return {f: getattr(d, f) for f in _STATE_FIELDS if f != 'model_var'}
+
+
 def substeps(m: Model, d: Data, n: int) -> Data:
   """Advance `n` physics steps; final Data is step()-complete.
 

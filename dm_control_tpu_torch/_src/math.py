@@ -1,7 +1,7 @@
 """Quaternion, rotation and 6-D spatial algebra primitives (torch).
 
 The counterpart of `dm_control_tpu/_src/math.py`, for the functions the
-walker path calls.  Every function broadcasts over leading axes, so the
+walker and finger paths call.  Every function broadcasts over leading axes, so the
 batch axis B rides along.  Conventions:
 
   * quaternions are (w, x, y, z), unit norm;
@@ -181,3 +181,38 @@ def inert_mul(cin: torch.Tensor, vec: torch.Tensor) -> torch.Tensor:
   trq = rot3(inertia, w) + cross(h, v)
   lin = mass[..., None] * v - cross(h, w)
   return torch.cat([trq, lin], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Segments.
+# ---------------------------------------------------------------------------
+
+
+def closest_segment_point(a: torch.Tensor, b: torch.Tensor,
+                          pt: torch.Tensor) -> torch.Tensor:
+  """Closest point on segment [a, b] to point pt."""
+  ab = b - a
+  denom = (ab * ab).sum(-1, keepdim=True)
+  t = ((pt - a) * ab).sum(-1, keepdim=True) / torch.clamp(denom, min=1e-12)
+  return a + torch.clamp(t, 0.0, 1.0) * ab
+
+
+def closest_segment_to_segment_points(p1, q1, p2, q2):
+  """Closest points between segments [p1,q1] and [p2,q2] (branch-free)."""
+  d1 = q1 - p1
+  d2 = q2 - p2
+  r = p1 - p2
+  a = (d1 * d1).sum(-1)
+  e = (d2 * d2).sum(-1)
+  f = (d2 * r).sum(-1)
+  c = (d1 * r).sum(-1)
+  b = (d1 * d2).sum(-1)
+  denom = a * e - b * b
+  eps = 1e-12
+  s = torch.where(denom > eps,
+                  (b * f - c * e) / torch.clamp(denom, min=eps), 0.0)
+  s = torch.clamp(s, 0.0, 1.0)
+  t = torch.clamp((b * s + f) / torch.clamp(e, min=eps), 0.0, 1.0)
+  # re-project s for the clamped t
+  s = torch.clamp((b * t - c) / torch.clamp(a, min=eps), 0.0, 1.0)
+  return p1 + d1 * s[..., None], p2 + d2 * t[..., None]

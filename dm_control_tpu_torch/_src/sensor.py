@@ -1,19 +1,23 @@
 """Sensors: fill Data.sensordata (reference stages mj_sensorPos/Vel/Acc).
 
 The port of `dm_control_tpu/_src/sensor.py` for the sensor types the
-walker path reads (`subtreelinvel`).  The stage split is the JAX
-package's: rows outside the requested stage keep their previous values.
-Every other sensor type raises NotImplementedError.
+walker and finger paths read: `subtreelinvel`, `jointpos`, `jointvel`,
+`framepos` (of a body, xbody, geom or site) and `touch`.  Each is one
+batched computation over the leading batch axis.  The stage split is the
+JAX package's: rows outside the requested stage keep their previous
+values.  Every other sensor type raises NotImplementedError.
 """
 
 from __future__ import annotations
 
 import torch
 
+from dm_control_tpu_torch._src import efc
 from dm_control_tpu_torch._src import math
 from dm_control_tpu_torch._src import tree
-from dm_control_tpu_torch._src.types import (Data, DisableBit, Model,
-                                             SensorType, mirror)
+from dm_control_tpu_torch._src.types import (Data, DisableBit, GeomType,
+                                             Model, ObjType, SensorType,
+                                             mirror)
 
 _ACC_STAGE = (SensorType.TOUCH, SensorType.ACCELEROMETER,
               SensorType.FORCE, SensorType.TORQUE, SensorType.ACTUATORFRC,
@@ -33,22 +37,48 @@ def sensors(m: Model, d: Data, stages: str = 'all') -> Data:
     return d
 
   out = d.sensordata.clone()
-  linvel = None
+  linvel = forces = None
   for s in selected:
     stype = SensorType(int(m.sensor_type[s]))
     objid = int(m.sensor_objid[s])
     adr, dim = int(m.sensor_adr[s]), int(m.sensor_dim[s])
-    if stype == SensorType.SUBTREELINVEL:
+    if stype == SensorType.JOINTPOS:
+      val = d.qpos[:, int(m.jnt_qposadr[objid])]
+    elif stype == SensorType.JOINTVEL:
+      val = d.qvel[:, int(m.jnt_dofadr[objid])]
+    elif stype == SensorType.FRAMEPOS:
+      val = _object_pos(d, int(m.sensor_objtype[s]), objid)
+    elif stype == SensorType.SUBTREELINVEL:
       if linvel is None:
         linvel = _subtree_linvel(m, d)
       val = linvel[:, objid]
+    elif stype == SensorType.TOUCH:
+      if forces is None:
+        forces = _contact_forces(m, d)
+      val = _touch(m, d, objid, forces)
     else:
       raise NotImplementedError(f'sensor {stype.name} is not ported yet')
     cutoff = float(m.sensor_cutoff[s])
     if cutoff > 0:
-      val = torch.clamp(val, -cutoff, cutoff)
+      # touch is a magnitude: the reference clips it to [0, cutoff]
+      lo = 0.0 if stype == SensorType.TOUCH else -cutoff
+      val = torch.clamp(val, lo, cutoff)
     out[:, adr:adr + dim] = val.reshape(val.shape[0], dim)
   return d.replace(sensordata=out)
+
+
+def _object_pos(d: Data, objtype: int, objid: int) -> torch.Tensor:
+  """(B, 3) world position of a sensor's frame object."""
+  ot = ObjType(objtype)
+  if ot == ObjType.BODY:
+    return d.xipos[:, objid]
+  if ot == ObjType.XBODY:
+    return d.xpos[:, objid]
+  if ot == ObjType.GEOM:
+    return d.geom_xpos[:, objid]
+  if ot == ObjType.SITE:
+    return d.site_xpos[:, objid]
+  raise NotImplementedError(f'frame sensor objtype {ot.name}')
 
 
 def _subtree_linvel(m: Model, d: Data) -> torch.Tensor:
@@ -61,3 +91,68 @@ def _subtree_linvel(m: Model, d: Data) -> torch.Tensor:
   tot = torch.einsum('bc,Bcx->Bbx', sm, mass[:, None] * lin)
   den = torch.clamp(sm @ mass, min=1e-12)
   return tot / den[:, None]
+
+
+def _contact_forces(m: Model, d: Data) -> torch.Tensor:
+  """(B, ncon, 3) contact-frame force (normal, t1, t2) of each contact.
+
+  Decodes efc_force with the static layout: normal and elliptic friction
+  rows map 1:1; pyramid edge forces recombine (normal = sum of the edge
+  forces, tangent = mu (f+ - f-)), the reference's mj_contactForce."""
+  ref = d.qpos
+  B, ncon = d.contact.dist.shape
+  flat = ref.new_zeros((B, ncon * 3))
+  c = efc.layout(m).contact
+  if c is None or not c.ncon:
+    return flat.reshape(B, ncon, 3)
+
+  def add(con, slot, rows, weight=None):
+    f = d.efc_force[:, mirror(m, ref, rows)]
+    if weight is not None:
+      f = f * mirror(m, ref, weight)
+    flat.index_add_(1, mirror(m, ref, con * 3 + slot), f)
+
+  if c.nrm_row.size:
+    add(c.nrm_con, 0, c.nrm_row)
+  if c.ellf_row.size:
+    sel = c.ellf_dir < 2
+    add(c.ellf_con[sel], 1 + c.ellf_dir[sel], c.ellf_row[sel])
+  if c.pyr_row.size:
+    add(c.pyr_con, 0, c.pyr_row)
+    sel = c.pyr_dir < 2
+    add(c.pyr_con[sel], 1 + c.pyr_dir[sel], c.pyr_row[sel],
+        c.friction[c.pyr_con[sel], c.pyr_dir[sel]] * c.pyr_sign[sel])
+  return flat.reshape(B, ncon, 3)
+
+
+def _touch(m: Model, d: Data, siteid: int,
+           forces: torch.Tensor) -> torch.Tensor:
+  """(B,) sum of the normal forces of the active contacts on the site's
+  body whose point lies inside the site's volume."""
+  ref = d.qpos
+  con = d.contact
+  if con.dist.shape[1] == 0:
+    return ref.new_zeros(ref.shape[0])
+  bodyid = int(m.site_bodyid[siteid])
+  g_body = mirror(m, ref, m.geom_bodyid)
+  b1 = g_body[con.geom1.clamp(min=0).long()]
+  b2 = g_body[con.geom2.clamp(min=0).long()]
+  involves = (b1 == bodyid) | (b2 == bodyid)
+  active = con.dist < con.includemargin
+  size = mirror(m, ref, m.site_size[siteid])
+  local = torch.einsum('Bab,Bca->Bcb', d.site_xmat[:, siteid],
+                       con.pos - d.site_xpos[:, siteid, None])
+  stype = GeomType(int(m.site_type[siteid]))
+  if stype == GeomType.SPHERE:
+    inside = (local * local).sum(-1) <= size[0] ** 2
+  elif stype == GeomType.CAPSULE:
+    z = torch.clamp(local[..., 2], -size[1], size[1])
+    dd = local - torch.stack([torch.zeros_like(z), torch.zeros_like(z), z],
+                             -1)
+    inside = (dd * dd).sum(-1) <= size[0] ** 2
+  elif stype == GeomType.ELLIPSOID:
+    inside = ((local / size) ** 2).sum(-1) <= 1.0
+  else:  # box
+    inside = (local.abs() <= size).all(-1)
+  mask = involves & active & inside
+  return torch.where(mask, forces[..., 0].abs(), 0.0).sum(-1)

@@ -5,10 +5,10 @@ The port of `dm_control_tpu/_src/solver.py`.  The problem is
   min_x  0.5 (x - a)' M (x - a) + sum_i c_i((J x - aref)_i)
 
 with quadratic (equality), one-sided quadratic (limits, pyramid edges) and
-Huber (friction loss) row costs.  The batched solve is
-`ops.newton_kernel.newton_solve_batched`: the Hopper kernel on the card
-(which raises past its size limit, nv <= MAX_NV), the batched torch core
-on the CPU.  Elliptic cones are not ported yet and raise.
+Huber (friction loss) row costs, and a per-contact cone cost for elliptic
+contacts.  The batched solve is `ops.newton_kernel.newton_solve_batched`:
+the Hopper kernels on the card (K2, or K2-ell for elliptic cones; they
+raise past their limits), the batched torch core on the CPU.
 """
 
 from __future__ import annotations
@@ -41,8 +41,6 @@ def solve(m: Model, d: Data) -> Data:
   if nefc == 0 or m.nv == 0 or m.opt.disableflags & DisableBit.CONSTRAINT:
     return d.replace(qacc=d.qacc_smooth, qacc_warmstart=d.qacc_smooth,
                      qfrc_constraint=torch.zeros_like(d.qacc_smooth))
-  if lay.ell_groups:
-    raise NotImplementedError('elliptic friction cones are not ported yet')
   if int(m.opt.noslip_iterations) > 0:
     raise NotImplementedError('noslip is not ported yet')
   dtype = d.qpos.dtype

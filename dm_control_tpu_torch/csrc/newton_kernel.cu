@@ -1,17 +1,33 @@
 // The whole batched projected-Newton constraint solve for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel of dm_control_tpu/ops/newton_kernel.py
-// (newton_solve_batched -> _build -> _make_kernel), for layouts without
-// elliptic cones.  Per environment it minimises
-//   0.5 (x - a)' M (x - a) + sum_i c_i((J x - aref)_i)
+// (newton_solve_batched -> _build -> _make_kernel), elliptic cones
+// included.  Per environment it minimises
+//   0.5 (x - a)' M (x - a) + sum_i c_i((J x - aref)_i) + sum_c c_c(jar_c)
 // in the TPU kernel's order: warmstart choice by cost, row forces/weights
-// (diag_terms), H = M + J' W J, Cholesky with +1e-12 on the pivot, a
+// (diag_terms), the elliptic contacts' zone terms (ell_terms), H = M +
+// J' W J + sum_c J_c' W_c J_c, Cholesky with +1e-12 on the pivot, a
 // 12-step guarded Newton line search, accept-if-improved, and the per-env
 // exit on scaled improvement or gradient < tol.
 //
+// One kernel for both layouts: wherever the TPU kernel calls ell_terms
+// (the warmstart costs, the gradient, the Hessian, the line search's
+// phi' / phi'' and the final forces) a loop runs over the ncg elliptic
+// contacts, which is empty where the layout has none (walker: K2); with
+// them it is K2-ell.  A contact is condim 3 (rows n, t1, t2, row scales
+// s): y = jar * s, n = y_0, t = |y_1..2|;
+// top zone (n >= mu t) nothing, bottom zone (mu n <= -t) force -D y and
+// block D I, middle zone force fn (1, -mu u) with fn = D (mu t - n) /
+// (1 + mu^2), u = y_1..2 / t, and block D/(1+mu^2) v v' + mu fn / t
+// (P - e e') with v = (1, -mu u), e = (0, u), P = diag(0, 1, 1); all in
+// raw residuals through s.  The TPU kernel's diag + p p' - m m' form is
+// the same matrix.  Rows of type ELLIPTIC give nothing in row_terms, so
+// no row counts twice.
+//
 // Layout: batch-last as on the TPU: J (nv, nefc, B), M (nv, nv, B), row
-// vectors (nefc, B), dof vectors (nv, B).  No padding of nefc or nv (that
-// was Mosaic's sublane rule).
+// vectors (nefc, B), dof vectors (nv, B); the contacts' rows (ncg, 3),
+// mu (ncg) and the row scales (nefc) are the same for every lane.  No
+// padding of nefc or nv (that was Mosaic's sublane rule).
 //
 // Design: one thread per environment runs the whole Newton loop for its
 // lane and leaves it on its own exit rule, which gives the per-lane result
@@ -30,9 +46,12 @@
 // ~0.01 ms of the card's float32 rate for a few iterations.  This design
 // is bound by neither: 4096 threads fill 32 blocks of 128 on 132 SMs (one
 // warp scheduler in sixteen), and each thread's serial loop re-reads J
-// from L1/L2 every iteration and line-search step.  A later design puts an
+// from L1/L2 every iteration and line-search step.  K2-ell on finger-spin
+// (nv 3, nefc 105, 34 cones) reads ~3.4 KB per environment once; its time
+// is set the same way, and by the slowest lane's iteration count, since a
+// launch lasts as long as its longest loop.  A later design puts an
 // environment on a warp, keeps J in shared memory and spreads the rows
-// over the lanes.
+// and the cones over the lanes.
 
 #include <cuda_runtime.h>
 
@@ -79,10 +98,14 @@ struct Problem {
   const float* fl;
   const float* active;
   const int* types;
+  const int* ell_rows;   // (ncg, 3): normal, t1, t2 row of each contact
+  const float* ell_mu;   // (ncg,)
+  const float* s_row;    // (nefc,) elliptic row scales
   float* jar;
   float* djar;
   int nefc;
   int nv;
+  int ncg;
   long long B;
   long long b;
 
@@ -98,7 +121,75 @@ struct Problem {
     const long long i = e_at(e);
     row_terms(types[e], jar_e, D[i], fl[i], active[i], f, w, c);
   }
+  // residuals jar + alpha * djar of contact c's three rows
+  __device__ void cone_res(int c, float alpha, float jr[3]) const {
+    for (int i = 0; i < 3; ++i) {
+      const long long k = e_at(ell_rows[3 * c + i]);
+      jr[i] = alpha == 0.0f ? jar[k] : jar[k] + alpha * djar[k];
+    }
+  }
 };
+
+// Row forces f, cost and Hessian block W (in the raw residuals jr) of the
+// condim-3 elliptic contact c (solver._ell_terms of the JAX package).
+// Returns false, with nothing written, where the contact is inactive or
+// in the top zone: it then adds nothing.
+__device__ bool cone_terms(const Problem& p, int c, const float jr[3],
+                           float f[3], float W[3][3], float* cost) {
+  const int* r = p.ell_rows + 3 * c;
+  const long long i0 = p.e_at(r[0]);
+  const float ac = p.active[i0];
+  if (ac == 0.0f) return false;
+  const float dn = p.D[i0], mu = p.ell_mu[c];
+  float s[3], y[3];
+  for (int i = 0; i < 3; ++i) {
+    s[i] = p.s_row[r[i]];
+    y[i] = jr[i] * s[i];
+  }
+  const float n = y[0];
+  const float t2 = y[1] * y[1] + y[2] * y[2];
+  const float t = sqrtf(fmaxf(t2, 1e-30f));
+  if (n >= mu * t) return false;                      // top
+  float fs[3], Ws[3][3];
+  if (mu * n <= -t) {                                  // bottom
+    for (int i = 0; i < 3; ++i) {
+      fs[i] = -dn * y[i];
+      for (int j = 0; j < 3; ++j) Ws[i][j] = i == j ? dn : 0.0f;
+    }
+    *cost = 0.5f * dn * (n * n + t2) * ac;
+  } else {                                             // middle
+    const float mu2p1 = 1.0f + mu * mu;
+    const float fn = dn * (mu * t - n) / mu2p1;
+    const float u[3] = {0.0f, y[1] / t, y[2] / t};
+    const float v[3] = {1.0f, -mu * u[1], -mu * u[2]};
+    const float cv = dn / mu2p1, ce = mu * fn / t;
+    fs[0] = fn;
+    fs[1] = -mu * fn * u[1];
+    fs[2] = -mu * fn * u[2];
+    for (int i = 0; i < 3; ++i)
+      for (int j = 0; j < 3; ++j)
+        Ws[i][j] = cv * v[i] * v[j]
+                   + ce * ((i == j && i > 0 ? 1.0f : 0.0f) - u[i] * u[j]);
+    const float g = mu * t - n;
+    *cost = 0.5f * dn * g * g / mu2p1 * ac;
+  }
+  for (int i = 0; i < 3; ++i) {
+    f[i] = fs[i] * s[i] * ac;
+    for (int j = 0; j < 3; ++j) W[i][j] = Ws[i][j] * s[i] * s[j] * ac;
+  }
+  return true;
+}
+
+// Sum of the elliptic contacts' costs at jar + alpha * djar.
+__device__ float cone_cost(const Problem& p, float alpha) {
+  float total = 0.0f;
+  for (int c = 0; c < p.ncg; ++c) {
+    float jr[3], f[3], W[3][3], cost;
+    p.cone_res(c, alpha, jr);
+    if (cone_terms(p, c, jr, f, W, &cost)) total += cost;
+  }
+  return total;
+}
 
 // 0.5 xa' M xa, and M xa into mxa.
 __device__ float quad_cost(const Problem& p, const float* xa, float* mxa) {
@@ -125,6 +216,15 @@ __device__ void gradient(const Problem& p, const float* x, const float* a,
     p.terms(e, p.jar[p.e_at(e)], &f, &w, &c);
     if (f != 0.0f)
       for (int v = 0; v < p.nv; ++v) g[v] -= p.j(v, e) * f;
+  }
+  for (int c = 0; c < p.ncg; ++c) {
+    float jr[3], f[3], W[3][3], cost;
+    p.cone_res(c, 0.0f, jr);
+    if (!cone_terms(p, c, jr, f, W, &cost)) continue;
+    for (int i = 0; i < 3; ++i) {
+      const int e = p.ell_rows[3 * c + i];
+      for (int v = 0; v < p.nv; ++v) g[v] -= p.j(v, e) * f[i];
+    }
   }
   for (int v = 0; v < p.nv; ++v) grad[v] = g[v];
 }
@@ -167,6 +267,13 @@ __global__ void newton_kernel(Problem p, const float* a_in,
     p.jar[p.e_at(e)] = ja;
     p.djar[p.e_at(e)] = jw;
   }
+  cost_a += cone_cost(p, 0.0f);        // jar holds J a - aref
+  for (int c = 0; c < p.ncg; ++c) {    // djar holds J warm - aref
+    float jr[3], f[3], W[3][3], cost;
+    for (int i = 0; i < 3; ++i)
+      jr[i] = p.djar[p.e_at(p.ell_rows[3 * c + i])];
+    if (cone_terms(p, c, jr, f, W, &cost)) cost_w += cost;
+  }
   for (int v = 0; v < nv; ++v) xa[v] = x[v] - a[v];
   cost_w += quad_cost(p, xa, tmp);
   const bool use_warm = cost_w < cost_a;
@@ -192,6 +299,21 @@ __global__ void newton_kernel(Problem p, const float* a_in,
       for (int u = 0; u < nv; ++u) {
         const float wu = w * tmp[u];
         for (int v = 0; v <= u; ++v) H[u * nv + v] += wu * tmp[v];
+      }
+    }
+    for (int c = 0; c < p.ncg; ++c) {   // + J_c' W_c J_c
+      float jr[3], f[3], W[3][3], cost;
+      p.cone_res(c, 0.0f, jr);
+      if (!cone_terms(p, c, jr, f, W, &cost)) continue;
+      const int* r = p.ell_rows + 3 * c;
+      for (int u = 0; u < nv; ++u) {
+        float wj[3];     // (W J_c)[:, u]
+        for (int i = 0; i < 3; ++i)
+          wj[i] = W[i][0] * p.j(u, r[0]) + W[i][1] * p.j(u, r[1])
+                  + W[i][2] * p.j(u, r[2]);
+        for (int v = 0; v <= u; ++v)
+          H[u * nv + v] += p.j(v, r[0]) * wj[0] + p.j(v, r[1]) * wj[1]
+                           + p.j(v, r[2]) * wj[2];
       }
     }
     // Cholesky with +1e-12 on the pivot (solver's eye_reg)
@@ -237,6 +359,19 @@ __global__ void newton_kernel(Problem p, const float* a_in,
         dp -= f * dj;
         ddp += w * dj * dj;
       }
+      for (int c = 0; c < p.ncg; ++c) {
+        float jr[3], f[3], W[3][3], cost;
+        p.cone_res(c, alpha, jr);
+        if (!cone_terms(p, c, jr, f, W, &cost)) continue;
+        float dj[3];
+        for (int i = 0; i < 3; ++i)
+          dj[i] = p.djar[p.e_at(p.ell_rows[3 * c + i])];
+        for (int i = 0; i < 3; ++i) {
+          dp -= f[i] * dj[i];
+          ddp += dj[i] * (W[i][0] * dj[0] + W[i][1] * dj[1]
+                          + W[i][2] * dj[2]);
+        }
+      }
       if (dp < 0.0f) lo = fmaxf(lo, alpha);
       if (dp > 0.0f) hi = fminf(hi, alpha);
       const float alpha_n = alpha - dp / fmaxf(ddp, 1e-14f);
@@ -251,6 +386,7 @@ __global__ void newton_kernel(Problem p, const float* a_in,
       p.terms(e, p.jar[p.e_at(e)] + alpha * p.djar[p.e_at(e)], &f, &w, &c);
       new_cost += c;
     }
+    new_cost += cone_cost(p, alpha);
     float improvement = 0.0f;
     if (new_cost < cost) {
       for (int v = 0; v < nv; ++v) x[v] += alpha * delta[v];
@@ -273,6 +409,13 @@ __global__ void newton_kernel(Problem p, const float* a_in,
     float f, w, c;
     p.terms(e, s, &f, &w, &c);
     f_out[p.e_at(e)] = f;
+    p.jar[p.e_at(e)] = s;
+  }
+  for (int c = 0; c < p.ncg; ++c) {
+    float jr[3], f[3], W[3][3], cost;
+    p.cone_res(c, 0.0f, jr);
+    if (!cone_terms(p, c, jr, f, W, &cost)) continue;
+    for (int i = 0; i < 3; ++i) f_out[p.e_at(p.ell_rows[3 * c + i])] = f[i];
   }
   for (int v = 0; v < nv; ++v) x_out[(long long)v * p.B + p.b] = x[v];
   iters_out[p.b] = it;
@@ -284,14 +427,16 @@ extern "C" int dmc_newton_solve(const float* J, const float* M,
                                 const float* aref, const float* D,
                                 const float* fl, const float* active,
                                 const float* a, const float* warm,
-                                const int* types, float* x_out, float* f_out,
-                                int* iters_out, float* jar, float* djar,
-                                int nefc, int nv, int batch, int niter,
-                                int ls_iter, float tol, float scale,
-                                void* stream) {
-  if (nv < 1 || nv > MAX_NV || nefc < 1) return (int)cudaErrorInvalidValue;
-  Problem p{J, M, aref, D, fl, active, types, jar, djar, nefc, nv,
-            (long long)batch, 0};
+                                const int* types, const int* ell_rows,
+                                const float* ell_mu, const float* s_row,
+                                float* x_out, float* f_out, int* iters_out,
+                                float* jar, float* djar, int nefc, int nv,
+                                int ncg, int batch, int niter, int ls_iter,
+                                float tol, float scale, void* stream) {
+  if (nv < 1 || nv > MAX_NV || nefc < 1 || ncg < 0)
+    return (int)cudaErrorInvalidValue;
+  Problem p{J, M, aref, D, fl, active, types, ell_rows, ell_mu, s_row,
+            jar, djar, nefc, nv, ncg, (long long)batch, 0};
   const unsigned blocks = (unsigned)((batch + kThreads - 1) / kThreads);
   newton_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       p, a, warm, x_out, f_out, iters_out, niter, ls_iter, tol, scale);

@@ -40,10 +40,11 @@ _SIGNATURES = {
     'dmc_chol_solve': (_P, _P, _P, _P, _I, _I, _P),
     # (l, b, x, n, batch, stream)
     'dmc_cho_solve': (_P, _P, _P, _I, _I, _P),
-    # (J, M, aref, D, fl, active, a, warm, types, x, f, iters, jar, djar,
-    #  nefc, nv, batch, niter, ls_iter, tol, scale, stream)
+    # (J, M, aref, D, fl, active, a, warm, types, ell_rows, ell_mu, s_row,
+    #  x, f, iters, jar, djar, nefc, nv, ncg, batch, niter, ls_iter, tol,
+    #  scale, stream)
     'dmc_newton_solve': (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                         _P, _I, _I, _I, _I, _I, _F, _F, _P),
+                         _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P),
 }
 
 _lib = None

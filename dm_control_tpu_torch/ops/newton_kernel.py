@@ -8,14 +8,16 @@ reference's exit rule and returns qacc (B, nv) and the row forces
 A CPU tensor goes to `newton_solve_plain`, the batched torch core (the
 counterpart of `solver._solve_core_xla`, with one done mask per lane in
 place of the single-environment while loop).  A CUDA tensor goes to the
-kernel in `csrc/newton_kernel.cu` or raises.  The kernel's own limit
-(nv <= MAX_NV, its thread-local array size) replaces the TPU kernel's
-VMEM gate: a larger model raises on the card.  Layouts with elliptic
-cones (the TPU kernel's `ell_terms` branch) are not ported yet and raise.
+kernel in `csrc/newton_kernel.cu` or raises.  Its launches count as K2
+on layouts without elliptic cones and as K2-ell (the TPU kernel's
+`ell_terms` branch) on layouts with them.  The kernel's own limits replace the TPU kernel's VMEM gate:
+nv <= MAX_NV (its thread-local array size) and condim-3 elliptic
+contacts; anything else raises on the card.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from dm_control_tpu_torch._src import efc
@@ -25,11 +27,14 @@ from dm_control_tpu_torch.ops import linalg_kernel
 # thread-local array size of the kernel (csrc/newton_kernel.cu MAX_NV)
 MAX_NV = 32
 
-LAUNCHES = {'newton_solve_batched': 0}
+# launches of each kernel since the last reset_launches() (plain-version
+# calls do not count): K2 and K2-ell
+LAUNCHES = {'newton_solve_batched': 0, 'newton_solve_ell': 0}
 
 
 def reset_launches() -> None:
-  LAUNCHES['newton_solve_batched'] = 0
+  for k in LAUNCHES:
+    LAUNCHES[k] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -59,32 +64,122 @@ def _diag_terms(jar, d_, fl, active, is_eq, is_fr, is_one):
   return f, w, cost
 
 
+def _select(cond, a, b):
+  """Per-lane choice between two (diagonal weights, elliptic blocks)."""
+  (wa, ba), (wb, bb) = a, b
+  w = torch.where(cond, wa, wb)
+  c4 = cond.reshape(-1, 1, 1, 1)
+  return w, [(rows, torch.where(c4, Wa, Wb))
+             for (rows, Wa), (_, Wb) in zip(ba, bb)]
+
+
+def _ell_terms(jar, d_, active, groups):
+  """Elliptic-cone contacts: row forces, cost and cone Hessian blocks.
+
+  The batched counterpart of `solver._ell_terms` of the JAX package, for
+  any condim.  `groups` holds (rows (ncg, k) long, mu (ncg,), s (ncg, k))
+  per condim.  Each contact's residuals y = jar * s, with normal n and
+  tangential norm t, fall in one of three zones:
+
+    top    (n >= mu t):   no force, no cost
+    bottom (mu n <= -t):  0.5 D (n^2 + t^2), fully quadratic
+    middle:               0.5 D (mu t - n)^2 / (1 + mu^2)
+
+  Returns the (B, nefc) row forces (zero outside elliptic rows), the
+  (B,) cost, and per group (rows, W (B, ncg, k, k)): the Hessian of the
+  cost in the raw residuals jar.
+  """
+  f = torch.zeros_like(jar)
+  cost = jar.new_zeros(jar.shape[0])
+  blocks = []
+  for rows, mu, s in groups:
+    k = rows.shape[1]
+    dn = d_[:, rows[:, 0]]                       # (B, ncg)
+    ac = active[:, rows[:, 0]]
+    y = jar[:, rows] * s                         # (B, ncg, k)
+    n = y[..., 0]
+    t2 = (y[..., 1:] ** 2).sum(-1)
+    t = torch.sqrt(torch.clamp(t2, min=1e-30))
+    mu2p1 = 1.0 + mu * mu
+    top = n >= mu * t
+    bottom = mu * n <= -t
+    mid = ~top & ~bottom
+
+    u = y[..., 1:] / t[..., None]
+    fn_mid = dn * (mu * t - n) / mu2p1
+    f_mid = torch.cat([fn_mid[..., None], (-mu * fn_mid)[..., None] * u], -1)
+    f_sc = torch.where(bottom[..., None], -dn[..., None] * y,
+                       torch.where(mid[..., None], f_mid, 0.0))
+    f[:, rows] = f_sc * s * ac[..., None]
+
+    c_bot = 0.5 * dn * (n * n + t2)
+    c_mid = 0.5 * dn * (mu * t - n) ** 2 / mu2p1
+    c = torch.where(bottom, c_bot, torch.where(mid, c_mid, 0.0))
+    cost = cost + (c * ac).sum(-1)
+
+    # W = D I at the bottom; in the middle
+    #   D / (1 + mu^2) v v' + mu fn / t (P - e e'),
+    # v = (1, -mu u), e = (0, u), P = diag(0, 1, .., 1)
+    eye = torch.eye(k, dtype=jar.dtype, device=jar.device)
+    p_fr = torch.diag(torch.cat([eye.new_zeros(1), eye.new_ones(k - 1)]))
+    v = torch.cat([torch.ones_like(n)[..., None], -mu[:, None] * u], -1)
+    e = torch.cat([torch.zeros_like(n)[..., None], u], -1)
+    w_mid = ((dn / mu2p1)[..., None, None] * v[..., :, None] * v[..., None, :]
+             + (mu * fn_mid / t)[..., None, None]
+             * (p_fr - e[..., :, None] * e[..., None, :]))
+    w_sc = torch.where(bottom[..., None, None], dn[..., None, None] * eye,
+                       torch.where(mid[..., None, None], w_mid, 0.0))
+    W = w_sc * s[:, :, None] * s[:, None, :] * ac[..., None, None]
+    blocks.append((rows, W))
+  return f, cost, blocks
+
+
+def _ell_groups(lay_groups, device, dtype):
+  """(rows, mu, scale) tensors of every elliptic group of a layout."""
+  return [(torch.as_tensor(rows, dtype=torch.long, device=device),
+           torch.as_tensor(mu, dtype=dtype, device=device),
+           torch.as_tensor(scale, dtype=dtype, device=device))
+          for _, (rows, mu, scale) in sorted(lay_groups.items())]
+
+
 def newton_solve_plain(J, M, aref, d_, fl, active, a, warm, *, types, niter,
-                       ls_iter, tol, meaninertia, return_iters=False):
+                       ls_iter, tol, meaninertia, ell_groups=None,
+                       return_iters=False):
   """Batched projected Newton with per-lane exit (plain torch).
 
   J (B, nefc, nv), M (B, nv, nv), aref/d_/fl/active (B, nefc) with active
-  as 0/1 floats, a/warm (B, nv); `types` the (nefc,) row types.  A lane
-  that meets the exit rule is frozen while the others iterate, which is
-  the single-environment loop's result lane by lane.
+  as 0/1 floats, a/warm (B, nv); `types` the (nefc,) row types and
+  `ell_groups` the layout's elliptic groups ({condim: (rows, mu,
+  scale)}, `efc.Layout.ell_groups`).  A lane that meets the exit rule is
+  frozen while the others iterate, which is the single-environment loop's
+  result lane by lane.
   """
   B, nefc, nv = J.shape
   types = torch.as_tensor(types, device=J.device)
   is_eq = types == efc.EQUALITY
   is_fr = types == efc.FRICTION
   is_one = types == efc.ONESIDED
+  ell = _ell_groups(ell_groups or {}, J.device, J.dtype)
   scale = 1.0 / (max(meaninertia, 1e-12) * max(nv, 1))
   eye_reg = 1e-12 * torch.eye(nv, dtype=J.dtype, device=J.device)
 
   def mv(A, x):
     return torch.einsum('buv,bv->bu', A, x)
 
-  def eval_point(x, jar):
+  def terms(jar):
+    """Row forces, diagonal weights, cost and elliptic Hessian blocks."""
     f, w, c = _diag_terms(jar, d_, fl, active, is_eq, is_fr, is_one)
+    if not ell:
+      return f, w, c, []
+    f_e, c_e, blocks = _ell_terms(jar, d_, active, ell)
+    return f + f_e, w, c + c_e, blocks
+
+  def eval_point(x, jar):
+    f, w, c, blocks = terms(jar)
     mxa = mv(M, x - a)
     cost = 0.5 * ((x - a) * mxa).sum(-1) + c
     grad = mxa - torch.einsum('bev,be->bv', J, f)
-    return w, cost, grad, mxa
+    return (w, blocks), cost, grad, mxa
 
   # start from the better of qacc_smooth / warmstart
   jar_a = mv(J, a) - aref
@@ -94,7 +189,7 @@ def newton_solve_plain(J, M, aref, d_, fl, active, a, warm, *, types, niter,
   use_warm = (cost_w < cost_a)[:, None]
   x = torch.where(use_warm, warm, a)
   jar = torch.where(use_warm, jar_w, jar_a)
-  w = torch.where(use_warm, w_w, w_a)
+  w = _select(use_warm, w_w, w_a)
   grad = torch.where(use_warm, grad_w, grad_a)
   mxa = torch.where(use_warm, mxa_w, mxa_a)
   cost = torch.minimum(cost_w, cost_a)
@@ -103,7 +198,11 @@ def newton_solve_plain(J, M, aref, d_, fl, active, a, warm, *, types, niter,
 
   it = 0
   while it < niter and not bool(done.all()):
-    h = M + torch.einsum('bev,be,beu->bvu', J, w, J) + eye_reg
+    wd, blocks = w
+    h = M + torch.einsum('bev,be,beu->bvu', J, wd, J) + eye_reg
+    for rows, W in blocks:
+      Jc = J[:, rows]                             # (B, ncg, k, nv)
+      h = h + torch.einsum('bcjv,bcjk,bckw->bvw', Jc, W, Jc)
     L = linalg_kernel.cholesky_plain(h)
     delta = -linalg_kernel.cho_solve_plain(L, grad)
     djar = mv(J, delta)
@@ -114,10 +213,12 @@ def newton_solve_plain(J, M, aref, d_, fl, active, a, warm, *, types, niter,
     lo = torch.zeros_like(dmd)
     hi = torch.full_like(dmd, 4.0)
     for _ in range(ls_iter):
-      f_a, w_a, _ = _diag_terms(jar + alpha[:, None] * djar, d_, fl, active,
-                                is_eq, is_fr, is_one)
+      f_a, w_a, _, blocks_a = terms(jar + alpha[:, None] * djar)
       dp = gma + alpha * dmd - (f_a * djar).sum(-1)
       ddp = dmd + (w_a * djar * djar).sum(-1)
+      for rows, W in blocks_a:
+        dj = djar[:, rows]                        # (B, ncg, k)
+        ddp = ddp + torch.einsum('bcj,bcjk,bck->b', dj, W, dj)
       lo = torch.where(dp < 0, torch.maximum(lo, alpha), lo)
       hi = torch.where(dp > 0, torch.minimum(hi, alpha), hi)
       alpha_n = alpha - dp / torch.clamp(ddp, min=1e-14)
@@ -131,7 +232,7 @@ def newton_solve_plain(J, M, aref, d_, fl, active, a, warm, *, types, niter,
     sel = improved[:, None]
     x = torch.where(sel, x_new, x)
     jar = torch.where(sel, jar_new, jar)
-    w = torch.where(sel, w_n, w)
+    w = _select(sel, w_n, w)
     grad = torch.where(sel, grad_n, grad)
     mxa = torch.where(sel, mxa_n, mxa)
     new_cost = torch.where(improved, cost_n, cost)
@@ -144,8 +245,7 @@ def newton_solve_plain(J, M, aref, d_, fl, active, a, warm, *, types, niter,
     it += 1
 
   # exact final forces (outputs are a pure function of x)
-  jar = mv(J, x) - aref
-  f, _, _ = _diag_terms(jar, d_, fl, active, is_eq, is_fr, is_one)
+  f, _, _, _ = terms(mv(J, x) - aref)
   if return_iters:
     return x, f, iters
   return x, f
@@ -165,6 +265,28 @@ def _types_on(lay: efc.Layout, device) -> torch.Tensor:
   return t
 
 
+def _cones_on(lay: efc.Layout, device):
+  """K2-ell's per-layout inputs on `device`: each contact's normal and
+  friction rows (ncg, 3) int32, mu (ncg,) and the (nefc,) row scales
+  (1 outside elliptic rows), all float32."""
+  key = ('cones', str(device))
+  t = lay._cache.get(key)
+  if t is None:
+    bad = sorted(k for k in lay.ell_groups if k != 3)
+    if bad:
+      raise NotImplementedError(
+          f'K2-ell takes condim-3 elliptic contacts only; this layout has '
+          f'condim {bad}')
+    rows, mu, scale = lay.ell_groups[3]
+    s_row = np.ones(lay.nefc, np.float32)
+    s_row[rows] = scale
+    t = (torch.as_tensor(rows, dtype=torch.int32, device=device),
+         torch.as_tensor(mu, dtype=torch.float32, device=device),
+         torch.as_tensor(s_row, device=device))
+    lay._cache[key] = t
+  return t
+
+
 def newton_solve_batched(J, M, aref, d_, fl, active, a, warm, *, lay,
                          niter: int, ls_iter: int, tol: float,
                          meaninertia: float, return_iters: bool = False):
@@ -175,15 +297,12 @@ def newton_solve_batched(J, M, aref, d_, fl, active, a, warm, *, lay,
   efc.Layout.  Returns qacc (B, nv), force (B, nefc) and, if asked, the
   per-lane iteration count (B,).
   """
-  if lay.ell_groups:
-    raise NotImplementedError(
-        'elliptic friction cones: the Newton kernel\'s ell_terms branch '
-        '(K2-ell) is not ported yet')
   kw = dict(niter=niter, ls_iter=ls_iter, tol=tol, meaninertia=meaninertia,
             return_iters=return_iters)
   if J.device.type == 'cpu':
     return newton_solve_plain(J, M, aref, d_, fl, active, a, warm,
-                              types=lay.types, **kw)
+                              types=lay.types, ell_groups=lay.ell_groups,
+                              **kw)
   if J.device.type != 'cuda':
     raise ValueError(f'newton_solve_batched: tensors on {J.device}')
   if J.dim() != 3:
@@ -218,16 +337,22 @@ def newton_solve_batched(J, M, aref, d_, fl, active, a, warm, *, lay,
   jar = torch.empty((nefc, B), dtype=torch.float32, device=J.device)
   djar = torch.empty_like(jar)
   scale = 1.0 / (max(meaninertia, 1e-12) * max(nv, 1))
+  if lay.ell_groups:
+    cone_rows, cone_mu, s_row = _cones_on(lay, J.device)
+    ncg, ptrs = cone_rows.shape[0], (cone_rows.data_ptr(),
+                                     cone_mu.data_ptr(), s_row.data_ptr())
+  else:
+    ncg, ptrs = 0, (None, None, None)
   lib = build.library()
   err = lib.dmc_newton_solve(
       j_t.data_ptr(), m_t.data_ptr(), rows[0].data_ptr(), rows[1].data_ptr(),
       rows[2].data_ptr(), rows[3].data_ptr(), a_t.data_ptr(),
-      w_t.data_ptr(), _types_on(lay, J.device).data_ptr(), x_t.data_ptr(),
-      f_t.data_ptr(), iters.data_ptr(), jar.data_ptr(), djar.data_ptr(),
-      nefc, nv, B, int(niter), int(ls_iter), float(tol), float(scale),
-      torch.cuda.current_stream().cuda_stream)
+      w_t.data_ptr(), _types_on(lay, J.device).data_ptr(), *ptrs,
+      x_t.data_ptr(), f_t.data_ptr(), iters.data_ptr(), jar.data_ptr(),
+      djar.data_ptr(), nefc, nv, ncg, B, int(niter), int(ls_iter),
+      float(tol), float(scale), torch.cuda.current_stream().cuda_stream)
   build.check(err, 'dmc_newton_solve')
-  LAUNCHES['newton_solve_batched'] += 1
+  LAUNCHES['newton_solve_ell' if ncg else 'newton_solve_batched'] += 1
   if return_iters:
     return x_t.permute(1, 0), f_t.permute(1, 0), iters
   return x_t.permute(1, 0), f_t.permute(1, 0)

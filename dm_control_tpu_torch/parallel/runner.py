@@ -11,12 +11,17 @@ observation and its integration state is re-initialized.  The JAX package
 computes fresh states for every lane and lets XLA drop the unused ones;
 eager PyTorch drops nothing, so fresh states are computed for the done
 lanes only.  They go through `forward`, as in the JAX package, which sets
-`qacc_warmstart`, one of the integration-state fields.
+`qacc_warmstart`, one of the integration-state fields.  A task with an
+expensive init (`TaskDef.expensive_init`) resets from a pool instead: the
+initial batch's integration states, of which a done lane takes entry
+`pool_index(episode_id, lane, B)`, the JAX package's lane permutation.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Dict, Optional
+
 import numpy as np
 import torch
 
@@ -31,6 +36,17 @@ class RunnerState:
   data: Data                 # batched (leading axis B)
   step_count: torch.Tensor   # (B,) i4 control steps this episode
   episode_id: torch.Tensor   # (B,) i4
+  # integration states of the initial batch, for expensive-init tasks
+  reset_pool: Optional[Dict[str, torch.Tensor]] = None
+
+
+def pool_index(episode_id: torch.Tensor, lanes: torch.Tensor,
+               batch_size: int) -> torch.Tensor:
+  """Pool entry of each resetting lane: ((episode_id + 1) * 2654435761 +
+  lane) mod B in uint32 arithmetic, so that lanes do not replay their own
+  start state."""
+  h = (episode_id.long() + 1) * 2654435761 + lanes.long()
+  return (h & 0xFFFFFFFF) % batch_size
 
 
 class BatchedEnv:
@@ -65,8 +81,12 @@ class BatchedEnv:
     self.generator.manual_seed(seed)
     B = self.batch_size
     zeros = torch.zeros(B, dtype=torch.int32, device=self.device)
-    return RunnerState(data=self.init_states(B), step_count=zeros,
-                       episode_id=zeros.clone())
+    data = self.init_states(B)
+    pool = None
+    if self.task.expensive_init:
+      pool = {f: x.clone() for f, x in _forward.state_of(data).items()}
+    return RunnerState(data=data, step_count=zeros,
+                       episode_id=zeros.clone(), reset_pool=pool)
 
   def step(self, state: RunnerState, actions: torch.Tensor):
     """Advance every lane one control step.
@@ -89,18 +109,21 @@ class BatchedEnv:
 
     if bool(done.any()):
       lanes = done.nonzero().squeeze(1)
-      self.reset_calls += 1
-      fresh = self.init_states(int(lanes.numel()))
+      if state.reset_pool is not None:
+        idx = pool_index(state.episode_id[lanes], lanes, self.batch_size)
+        fresh = {f: x[idx] for f, x in state.reset_pool.items()}
+      else:
+        self.reset_calls += 1
+        fresh = _forward.state_of(self.init_states(int(lanes.numel())))
       upd = {}
-      for f in _forward._STATE_FIELDS:
-        if f == 'model_var':
-          continue
+      for f, x_new in fresh.items():
         x = getattr(d, f).clone()
-        x[lanes] = getattr(fresh, f)
+        x[lanes] = x_new
         upd[f] = x
       d = d.replace(**upd)
     return (RunnerState(data=d, step_count=torch.where(done, 0, step_count),
-                        episode_id=state.episode_id + done.to(torch.int32)),
+                        episode_id=state.episode_id + done.to(torch.int32),
+                        reset_pool=state.reset_pool),
             (obs, reward, done, discount))
 
   def rollout_fn(self, n_steps: int):

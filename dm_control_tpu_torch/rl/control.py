@@ -34,6 +34,10 @@ class TaskDef:
   get_reward: Callable[[Model, Data], torch.Tensor]
   get_termination: Optional[Callable[[Model, Data], torch.Tensor]] = None
   control_timestep: Optional[float] = None  # default: physics timestep
+  # True when init_episode is expensive (finger's collision-free
+  # rejection sampling): BatchedEnv then auto-resets done lanes from a
+  # pool of initial states instead of running init_episode again.
+  expensive_init: bool = False
 
   def n_sub_steps(self) -> int:
     if self.control_timestep is None:

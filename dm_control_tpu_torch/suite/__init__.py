@@ -1,6 +1,7 @@
 """Control Suite tasks of the port (reference: dm_control/suite).
 
-Only walker (stand, walk, run) is ported so far; the other domains raise.
+Ported so far: walker (stand, walk, run) and finger (spin); the other
+domains and tasks raise.
 """
 
 from __future__ import annotations
@@ -17,4 +18,7 @@ def build_task(domain_name: str, task_name: str,
   if domain_name == 'walker':
     from dm_control_tpu_torch.suite import walker
     return walker.make_task(task_name, device)
+  if domain_name == 'finger':
+    from dm_control_tpu_torch.suite import finger
+    return finger.make_task(task_name, device)
   raise NotImplementedError(f'domain {domain_name!r} is not ported yet')

@@ -1,19 +1,26 @@
-"""Shared task machinery: batched episode randomizers.
+"""Shared task machinery: batched episode randomizers and init helpers.
 
-The port of `dm_control_tpu/suite/base.py` for what walker uses.  Random
-draws come from an explicit torch.Generator on the data's device; they do
-not reproduce `jax.random` streams (tests feed both packages the same
-states instead).
+The port of `dm_control_tpu/suite/base.py` for what walker and finger
+use.  Random draws come from an explicit torch.Generator on the data's
+device; they do not reproduce `jax.random` streams (tests feed both
+packages the same states instead).
 """
 
 from __future__ import annotations
 
 import math
+from typing import Callable, List
 
 import torch
 
+from dm_control_tpu_torch._src import collision as _collision
+from dm_control_tpu_torch._src import forward as _forward
+from dm_control_tpu_torch._src import smooth as _smooth
 from dm_control_tpu_torch._src.math import normalize
-from dm_control_tpu_torch._src.types import JointType, Model
+from dm_control_tpu_torch._src.types import Data, JointType, Model
+
+# candidates drawn per lane by collision_free_init
+_MAX_ATTEMPTS = 20
 
 
 def randomize_limited_and_rotational_joints(
@@ -45,3 +52,38 @@ def randomize_limited_and_rotational_joints(
       start = qadr + (3 if jtype == JointType.FREE else 0)
       qpos[:, start:start + 4] = normalize(torch.randn(B, 4, **kw))
   return qpos
+
+
+def has_contacts(m: Model, d: Data) -> torch.Tensor:
+  """(B,) True where any contact is active at d's qpos (runs kinematics)."""
+  d = _collision.collide(m, _smooth.kinematics(m, d))
+  if d.contact.dist.shape[1] == 0:
+    return torch.zeros(d.qpos.shape[0], dtype=torch.bool,
+                       device=d.qpos.device)
+  return (d.contact.dist < d.contact.includemargin).any(-1)
+
+
+def select_collision_free(m: Model, candidates: List[Data]) -> Data:
+  """Per lane, the first collision-free candidate, else the last one.
+
+  Returns the first candidate with the chosen candidates' integration
+  state (`forward.state_of`) in each lane."""
+  ok = ~torch.stack([has_contacts(m, dk) for dk in candidates])  # (A, B)
+  first = torch.argmax(ok.to(torch.int32), dim=0)
+  idx = torch.where(ok.any(0), first, len(candidates) - 1)
+  lanes = torch.arange(idx.shape[0], device=idx.device)
+  states = [_forward.state_of(dk) for dk in candidates]
+  return candidates[0].replace(**{
+      f: torch.stack([st[f] for st in states])[idx, lanes]
+      for f in states[0]})
+
+
+def collision_free_init(
+    sample_fn: Callable[[Data, torch.Generator], Data], m: Model, d: Data,
+    generator: torch.Generator) -> Data:
+  """First collision-free sample among `_MAX_ATTEMPTS` candidates per lane
+  (the last candidate where none is free): the reference's rejection
+  sampling (e.g. suite/finger.py) with every lane's candidates drawn at
+  once."""
+  return select_collision_free(
+      m, [sample_fn(d, generator) for _ in range(_MAX_ATTEMPTS)])
