@@ -24,12 +24,16 @@ any failure exits non-zero and no phase catches its own failure:
      the port's randomizer, kept where they touch, random velocities so
      that contacts slide), with the same bounds against plain float32
      and float64, converged and after one Newton iteration (which
-     depends on the Hessian's and the line search's cone terms);
+     depends on the Hessian's and the line search's cone terms); for
+     both, the launch configuration (one warp per environment), and the
+     first 4093 lanes alone (no multiple of the warps per block) and a
+     second launch must give the full batch's bits;
   3. reference: one control step of 64 walker-walk lanes, and of 64
      finger-spin lanes in contact, on the card at float32 against the
      port's float64 CPU path (plain versions) from the same state;
-  4. rollout: BatchedEnv(walker-walk, batch_size=4096) on the card, reset,
-     50 control steps (500 physics substeps) through `rollout_fn`; then
+  4. rollout: BatchedEnv(walker-walk, batch_size=4096) on the card, three
+     runs of reset and 50 control steps (500 physics substeps) through
+     `rollout_fn`; then
      BatchedEnv(finger-spin, 4096), three runs of reset and 50 control
      steps (100 substeps): every state finite, rewards in [0, 1], each
      kernel's launch count exactly its expected count per control step;
@@ -37,10 +41,12 @@ any failure exits non-zero and no phase catches its own failure:
      sends every lane through the reset pool;
   5. timing: each kernel and its plain version with CUDA events at the
      main path's shapes, and, for K1, the one torch.linalg call that
-     computes the same function (`library_ms`, never used by the port).
+     computes the same function (`library_ms`, never used by the port);
+     the Newton rows carry the largest iteration count of their inputs
+     (`max_iters`), which sets a launch's time.
 
 Output: the card's name and power limit (nvidia-smi), env-steps/s of
-walker-walk@4096 and finger-spin@4096 (the median of three runs), one
+walker-walk@4096 and finger-spin@4096 (each the median of three runs), one
 `{"kernels": [...]}` JSON line, and last the
 `{"ok": true, "device": {...}}` line.  The nvcc/ptxas log of the build
 is in dm_control_tpu_torch/_build/build.log; its register and spill lines
@@ -78,6 +84,7 @@ FINGER_PER_STEP = {'cholesky_batched': 3, 'cho_solve_batched': 2,
                    'chol_solve_batched': 2, 'newton_solve_batched': 0,
                    'newton_solve_ell': 2}
 FINGER_RUNS = 3
+WALKER_RUNS = 3
 REPLACES = {
     'cholesky_batched': 'dm_control_tpu/ops/linalg_kernel.py:118',
     'chol_solve_batched': 'dm_control_tpu/ops/linalg_kernel.py:142',
@@ -196,6 +203,32 @@ def ell_gates(what, x_k, x_p, x_64):
         f'is held to (mean, max, lanes) <= {bounds}')
   k2_check(f'{what} kernel vs plain float64', x_k.double(), x_64,
            gate=True, bounds=bounds)
+
+
+def newton_launch(nk, what, lay, nv, B):
+  """Print the Newton kernel's launch configuration for a layout."""
+  ncg = len(lay.ell_groups[3][0]) if lay.ell_groups else 0
+  warps, smem = nk.launch_config(lay.nefc, nv, ncg)
+  log(f'# phase kernels: {what} launch: {warps} warps (one environment '
+      f'each) per block, {smem} bytes of dynamic shared memory, '
+      f'{-(-B // warps)} blocks of {32 * warps} threads')
+
+
+def newton_bits(nk, what, args, lay, kw, full):
+  """The first B - 3 lanes alone (no multiple of the warps per block)
+  and a second launch of the whole batch must give `full`'s bits (x,
+  forces, iterations): one warp per environment, sums in a fixed order."""
+  import torch
+  n = args[0].shape[0] - 3
+  again = nk.newton_solve_batched(*args, lay=lay, return_iters=True, **kw)
+  part = nk.newton_solve_batched(*[a[:n] for a in args], lay=lay,
+                                 return_iters=True, **kw)
+  for name, x, y, z in zip(('qacc', 'forces', 'iterations'), full, again,
+                           part):
+    assert torch.equal(x, y), f'{what}: two launches differ in {name}'
+    assert torch.equal(x[:n], z), f'{what}: {n} lanes alone differ in {name}'
+  log(f'# phase kernels: {what}: the first {n} lanes alone and a second '
+      f'launch give the full batch\'s bits (qacc, forces, iterations)')
 
 
 def finger_solver_inputs(m, lay, B, gen, dev):
@@ -345,6 +378,9 @@ def main() -> int:
   k2_check('K2 plain float32 vs plain float64', x_p.double(), x_64,
            gate=False)
   k2_err = (x_k - x_p).abs().max().item()
+  newton_launch(nk, 'newton_solve_batched', lay, m.nv, BATCH)
+  newton_bits(nk, 'newton_solve_batched', k2_args, lay, k2_kw,
+              (x_k, f_k, iters))
 
   # K2-ell on finger-spin inputs rich in contacts, same bounds (ell_gates).
   f_task = suite.build_task('finger', 'spin')      # CUDA by default
@@ -393,6 +429,9 @@ def main() -> int:
     log(f'#   K2-ell forces, {what} (record): lane-scaled mean '
         f'{err.mean().item():.2e} max {err.max().item():.2e}')
   ell_err = (xe_k - xe_p).abs().max().item()
+  newton_launch(nk, 'newton_solve_ell', f_lay, fm.nv, BATCH)
+  newton_bits(nk, 'newton_solve_ell', ell_args, f_lay, ell_kw,
+              (xe_k, fe_k, ell_iters))
   # The optimum does not depend on the Hessian or on the line search's
   # phi'': a wrong cone block there changes only the path to it.  One
   # Newton iteration does.  With no line-search step it lands on
@@ -462,32 +501,37 @@ def main() -> int:
         f'float32 card vs float64 CPU: max scaled err {e.max().item():.2e}')
     assert e.max().item() <= 1e-2, f'finger {f} disagrees with the CPU path'
 
-  # -- 4. the main path: walker-walk@4096 rollout --------------------------------
+  # -- 4. the main path: walker-walk@4096 rollout, three runs -----------------
   run = env.rollout_fn(CONTROL_STEPS)
-  state = env.reset()
-  torch.cuda.synchronize()
-  lk.reset_launches()
-  nk.reset_launches()
-  resets0 = env.reset_calls
-  t0 = time.perf_counter()
-  state, rewards = run(state, gen)
-  torch.cuda.synchronize()
-  dt = time.perf_counter() - t0
-  launches = dict(lk.LAUNCHES, **nk.LAUNCHES)
-  resets = env.reset_calls - resets0
-  sps = BATCH * CONTROL_STEPS / dt
-  log(f'# phase rollout: walker-walk@{BATCH} x {CONTROL_STEPS} control steps '
-      f'in {dt:.2f} s; auto-reset calls {resets}; launches {launches}')
-  for f in forward._STATE_FIELDS[:-1]:
-    x = getattr(state.data, f)
-    assert x.dtype == torch.bool or torch.isfinite(x).all(), f'{f} not finite'
-  assert tuple(rewards.shape) == (CONTROL_STEPS, BATCH)
-  assert bool(((rewards >= 0) & (rewards <= 1)).all()), 'reward outside [0,1]'
-  for k, n in launches.items():
-    want = PER_STEP[k] * CONTROL_STEPS + PER_RESET[k] * resets
-    assert n == want, f'{k}: {n} launches, expected {want}'
-  log(f'# walker-walk@{BATCH} env-steps/s: {sps:.1f} (mean reward '
-      f'{rewards.mean().item():.4f})')
+  w_sps = []
+  for i in range(WALKER_RUNS):
+    state = env.reset(seed=i)
+    torch.cuda.synchronize()
+    lk.reset_launches()
+    nk.reset_launches()
+    resets0 = env.reset_calls
+    t0 = time.perf_counter()
+    state, rewards = run(state, gen)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(lk.LAUNCHES, **nk.LAUNCHES)
+    resets = env.reset_calls - resets0
+    w_sps.append(BATCH * CONTROL_STEPS / dt)
+    log(f'# phase rollout: walker-walk@{BATCH} run {i} x {CONTROL_STEPS} '
+        f'control steps in {dt:.2f} s ({w_sps[-1]:.1f} env-steps/s); '
+        f'auto-reset calls {resets}; launches {launches}; mean reward '
+        f'{rewards.mean().item():.4f}')
+    for f in forward._STATE_FIELDS[:-1]:
+      x = getattr(state.data, f)
+      assert x.dtype == torch.bool or torch.isfinite(x).all(), f'{f} not finite'
+    assert tuple(rewards.shape) == (CONTROL_STEPS, BATCH)
+    assert bool(((rewards >= 0) & (rewards <= 1)).all()), 'reward outside [0,1]'
+    for k, n in launches.items():
+      want = PER_STEP[k] * CONTROL_STEPS + PER_RESET[k] * resets
+      assert n == want, f'{k}: {n} launches, expected {want}'
+  log(f'# walker-walk@{BATCH} env-steps/s: '
+      f'{sorted(w_sps)[len(w_sps) // 2]:.1f} (median of {WALKER_RUNS} runs: '
+      f'{", ".join(f"{v:.1f}" for v in w_sps)})')
 
   # -- 4b. the main path: finger-spin@4096 rollout, three runs ------------------
   f_env = BatchedEnv(f_task, BATCH)
@@ -557,14 +601,19 @@ def main() -> int:
   mat, vec = BATCH * n * n * 4, BATCH * n * 4
   rows = []
 
-  def row(k, fn, plain, library, nbytes, flops, err, reps=50, plain_reps=5):
+  def row(k, fn, plain, library, nbytes, flops, err, reps=50, plain_reps=5,
+          **extra):
     ms = cuda_ms(fn, reps)
     b_ms, b_by = bound_ms(nbytes, flops)
     rows.append(dict(
         name=k, route='cuda', source=SOURCES[k], replaces=REPLACES[k],
         launches=launches[k], max_abs_err=err, ms=ms,
         plain_ms=cuda_ms(plain, plain_reps), bound_ms=b_ms, bound_by=b_by,
-        library_ms=cuda_ms(library, reps) if library is not None else None))
+        library_ms=cuda_ms(library, reps) if library is not None else None,
+        **extra))
+    log(f'# phase timing: {k}: {ms:.6g} ms per call, bound {b_ms:.6g} ms '
+        f'({b_by}), plain {rows[-1]["plain_ms"]:.6g} ms, library '
+        f'{rows[-1]["library_ms"]} ms; {extra or ""}')
 
   row('cholesky_batched', lambda: lk.cholesky_batched(A),
       lambda: lk.cholesky_plain(A), lambda: torch.linalg.cholesky(A),
@@ -584,7 +633,7 @@ def main() -> int:
       lambda: nk.newton_solve_plain(*k2_args, types=lay.types, **k2_kw),
       None, k2_bytes,
       newton_flops(nefc, nv, solver.LS_ITERATIONS, iters), k2_err,
-      reps=10, plain_reps=2)
+      reps=10, plain_reps=2, max_iters=int(iters.max()))
   f_nv, f_nefc = fm.nv, f_lay.nefc
   ncg = len(f_lay.ell_groups[3][0])
   ell_bytes = (BATCH * 4 * (f_nefc * f_nv + f_nv * f_nv + 4 * f_nefc
@@ -596,7 +645,7 @@ def main() -> int:
       None, ell_bytes,
       newton_flops(f_nefc, f_nv, solver.LS_ITERATIONS, ell_iters,
                    cones=cones.to(ell_iters.device)), ell_err,
-      reps=10, plain_reps=2)
+      reps=10, plain_reps=2, max_iters=int(ell_iters.max()))
 
   log(smi)
   log(json.dumps({'kernels': rows}, allow_nan=False))

@@ -24,44 +24,78 @@
 // the same matrix.  Rows of type ELLIPTIC give nothing in row_terms, so
 // no row counts twice.
 //
-// Layout: batch-last as on the TPU: J (nv, nefc, B), M (nv, nv, B), row
-// vectors (nefc, B), dof vectors (nv, B); the contacts' rows (ncg, 3),
-// mu (ncg) and the row scales (nefc) are the same for every lane.  No
-// padding of nefc or nv (that was Mosaic's sublane rule).
-//
-// Design: one thread per environment runs the whole Newton loop for its
-// lane and leaves it on its own exit rule, which gives the per-lane result
-// of the TPU kernel's frozen done lanes.  x, the gradient, the step and
-// H/L live in thread-local arrays sized by MAX_NV; J, M and the row
-// vectors are read from device memory, coalesced across the warp, and
-// the row residuals jar/djar go to a (nefc, B) scratch the wrapper
-// allocates.  Everything is float32, as on the TPU.  (Double accumulators
-// for the costs and the gradient were tried on an H100 and made lanes
-// wander further along flat directions, not less: the accept-if-improved
-// test then sees improvements the float32 reference cannot.)
+// Layout: batch-first, the port's own: J (B, nefc, nv), M (B, nv, nv),
+// row vectors (B, nefc), dof vectors (B, nv); outputs x (B, nv), f
+// (B, nefc), iterations (B,).  The contacts' rows (ncg, 3), mu (ncg) and
+// the row scales (nefc) are the same for every environment.
 //
 // What bounds it on an H100: the inputs are read once, ~2.5 KB per walker
-// environment (nv 9, nefc 62): 10 MB at B = 4096, 3 us of HBM time.  The
-// arithmetic, ~5 * 10^4 FLOP per Newton iteration per environment, is
-// ~0.01 ms of the card's float32 rate for a few iterations.  This design
-// is bound by neither: 4096 threads fill 32 blocks of 128 on 132 SMs (one
-// warp scheduler in sixteen), and each thread's serial loop re-reads J
-// from L1/L2 every iteration and line-search step.  K2-ell on finger-spin
-// (nv 3, nefc 105, 34 cones) reads ~3.4 KB per environment once; its time
-// is set the same way, and by the slowest lane's iteration count, since a
-// launch lasts as long as its longest loop.  A later design puts an
-// environment on a warp, keeps J in shared memory and spreads the rows
-// and the cones over the lanes.
+// environment (nv 9, nefc 62): 10 MB at B = 4096, 0.0048 ms of HBM time.
+// The arithmetic, ~5 * 10^4 FLOP per Newton iteration per environment, is
+// ~0.01 ms of the card's float32 rate for a few iterations.  What sets the
+// time instead is latency: each environment's Newton loop is serial
+// (iterations, 12 line-search steps each, a Cholesky, two substitutions),
+// a launch lasts as long as its slowest environment's loop, and that
+// environment's iteration count is itself decided by float32 rounding in
+// the line search.  On the slowest warps every step of the loop waits on
+// a shuffle sum, a shared-memory load or an IEEE division or square root
+// (tools/newton_kernel_cycles.py splits the cycles by phase).
+//
+// Design: one warp per environment, W warps (environments) per block.
+//   - A warp copies its environment's contiguous J, M and row blocks from
+//     device memory into shared memory once (16-byte loads where aligned)
+//     and works there: J (row stride padded to an odd number of words, so
+//     that lanes reading J[e][v] for consecutive e hit distinct banks), M,
+//     H/L, the residuals jar/djar, the row weights D/frictionloss/active,
+//     the row forces and quadratic-zone weights, the contact blocks, and
+//     x/a/delta.  The per-layout tables (row types, the contact row table,
+//     mu, the row scales) are loaded once per block.  Nothing per
+//     environment goes to local or device memory inside the loop.
+//   - Only live rows and contacts take part (see Env): an environment
+//     that touches the floor in 3 of finger's 34 candidate contacts
+//     evaluates 3 contacts, not 34, in each of the ~15 sweeps of a Newton
+//     iteration.  Live row i and live contact k are items i and nr + k,
+//     item j on lane j mod 32; dof v on lane v (hence MAX_NV = 32).
+//   - Costs, phi' and phi'', the gradient norm and the dot products are
+//     xor-shuffle sums; J' f is summed by each dof's lane over the live
+//     rows in list order.  No atomics: a launch is deterministic, and an
+//     environment's result does not depend on the batch around it.  Every
+//     lane of an xor butterfly ends with the same bits, so each branch on
+//     a reduced value (warmstart, lo/hi, accept, exit) is taken by the
+//     whole warp.
+//   - H's lower triangle is spread over the lanes, each summing entries k
+//     and k + 32 over the weighted live rows and contacts; the Cholesky
+//     runs column by column with lane i owning row i, and the two
+//     substitutions pass each solved entry by shuffle, multiplying by the
+//     pivots' reciprocals.
+// Everything is float32, as on the TPU.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 128;
 constexpr int MAX_NV = 32;
+constexpr int MAX_WARPS = 4;            // environments per block, at most
+constexpr int SMEM_LIMIT = 232448;      // dynamic shared bytes of a block
 constexpr int EQUALITY = 0;
 constexpr int FRICTION = 1;
 constexpr int ONESIDED = 2;
+constexpr unsigned FULL = 0xffffffffu;
+
+// Shared-memory carve, in 4-byte words (the wrapper's launch_config
+// mirrors these three functions).
+__host__ __device__ inline int row_stride(int nv) { return nv | 1; }
+__host__ __device__ inline int block_words(int nefc, int ncg) {
+  return 2 * nefc + 4 * ncg;      // types, scales; cone rows, mu
+}
+__host__ __device__ inline int warp_words(int nefc, int nv, int ncg) {
+  const int ld = row_stride(nv);
+  // J, M and H; jar, djar, D, fl, active, f, w and the live-row list;
+  // cone blocks, flags and the live-cone list; x, a, delta and a scratch
+  // vector
+  return nefc * ld + 2 * nv * ld + 8 * nefc + 11 * ncg + 4 * nv;
+}
 
 // Force, quadratic-zone weight and cost of one row (solver._diag_terms).
 __device__ __forceinline__ void row_terms(int type, float jar, float d,
@@ -90,6 +124,23 @@ __device__ __forceinline__ void row_terms(int type, float jar, float d,
   *c = cc * act;
 }
 
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
+  return v;
+}
+
+// Two sums at once, their shuffles interleaved.
+__device__ __forceinline__ void warp_sum2(float* a, float* b) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float pa = __shfl_xor_sync(FULL, *a, o);
+    const float pb = __shfl_xor_sync(FULL, *b, o);
+    *a += pa;
+    *b += pb;
+  }
+}
+
 struct Problem {
   const float* J;
   const float* M;
@@ -97,53 +148,162 @@ struct Problem {
   const float* D;
   const float* fl;
   const float* active;
+  const float* a;
+  const float* warm;
   const int* types;
   const int* ell_rows;   // (ncg, 3): normal, t1, t2 row of each contact
   const float* ell_mu;   // (ncg,)
   const float* s_row;    // (nefc,) elliptic row scales
-  float* jar;
-  float* djar;
+  float* x_out;
+  float* f_out;
+  int* iters_out;
   int nefc;
   int nv;
   int ncg;
   long long B;
-  long long b;
+};
 
-  __device__ long long e_at(int e) const { return (long long)e * B + b; }
-  __device__ float j(int v, int e) const {
-    return J[((long long)v * nefc + e) * B + b];
-  }
-  __device__ float m(int u, int v) const {
-    return M[((long long)u * nv + v) * B + b];
-  }
-  __device__ void terms(int e, float jar_e, float* f, float* w,
-                        float* c) const {
-    const long long i = e_at(e);
-    row_terms(types[e], jar_e, D[i], fl[i], active[i], f, w, c);
+// One environment's problem in shared memory, seen from one lane.
+//
+// Only the live rows and contacts take part: the active rows that are not
+// elliptic (rl, nr of them) and the active elliptic contacts (cl, nc); an
+// inactive one adds nothing to any cost, force, gradient or Hessian.  The
+// lists are built once per environment, in row order.  They are items
+// 0..nr-1 (rows) and nr..nr+nc-1 (contacts), item i on lane i mod 32; the
+// lane that owns a contact also owns its three rows' residuals.
+struct Env {
+  const int* types;      // per block
+  const int* rows;
+  const float* mu;
+  const float* scale;
+  float* J;              // per warp
+  float* M;
+  float* H;
+  float* jar;
+  float* djar;
+  float* D;
+  float* fl;
+  float* act;
+  float* f;
+  float* w;
+  int* rl;               // live rows
+  float* W;              // (nc, 3, 3) blocks of the live contacts at jar
+  float* on;             // (nc,) 1 where the live contact adds a block
+  int* cl;               // live contacts
+  float* x;
+  float* a;
+  float* d;
+  float* t;
+  int nefc;
+  int nv;
+  int ncg;
+  int ld;
+  int lane;
+  int nr;
+  int nc;
+  int cone0;             // this lane's first live contact (list position)
+
+  __device__ float j(int e, int v) const { return J[e * ld + v]; }
+  __device__ void terms(int e, float jar_e, float* f_, float* w_,
+                        float* c_) const {
+    row_terms(types[e], jar_e, D[e], fl[e], act[e], f_, w_, c_);
   }
   // residuals jar + alpha * djar of contact c's three rows
   __device__ void cone_res(int c, float alpha, float jr[3]) const {
+#pragma unroll
     for (int i = 0; i < 3; ++i) {
-      const long long k = e_at(ell_rows[3 * c + i]);
+      const int k = rows[3 * c + i];
       jr[i] = alpha == 0.0f ? jar[k] : jar[k] + alpha * djar[k];
+    }
+  }
+  // fn(e) for every row whose residuals this lane owns
+  template <typename Fn>
+  __device__ void own_rows(Fn fn) const {
+    for (int i = lane; i < nr; i += 32) fn(rl[i]);
+    for (int k = cone0; k < nc; k += 32) {
+      const int* r = rows + 3 * cl[k];
+      fn(r[0]);
+      fn(r[1]);
+      fn(r[2]);
     }
   }
 };
 
-// Row forces f, cost and Hessian block W (in the raw residuals jr) of the
-// condim-3 elliptic contact c (solver._ell_terms of the JAX package).
+// Append the indices i < n with pred(i) to list, in order, across the warp
+// (ballot and prefix count); returns their number.
+template <typename Pred>
+__device__ __forceinline__ int warp_compact(int n, int lane, int* list,
+                                            Pred pred) {
+  int count = 0;
+  for (int i0 = 0; i0 < n; i0 += 32) {
+    const int i = i0 + lane;
+    const bool keep = i < n && pred(i);
+    const unsigned mask = __ballot_sync(FULL, keep);
+    if (keep) list[count + __popc(mask & ((1u << lane) - 1u))] = i;
+    count += __popc(mask);
+  }
+  return count;
+}
+
+// Copy n contiguous floats of device memory into shared memory as rows of
+// ncols with stride ld, across the warp: 16-byte loads from the first
+// 16-byte boundary on, single floats before and after it.
+__device__ __forceinline__ void warp_load(float* dst, const float* src, int n,
+                                          int ncols, int ld, int lane) {
+  if (ncols == ld) ncols = ld = n;       // no padding: a straight copy
+  int head = (int)(((16u - ((uintptr_t)src & 15u)) & 15u) >> 2);
+  head = head < n ? head : n;
+  for (int k = lane; k < head; k += 32)
+    dst[(k / ncols) * ld + k % ncols] = src[k];
+  const int n4 = (n - head) >> 2;
+  const float4* s4 = reinterpret_cast<const float4*>(src + head);
+  for (int q = lane; q < n4; q += 32) {
+    const float4 v = s4[q];
+    const int k = head + 4 * q;
+    dst[(k / ncols) * ld + k % ncols] = v.x;
+    dst[((k + 1) / ncols) * ld + (k + 1) % ncols] = v.y;
+    dst[((k + 2) / ncols) * ld + (k + 2) % ncols] = v.z;
+    dst[((k + 3) / ncols) * ld + (k + 3) % ncols] = v.w;
+  }
+  for (int k = head + 4 * n4 + lane; k < n; k += 32)
+    dst[(k / ncols) * ld + k % ncols] = src[k];
+}
+
+// One condim-3 elliptic contact's constants: its rows' scales, the
+// normal row's D and active flag, and mu.
+struct Cone {
+  float s[3];
+  float dn;
+  float ac;
+  float mu;
+};
+
+__device__ __forceinline__ Cone cone_of(const Env& p, int c) {
+  const int* r = p.rows + 3 * c;
+  Cone k;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) k.s[i] = p.scale[r[i]];
+  k.dn = p.D[r[0]];
+  k.ac = p.act[r[0]];
+  k.mu = p.mu[c];
+  return k;
+}
+
+// Row forces f, cost and Hessian block W (in the raw residuals jr) of a
+// condim-3 elliptic contact (solver._ell_terms of the JAX package).
 // Returns false, with nothing written, where the contact is inactive or
-// in the top zone: it then adds nothing.
-__device__ bool cone_terms(const Problem& p, int c, const float jr[3],
-                           float f[3], float W[3][3], float* cost) {
-  const int* r = p.ell_rows + 3 * c;
-  const long long i0 = p.e_at(r[0]);
-  const float ac = p.active[i0];
+// in the top zone: it then adds nothing.  (The solve itself visits only
+// active contacts; the check keeps the function whole.)
+__device__ __forceinline__ bool cone_eval(const Cone& k, const float jr[3],
+                                          float f[3], float W[3][3],
+                                          float* cost) {
+  const float ac = k.ac;
   if (ac == 0.0f) return false;
-  const float dn = p.D[i0], mu = p.ell_mu[c];
+  const float dn = k.dn, mu = k.mu;
   float s[3], y[3];
+#pragma unroll
   for (int i = 0; i < 3; ++i) {
-    s[i] = p.s_row[r[i]];
+    s[i] = k.s[i];
     y[i] = jr[i] * s[i];
   }
   const float n = y[0];
@@ -152,8 +312,10 @@ __device__ bool cone_terms(const Problem& p, int c, const float jr[3],
   if (n >= mu * t) return false;                      // top
   float fs[3], Ws[3][3];
   if (mu * n <= -t) {                                  // bottom
+#pragma unroll
     for (int i = 0; i < 3; ++i) {
       fs[i] = -dn * y[i];
+#pragma unroll
       for (int j = 0; j < 3; ++j) Ws[i][j] = i == j ? dn : 0.0f;
     }
     *cost = 0.5f * dn * (n * n + t2) * ac;
@@ -166,212 +328,435 @@ __device__ bool cone_terms(const Problem& p, int c, const float jr[3],
     fs[0] = fn;
     fs[1] = -mu * fn * u[1];
     fs[2] = -mu * fn * u[2];
+#pragma unroll
     for (int i = 0; i < 3; ++i)
+#pragma unroll
       for (int j = 0; j < 3; ++j)
         Ws[i][j] = cv * v[i] * v[j]
                    + ce * ((i == j && i > 0 ? 1.0f : 0.0f) - u[i] * u[j]);
     const float g = mu * t - n;
     *cost = 0.5f * dn * g * g / mu2p1 * ac;
   }
+#pragma unroll
   for (int i = 0; i < 3; ++i) {
     f[i] = fs[i] * s[i] * ac;
+#pragma unroll
     for (int j = 0; j < 3; ++j) W[i][j] = Ws[i][j] * s[i] * s[j] * ac;
   }
   return true;
 }
 
-// Sum of the elliptic contacts' costs at jar + alpha * djar.
-__device__ float cone_cost(const Problem& p, float alpha) {
+__device__ __forceinline__ bool cone_terms(const Env& p, int c,
+                                           const float jr[3], float f[3],
+                                           float W[3][3], float* cost) {
+  return cone_eval(cone_of(p, c), jr, f, W, cost);
+}
+
+// A live row or contact as the line search sees it: constants, residual
+// jar and step djar, in registers for the 12 steps.
+struct RowReg {
+  int type;
+  float d;
+  float fl;
+  float act;
+  float jar;
+  float dj;
+};
+
+struct ConeReg {
+  Cone k;
+  float jar[3];
+  float dj[3];
+};
+
+__device__ __forceinline__ RowReg row_reg(const Env& p, int e) {
+  return {p.types[e], p.D[e], p.fl[e], p.act[e], p.jar[e], p.djar[e]};
+}
+
+__device__ __forceinline__ ConeReg cone_reg(const Env& p, int c) {
+  ConeReg r;
+  r.k = cone_of(p, c);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    r.jar[i] = p.jar[p.rows[3 * c + i]];
+    r.dj[i] = p.djar[p.rows[3 * c + i]];
+  }
+  return r;
+}
+
+// Add a row's or a contact's terms of phi'(alpha) (less gma + alpha dmd)
+// and phi''(alpha) (less dmd) to *pf and *pw.
+__device__ __forceinline__ void row_phi(const RowReg& r, float alpha,
+                                        float* pf, float* pw) {
+  float f, w, c;
+  row_terms(r.type, r.jar + alpha * r.dj, r.d, r.fl, r.act, &f, &w, &c);
+  *pf += f * r.dj;
+  *pw += w * r.dj * r.dj;
+}
+
+__device__ __forceinline__ void cone_phi(const ConeReg& r, float alpha,
+                                         float* pf, float* pw) {
+  float jr[3], f[3], W[3][3], cost;
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+    jr[i] = alpha == 0.0f ? r.jar[i] : r.jar[i] + alpha * r.dj[i];
+  if (!cone_eval(r.k, jr, f, W, &cost)) return;
+  const float* dj = r.dj;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    *pf += f[i] * dj[i];
+    *pw += dj[i] * (W[i][0] * dj[0] + W[i][1] * dj[1] + W[i][2] * dj[2]);
+  }
+}
+
+// This lane's share of the row and cone costs at jar + alpha * djar.
+__device__ __forceinline__ float cost_part(const Env& p, float alpha) {
   float total = 0.0f;
-  for (int c = 0; c < p.ncg; ++c) {
+  for (int i = p.lane; i < p.nr; i += 32) {
+    const int e = p.rl[i];
+    float f, w, c;
+    p.terms(e, p.jar[e] + alpha * p.djar[e], &f, &w, &c);
+    total += c;
+  }
+  for (int k = p.cone0; k < p.nc; k += 32) {
     float jr[3], f[3], W[3][3], cost;
-    p.cone_res(c, alpha, jr);
-    if (cone_terms(p, c, jr, f, W, &cost)) total += cost;
+    p.cone_res(p.cl[k], alpha, jr);
+    if (cone_terms(p, p.cl[k], jr, f, W, &cost)) total += cost;
   }
   return total;
 }
 
-// 0.5 xa' M xa, and M xa into mxa.
-__device__ float quad_cost(const Problem& p, const float* xa, float* mxa) {
-  float q = 0.0f;
-  for (int u = 0; u < p.nv; ++u) {
-    float s = 0.0f;
-    for (int v = 0; v < p.nv; ++v) s += p.m(u, v) * xa[v];
-    mxa[u] = s;
-    q += xa[u] * s;
+// 0.5 vec' M vec over the warp (vec in shared memory); lane u < nv gets
+// (M vec)[u] in *mv.
+__device__ __forceinline__ float quad(const Env& p, const float* vec,
+                                      float* mv) {
+  float s = 0.0f, q = 0.0f;
+  if (p.lane < p.nv) {
+    const float* row = p.M + p.lane * p.ld;
+#pragma unroll 4
+    for (int v = 0; v < p.nv; ++v) s += row[v] * vec[v];
+    q = vec[p.lane] * s;
   }
-  return 0.5f * q;
+  *mv = s;
+  return 0.5f * warp_sum(q);
 }
 
-// grad = M (x - a) - J' f(jar); mxa = M (x - a).
-__device__ void gradient(const Problem& p, const float* x, const float* a,
-                         float* mxa, float* grad) {
-  float xa[MAX_NV];
-  for (int v = 0; v < p.nv; ++v) xa[v] = x[v] - a[v];
-  quad_cost(p, xa, mxa);
-  float g[MAX_NV];
-  for (int v = 0; v < p.nv; ++v) g[v] = mxa[v];
-  for (int e = 0; e < p.nefc; ++e) {
+// Row forces f and weights w, and the live contacts' blocks, at jar.
+// Rows that are not live keep the force 0 they were given at the start.
+__device__ __forceinline__ void eval_terms(const Env& p) {
+  __syncwarp();
+  for (int i = p.lane; i < p.nr; i += 32) {
+    const int e = p.rl[i];
     float f, w, c;
-    p.terms(e, p.jar[p.e_at(e)], &f, &w, &c);
-    if (f != 0.0f)
-      for (int v = 0; v < p.nv; ++v) g[v] -= p.j(v, e) * f;
+    p.terms(e, p.jar[e], &f, &w, &c);
+    p.f[e] = f;
+    p.w[e] = w;
   }
-  for (int c = 0; c < p.ncg; ++c) {
+  for (int k = p.cone0; k < p.nc; k += 32) {
+    const int c = p.cl[k];
+    const int* r = p.rows + 3 * c;
     float jr[3], f[3], W[3][3], cost;
     p.cone_res(c, 0.0f, jr);
-    if (!cone_terms(p, c, jr, f, W, &cost)) continue;
-    for (int i = 0; i < 3; ++i) {
-      const int e = p.ell_rows[3 * c + i];
-      for (int v = 0; v < p.nv; ++v) g[v] -= p.j(v, e) * f[i];
+    float* Wk = p.W + 9 * k;
+    if (cone_terms(p, c, jr, f, W, &cost)) {
+      p.on[k] = 1.0f;
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        p.f[r[i]] = f[i];
+#pragma unroll
+        for (int j = 0; j < 3; ++j) Wk[3 * i + j] = W[i][j];
+      }
+    } else {                    // top zone: no force, no block
+      p.on[k] = 0.0f;
+#pragma unroll
+      for (int i = 0; i < 3; ++i) p.f[r[i]] = 0.0f;
     }
   }
-  for (int v = 0; v < p.nv; ++v) grad[v] = g[v];
+  __syncwarp();
 }
 
-__device__ float norm(const float* v, int n) {
-  float s = 0.0f;
-  for (int i = 0; i < n; ++i) s += v[i] * v[i];
-  return sqrtf(s);
-}
-
-__global__ void newton_kernel(Problem p, const float* a_in,
-                              const float* warm_in, float* x_out,
-                              float* f_out, int* iters_out, int niter,
-                              int ls_iter, float tol, float scale) {
-  p.b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p.b >= p.B) return;
-  const int nv = p.nv, nefc = p.nefc;
-  float a[MAX_NV], x[MAX_NV], mxa[MAX_NV], grad[MAX_NV], delta[MAX_NV];
-  float H[MAX_NV * MAX_NV];
-  float xa[MAX_NV], tmp[MAX_NV];
-
-  // warmstart selection: the better initial cost wins
-  for (int v = 0; v < nv; ++v) {
-    a[v] = a_in[(long long)v * p.B + p.b];
-    x[v] = warm_in[(long long)v * p.B + p.b];
+// grad = M (x - a) - J' f and mxa = M (x - a), each held by lane v < nv
+// for dof v (0 on the other lanes), J' f summed over the live rows in
+// list order; needs eval_terms at x's jar.
+__device__ __forceinline__ void gradient(const Env& p, float* mxa,
+                                         float* grad) {
+  __syncwarp();
+  if (p.lane < p.nv) p.t[p.lane] = p.x[p.lane] - p.a[p.lane];
+  __syncwarp();
+  float m;
+  quad(p, p.t, &m);
+  float jf = 0.0f;
+  if (p.lane < p.nv) {
+    const int v = p.lane;
+#pragma unroll 4
+    for (int i = 0; i < p.nr; ++i) {
+      const int e = p.rl[i];
+      jf += p.j(e, v) * p.f[e];
+    }
+    for (int k = 0; k < p.nc; ++k) {
+      const int* r = p.rows + 3 * p.cl[k];
+      jf += p.j(r[0], v) * p.f[r[0]];
+      jf += p.j(r[1], v) * p.f[r[1]];
+      jf += p.j(r[2], v) * p.f[r[2]];
+    }
   }
-  float cost_a = 0.0f, cost_w = 0.0f;
-  for (int e = 0; e < nefc; ++e) {
-    float ja = -p.aref[p.e_at(e)], jw = ja;
+  *mxa = m;
+  *grad = m - jf;
+}
+
+// Row u and column v of entry k of a lower triangle stored row by row.
+__device__ __forceinline__ void tri_index(int k, int* u, int* v) {
+  int r = 0;
+  while ((r + 1) * (r + 2) / 2 <= k) ++r;
+  *u = r;
+  *v = k - r * (r + 1) / 2;
+}
+
+// H = M + J' diag(w) J + sum_c J_c' W_c J_c, lower triangle, the
+// nv (nv + 1) / 2 entries spread over the lanes: each lane sums entries k
+// and k + 32 in one pass over the live rows and contacts.
+__device__ __forceinline__ void build_h(const Env& p) {
+  const int nt = p.nv * (p.nv + 1) / 2, ld = p.ld;
+  for (int k = p.lane; k < nt; k += 64) {
+    const bool two = k + 32 < nt;
+    int u0, v0, u1 = 0, v1 = 0;
+    tri_index(k, &u0, &v0);
+    if (two) tri_index(k + 32, &u1, &v1);
+    float h0 = p.M[u0 * ld + v0], h1 = p.M[u1 * ld + v1];
+#pragma unroll 4
+    for (int i = 0; i < p.nr; ++i) {     // a row with w = 0 adds 0
+      const int e = p.rl[i];
+      const float w = p.w[e];
+      const float* Je = p.J + e * ld;
+      h0 += (w * Je[u0]) * Je[v0];
+      h1 += (w * Je[u1]) * Je[v1];
+    }
+    for (int c = 0; c < p.nc; ++c) {
+      if (p.on[c] == 0.0f) continue;
+      const int* r = p.rows + 3 * p.cl[c];
+      const float* W = p.W + 9 * c;
+      const float* J0 = p.J + r[0] * ld;
+      const float* J1 = p.J + r[1] * ld;
+      const float* J2 = p.J + r[2] * ld;
+      float wj[3], wk[3];     // (W J_c)[:, u0], (W J_c)[:, u1]
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        wj[i] = W[3 * i] * J0[u0] + W[3 * i + 1] * J1[u0] + W[3 * i + 2] * J2[u0];
+        wk[i] = W[3 * i] * J0[u1] + W[3 * i + 1] * J1[u1] + W[3 * i + 2] * J2[u1];
+      }
+      h0 += J0[v0] * wj[0] + J1[v0] * wj[1] + J2[v0] * wj[2];
+      h1 += J0[v1] * wk[0] + J1[v1] * wk[1] + J2[v1] * wk[2];
+    }
+    p.H[u0 * ld + v0] = h0;
+    if (two) p.H[u1 * ld + v1] = h1;
+  }
+  __syncwarp();
+}
+
+// In-place Cholesky of H's lower triangle with +1e-12 on the pivot
+// (solver's eye_reg), column by column: lane i >= j forms its entry of
+// column j from its own row and row j (the same subtractions, in the same
+// order, as the right-looking loop), lane j's pivot goes to the others by
+// shuffle, and one __syncwarp publishes the column.
+__device__ __forceinline__ void cholesky(const Env& p) {
+  const int i = p.lane, ld = p.ld;
+  const bool own = i < p.nv;
+  for (int j = 0; j < p.nv; ++j) {
+    float s = 0.0f;
+    if (own && i >= j) {
+      s = p.H[i * ld + j];
+      for (int k = 0; k < j; ++k) s -= p.H[i * ld + k] * p.H[j * ld + k];
+    }
+    const float pivot = __shfl_sync(FULL, sqrtf(fmaxf(s + 1e-12f, 1e-30f)), j);
+    if (i == j) p.H[j * ld + j] = pivot;
+    else if (own && i > j) p.H[i * ld + j] = s / pivot;
+    __syncwarp();
+  }
+}
+
+// delta = -H^-1 grad from the factor L in H; lane v < nv holds entry v.
+// Each of the 2 nv substitution steps waits on the one before, and an
+// IEEE division is a long instruction sequence, so each lane takes the
+// reciprocal of its own pivot once, all lanes at a time, and the steps
+// multiply by it (within ~1.5 ulp of the quotient).
+__device__ __forceinline__ float newton_step(const Env& p, float grad) {
+  const int i = p.lane, ld = p.ld;
+  const bool own = i < p.nv;
+  const float inv = own ? 1.0f / p.H[i * ld + i] : 0.0f;
+  float d = own ? -grad : 0.0f;
+  for (int j = 0; j < p.nv; ++j) {
+    const float yj = __shfl_sync(FULL, d * inv, j);
+    if (i > j && own) d -= p.H[i * ld + j] * yj;
+    if (i == j) d = yj;
+  }
+  for (int j = p.nv - 1; j >= 0; --j) {
+    const float xj = __shfl_sync(FULL, d * inv, j);
+    if (i < j) d -= p.H[j * ld + i] * xj;
+    if (i == j) d = xj;
+  }
+  return d;
+}
+
+__global__ void __launch_bounds__(MAX_WARPS * 32)
+newton_kernel(Problem q, int niter, int ls_iter, float tol, float scale) {
+  extern __shared__ float smem[];
+  const int nefc = q.nefc, nv = q.nv, ncg = q.ncg;
+  // per-block tables, loaded by every thread before any warp leaves
+  int* s_types = reinterpret_cast<int*>(smem);
+  float* s_scale = smem + nefc;
+  int* s_rows = reinterpret_cast<int*>(s_scale + nefc);
+  float* s_mu = smem + 2 * nefc + 3 * ncg;
+  for (int k = threadIdx.x; k < nefc; k += blockDim.x) {
+    s_types[k] = q.types[k];
+    s_scale[k] = ncg > 0 ? q.s_row[k] : 1.0f;
+  }
+  for (int k = threadIdx.x; k < 3 * ncg; k += blockDim.x)
+    s_rows[k] = q.ell_rows[k];
+  for (int k = threadIdx.x; k < ncg; k += blockDim.x) s_mu[k] = q.ell_mu[k];
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long b = (long long)blockIdx.x * (blockDim.x >> 5) + warp;
+  if (b >= q.B) return;            // the whole warp: its environment is past B
+
+  Env p;
+  p.types = s_types;
+  p.rows = s_rows;
+  p.mu = s_mu;
+  p.scale = s_scale;
+  p.nefc = nefc;
+  p.nv = nv;
+  p.ncg = ncg;
+  p.ld = row_stride(nv);
+  p.lane = lane;
+  p.J = smem + block_words(nefc, ncg) + warp * warp_words(nefc, nv, ncg);
+  p.M = p.J + nefc * p.ld;
+  p.H = p.M + nv * p.ld;
+  p.jar = p.H + nv * p.ld;
+  p.djar = p.jar + nefc;
+  p.D = p.djar + nefc;
+  p.fl = p.D + nefc;
+  p.act = p.fl + nefc;
+  p.f = p.act + nefc;
+  p.w = p.f + nefc;
+  p.rl = reinterpret_cast<int*>(p.w + nefc);
+  p.W = p.w + 2 * nefc;
+  p.on = p.W + 9 * ncg;
+  p.cl = reinterpret_cast<int*>(p.on + ncg);
+  p.x = p.on + 2 * ncg;
+  p.a = p.x + nv;
+  p.d = p.a + nv;
+  p.t = p.d + nv;
+
+  warp_load(p.J, q.J + b * nefc * nv, nefc * nv, nv, p.ld, lane);
+  warp_load(p.M, q.M + b * nv * nv, nv * nv, nv, p.ld, lane);
+  warp_load(p.D, q.D + b * nefc, nefc, nefc, nefc, lane);
+  warp_load(p.fl, q.fl + b * nefc, nefc, nefc, nefc, lane);
+  warp_load(p.act, q.active + b * nefc, nefc, nefc, nefc, lane);
+  for (int e = lane; e < nefc; e += 32) p.f[e] = 0.0f;
+  float a_v = 0.0f, w_v = 0.0f;    // lane v's dof of a and warm
+  if (lane < nv) {
+    a_v = q.a[b * nv + lane];
+    w_v = q.warm[b * nv + lane];
+    p.a[lane] = a_v;
+    p.x[lane] = w_v;
+  }
+  __syncwarp();
+  p.nr = warp_compact(nefc, lane, p.rl, [&](int e) {
+    return p.act[e] != 0.0f && s_types[e] <= ONESIDED;
+  });
+  p.nc = warp_compact(ncg, lane, p.cl, [&](int c) {
+    return p.act[s_rows[3 * c]] != 0.0f;
+  });
+  p.cone0 = (lane - p.nr % 32 + 32) % 32;
+  __syncwarp();
+
+  // warmstart selection: the better initial cost wins (jar holds J a -
+  // aref, djar J warm - aref)
+  p.own_rows([&](int e) {
+    float ja = -q.aref[b * nefc + e], jw = ja;
     for (int v = 0; v < nv; ++v) {
-      const float jv = p.j(v, e);
-      ja += jv * a[v];
-      jw += jv * x[v];
+      const float jv = p.j(e, v);
+      ja += jv * p.a[v];
+      jw += jv * p.x[v];
     }
+    p.jar[e] = ja;
+    p.djar[e] = jw;
+  });
+  float part_a = 0.0f, part_w = 0.0f;
+  for (int i = lane; i < p.nr; i += 32) {
+    const int e = p.rl[i];
     float f, w, c;
-    p.terms(e, ja, &f, &w, &c);
-    cost_a += c;
-    p.terms(e, jw, &f, &w, &c);
-    cost_w += c;
-    p.jar[p.e_at(e)] = ja;
-    p.djar[p.e_at(e)] = jw;
+    p.terms(e, p.jar[e], &f, &w, &c);
+    part_a += c;
+    p.terms(e, p.djar[e], &f, &w, &c);
+    part_w += c;
   }
-  cost_a += cone_cost(p, 0.0f);        // jar holds J a - aref
-  for (int c = 0; c < p.ncg; ++c) {    // djar holds J warm - aref
+  for (int k = p.cone0; k < p.nc; k += 32) {
+    const int c = p.cl[k];
     float jr[3], f[3], W[3][3], cost;
-    for (int i = 0; i < 3; ++i)
-      jr[i] = p.djar[p.e_at(p.ell_rows[3 * c + i])];
-    if (cone_terms(p, c, jr, f, W, &cost)) cost_w += cost;
+    p.cone_res(c, 0.0f, jr);
+    if (cone_terms(p, c, jr, f, W, &cost)) part_a += cost;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) jr[i] = p.djar[p.rows[3 * c + i]];
+    if (cone_terms(p, c, jr, f, W, &cost)) part_w += cost;
   }
-  for (int v = 0; v < nv; ++v) xa[v] = x[v] - a[v];
-  cost_w += quad_cost(p, xa, tmp);
+  if (lane < nv) p.t[lane] = w_v - a_v;
+  __syncwarp();
+  float tmp;
+  const float quad_w = quad(p, p.t, &tmp);
+  warp_sum2(&part_a, &part_w);
+  const float cost_a = part_a, cost_w = part_w + quad_w;
   const bool use_warm = cost_w < cost_a;
   float cost = fminf(cost_w, cost_a);
+  float x_v = use_warm ? w_v : a_v;
   if (use_warm) {
-    for (int e = 0; e < nefc; ++e) p.jar[p.e_at(e)] = p.djar[p.e_at(e)];
-  } else {
-    for (int v = 0; v < nv; ++v) x[v] = a[v];
+    p.own_rows([&](int e) { p.jar[e] = p.djar[e]; });
+  } else if (lane < nv) {
+    p.x[lane] = a_v;
   }
-  gradient(p, x, a, mxa, grad);
-  bool done = !(scale * norm(grad, nv) >= tol);
+  eval_terms(p);
+  float mxa, grad;
+  gradient(p, &mxa, &grad);
+  bool done = !(scale * sqrtf(warp_sum(grad * grad)) >= tol);
 
   int it = 0;
   while (it < niter && !done) {
-    // H = M + J' diag(w) J, lower triangle
-    for (int u = 0; u < nv; ++u)
-      for (int v = 0; v <= u; ++v) H[u * nv + v] = p.m(u, v);
-    for (int e = 0; e < nefc; ++e) {
-      float f, w, c;
-      p.terms(e, p.jar[p.e_at(e)], &f, &w, &c);
-      if (w == 0.0f) continue;
-      for (int v = 0; v < nv; ++v) tmp[v] = p.j(v, e);
-      for (int u = 0; u < nv; ++u) {
-        const float wu = w * tmp[u];
-        for (int v = 0; v <= u; ++v) H[u * nv + v] += wu * tmp[v];
-      }
-    }
-    for (int c = 0; c < p.ncg; ++c) {   // + J_c' W_c J_c
-      float jr[3], f[3], W[3][3], cost;
-      p.cone_res(c, 0.0f, jr);
-      if (!cone_terms(p, c, jr, f, W, &cost)) continue;
-      const int* r = p.ell_rows + 3 * c;
-      for (int u = 0; u < nv; ++u) {
-        float wj[3];     // (W J_c)[:, u]
-        for (int i = 0; i < 3; ++i)
-          wj[i] = W[i][0] * p.j(u, r[0]) + W[i][1] * p.j(u, r[1])
-                  + W[i][2] * p.j(u, r[2]);
-        for (int v = 0; v <= u; ++v)
-          H[u * nv + v] += p.j(v, r[0]) * wj[0] + p.j(v, r[1]) * wj[1]
-                           + p.j(v, r[2]) * wj[2];
-      }
-    }
-    // Cholesky with +1e-12 on the pivot (solver's eye_reg)
-    for (int j = 0; j < nv; ++j) {
-      const float pivot = sqrtf(fmaxf(H[j * nv + j] + 1e-12f, 1e-30f));
-      H[j * nv + j] = pivot;
-      for (int i = j + 1; i < nv; ++i) H[i * nv + j] /= pivot;
-      for (int i = j + 1; i < nv; ++i) {
-        const float lij = H[i * nv + j];
-        for (int k = j + 1; k <= i; ++k) H[i * nv + k] -= lij * H[k * nv + j];
-      }
-    }
-    // delta = -H^-1 grad
-    for (int j = 0; j < nv; ++j) delta[j] = -grad[j];
-    for (int j = 0; j < nv; ++j) {
-      const float yj = delta[j] / H[j * nv + j];
-      for (int i = j + 1; i < nv; ++i) delta[i] -= H[i * nv + j] * yj;
-      delta[j] = yj;
-    }
-    for (int j = nv - 1; j >= 0; --j) {
-      const float xj = delta[j] / H[j * nv + j];
-      for (int i = 0; i < j; ++i) delta[i] -= H[j * nv + i] * xj;
-      delta[j] = xj;
-    }
-
-    for (int e = 0; e < nefc; ++e) {
+    build_h(p);
+    cholesky(p);
+    const float d_v = newton_step(p, grad);
+    if (lane < nv) p.d[lane] = d_v;
+    __syncwarp();
+    p.own_rows([&](int e) {
       float s = 0.0f;
-      for (int v = 0; v < nv; ++v) s += p.j(v, e) * delta[v];
-      p.djar[p.e_at(e)] = s;
-    }
-    const float dmd = 2.0f * quad_cost(p, delta, tmp);
-    float gma = 0.0f;
-    for (int v = 0; v < nv; ++v) gma += delta[v] * mxa[v];
+#pragma unroll 4
+      for (int v = 0; v < nv; ++v) s += p.j(e, v) * p.d[v];
+      p.djar[e] = s;
+    });
+    float dmd = 2.0f * quad(p, p.d, &tmp);
+    float gma = d_v * mxa;
+    gma = warp_sum(gma);
+    __syncwarp();
 
-    // guarded Newton on phi'(alpha), starting at the full step
+    // guarded Newton on phi'(alpha), starting at the full step; this
+    // lane's first live row and contact stay in registers throughout
     float alpha = 1.0f, lo = 0.0f, hi = 4.0f;
+    const bool has_row = lane < p.nr, has_cone = p.cone0 < p.nc;
+    RowReg row0;
+    ConeReg cone0;
+    if (has_row) row0 = row_reg(p, p.rl[lane]);
+    if (has_cone) cone0 = cone_reg(p, p.cl[p.cone0]);
     for (int s = 0; s < ls_iter; ++s) {
-      float dp = gma + alpha * dmd, ddp = dmd;
-      for (int e = 0; e < nefc; ++e) {
-        const float dj = p.djar[p.e_at(e)];
-        float f, w, c;
-        p.terms(e, p.jar[p.e_at(e)] + alpha * dj, &f, &w, &c);
-        dp -= f * dj;
-        ddp += w * dj * dj;
-      }
-      for (int c = 0; c < p.ncg; ++c) {
-        float jr[3], f[3], W[3][3], cost;
-        p.cone_res(c, alpha, jr);
-        if (!cone_terms(p, c, jr, f, W, &cost)) continue;
-        float dj[3];
-        for (int i = 0; i < 3; ++i)
-          dj[i] = p.djar[p.e_at(p.ell_rows[3 * c + i])];
-        for (int i = 0; i < 3; ++i) {
-          dp -= f[i] * dj[i];
-          ddp += dj[i] * (W[i][0] * dj[0] + W[i][1] * dj[1]
-                          + W[i][2] * dj[2]);
-        }
-      }
+      float pf = 0.0f, pw = 0.0f;
+      if (has_row) row_phi(row0, alpha, &pf, &pw);
+      for (int i = lane + 32; i < p.nr; i += 32)
+        row_phi(row_reg(p, p.rl[i]), alpha, &pf, &pw);
+      if (has_cone) cone_phi(cone0, alpha, &pf, &pw);
+      for (int k = p.cone0 + 32; k < p.nc; k += 32)
+        cone_phi(cone_reg(p, p.cl[k]), alpha, &pf, &pw);
+      warp_sum2(&pf, &pw);
+      const float dp = gma + alpha * dmd - pf;
+      const float ddp = dmd + pw;
       if (dp < 0.0f) lo = fmaxf(lo, alpha);
       if (dp > 0.0f) hi = fminf(hi, alpha);
       const float alpha_n = alpha - dp / fmaxf(ddp, 1e-14f);
@@ -379,46 +764,45 @@ __global__ void newton_kernel(Problem p, const float* a_in,
     }
 
     // accept if improved
-    for (int v = 0; v < nv; ++v) xa[v] = x[v] + alpha * delta[v] - a[v];
-    float new_cost = quad_cost(p, xa, tmp);
-    for (int e = 0; e < nefc; ++e) {
-      float f, w, c;
-      p.terms(e, p.jar[p.e_at(e)] + alpha * p.djar[p.e_at(e)], &f, &w, &c);
-      new_cost += c;
+    __syncwarp();
+    if (lane < nv) p.t[lane] = x_v + alpha * d_v - a_v;
+    __syncwarp();
+    float q_new = 0.0f, part = cost_part(p, alpha);
+    if (lane < nv) {
+      float s = 0.0f;
+      for (int v = 0; v < nv; ++v) s += p.M[lane * p.ld + v] * p.t[v];
+      q_new = p.t[lane] * s;
     }
-    new_cost += cone_cost(p, alpha);
+    warp_sum2(&q_new, &part);
+    const float new_cost = 0.5f * q_new + part;
     float improvement = 0.0f;
+    __syncwarp();
     if (new_cost < cost) {
-      for (int v = 0; v < nv; ++v) x[v] += alpha * delta[v];
-      for (int e = 0; e < nefc; ++e)
-        p.jar[p.e_at(e)] += alpha * p.djar[p.e_at(e)];
+      x_v += alpha * d_v;
+      if (lane < nv) p.x[lane] = x_v;
+      p.own_rows([&](int e) { p.jar[e] += alpha * p.djar[e]; });
       improvement = scale * (cost - new_cost);
       cost = new_cost;
     }
-    gradient(p, x, a, mxa, grad);
-    const float grad_norm = scale * norm(grad, nv);
-    // NaN-robust: a diverged lane stops
+    eval_terms(p);
+    gradient(p, &mxa, &grad);
+    const float grad_norm = scale * sqrtf(warp_sum(grad * grad));
+    // NaN-robust: a diverged environment stops
     done = !(improvement >= tol && grad_norm >= tol);
     ++it;
   }
 
   // exact final forces from x
-  for (int e = 0; e < nefc; ++e) {
-    float s = -p.aref[p.e_at(e)];
-    for (int v = 0; v < nv; ++v) s += p.j(v, e) * x[v];
-    float f, w, c;
-    p.terms(e, s, &f, &w, &c);
-    f_out[p.e_at(e)] = f;
-    p.jar[p.e_at(e)] = s;
-  }
-  for (int c = 0; c < p.ncg; ++c) {
-    float jr[3], f[3], W[3][3], cost;
-    p.cone_res(c, 0.0f, jr);
-    if (!cone_terms(p, c, jr, f, W, &cost)) continue;
-    for (int i = 0; i < 3; ++i) f_out[p.e_at(p.ell_rows[3 * c + i])] = f[i];
-  }
-  for (int v = 0; v < nv; ++v) x_out[(long long)v * p.B + p.b] = x[v];
-  iters_out[p.b] = it;
+  __syncwarp();
+  p.own_rows([&](int e) {
+    float s = -q.aref[b * nefc + e];
+    for (int v = 0; v < nv; ++v) s += p.j(e, v) * p.x[v];
+    p.jar[e] = s;
+  });
+  eval_terms(p);
+  for (int e = lane; e < nefc; e += 32) q.f_out[b * nefc + e] = p.f[e];
+  if (lane < nv) q.x_out[b * nv + lane] = x_v;
+  if (lane == 0) q.iters_out[b] = it;
 }
 
 }  // namespace
@@ -430,15 +814,27 @@ extern "C" int dmc_newton_solve(const float* J, const float* M,
                                 const int* types, const int* ell_rows,
                                 const float* ell_mu, const float* s_row,
                                 float* x_out, float* f_out, int* iters_out,
-                                float* jar, float* djar, int nefc, int nv,
-                                int ncg, int batch, int niter, int ls_iter,
-                                float tol, float scale, void* stream) {
-  if (nv < 1 || nv > MAX_NV || nefc < 1 || ncg < 0)
+                                int nefc, int nv, int ncg, int batch,
+                                int niter, int ls_iter, float tol,
+                                float scale, int warps, int smem_bytes,
+                                void* stream) {
+  if (nv < 1 || nv > MAX_NV || nefc < 1 || ncg < 0 || batch < 1 ||
+      warps < 1 || warps > MAX_WARPS)
     return (int)cudaErrorInvalidValue;
-  Problem p{J, M, aref, D, fl, active, types, ell_rows, ell_mu, s_row,
-            jar, djar, nefc, nv, ncg, (long long)batch, 0};
-  const unsigned blocks = (unsigned)((batch + kThreads - 1) / kThreads);
-  newton_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      p, a, warm, x_out, f_out, iters_out, niter, ls_iter, tol, scale);
+  const long long words = block_words(nefc, ncg)
+                          + (long long)warps * warp_words(nefc, nv, ncg);
+  if (4 * words != smem_bytes || smem_bytes > SMEM_LIMIT)
+    return (int)cudaErrorInvalidValue;
+  if (smem_bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        newton_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem_bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  Problem q{J, M, aref, D, fl, active, a, warm, types, ell_rows, ell_mu,
+            s_row, x_out, f_out, iters_out, nefc, nv, ncg, (long long)batch};
+  const unsigned blocks = (unsigned)((batch + warps - 1) / warps);
+  newton_kernel<<<blocks, warps * 32, smem_bytes, (cudaStream_t)stream>>>(
+      q, niter, ls_iter, tol, scale);
   return (int)cudaGetLastError();
 }

@@ -41,10 +41,10 @@ _SIGNATURES = {
     # (l, b, x, n, batch, stream)
     'dmc_cho_solve': (_P, _P, _P, _I, _I, _P),
     # (J, M, aref, D, fl, active, a, warm, types, ell_rows, ell_mu, s_row,
-    #  x, f, iters, jar, djar, nefc, nv, ncg, batch, niter, ls_iter, tol,
-    #  scale, stream)
+    #  x, f, iters, nefc, nv, ncg, batch, niter, ls_iter, tol, scale,
+    #  warps, smem_bytes, stream)
     'dmc_newton_solve': (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                         _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P),
+                         _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _P),
 }
 
 _lib = None

@@ -10,9 +10,12 @@ counterpart of `solver._solve_core_xla`, with one done mask per lane in
 place of the single-environment while loop).  A CUDA tensor goes to the
 kernel in `csrc/newton_kernel.cu` or raises.  Its launches count as K2
 on layouts without elliptic cones and as K2-ell (the TPU kernel's
-`ell_terms` branch) on layouts with them.  The kernel's own limits replace the TPU kernel's VMEM gate:
-nv <= MAX_NV (its thread-local array size) and condim-3 elliptic
-contacts; anything else raises on the card.
+`ell_terms` branch) on layouts with them.  The kernel runs one warp per
+environment with its problem in shared memory and reads the batch-first
+tensors as they are.  Its own limits replace the TPU kernel's VMEM gate:
+nv <= MAX_NV (one lane per dof), condim-3 elliptic contacts, and one
+environment's problem within a block's shared memory (`launch_config`);
+anything else raises on the card.
 """
 
 from __future__ import annotations
@@ -24,8 +27,12 @@ from dm_control_tpu_torch._src import efc
 from dm_control_tpu_torch.ops import build
 from dm_control_tpu_torch.ops import linalg_kernel
 
-# thread-local array size of the kernel (csrc/newton_kernel.cu MAX_NV)
+# dofs the kernel takes, one lane each (csrc/newton_kernel.cu MAX_NV)
 MAX_NV = 32
+# environments (warps) per block, at most (csrc/newton_kernel.cu MAX_WARPS)
+MAX_WARPS = 4
+# dynamic shared memory one block may use on sm_90 (227 KB)
+SMEM_LIMIT = 232448
 
 # launches of each kernel since the last reset_launches() (plain-version
 # calls do not count): K2 and K2-ell
@@ -256,6 +263,30 @@ def newton_solve_plain(J, M, aref, d_, fl, active, a, warm, *, types, niter,
 # ---------------------------------------------------------------------------
 
 
+def launch_config(nefc: int, nv: int, ncg: int) -> tuple[int, int]:
+  """(warps per block, dynamic shared bytes) of the kernel for a layout.
+
+  Mirrors the kernel's shared-memory carve (`block_words`, `warp_words`
+  in csrc/newton_kernel.cu, which checks the bytes again): per block the
+  row types and scales and the contact table; per warp J, M and H with
+  rows padded to an odd stride, seven row vectors and the live-row list,
+  the contact blocks, flags and live-contact list, and four dof vectors,
+  all 4-byte words.  Takes MAX_WARPS environments per block,
+  fewer where they do not fit, and raises where one does not.
+  """
+  ld = nv | 1
+  block = 2 * nefc + 4 * ncg
+  warp = nefc * ld + 2 * nv * ld + 8 * nefc + 11 * ncg + 4 * nv
+  fit = (SMEM_LIMIT // 4 - block) // warp
+  if fit < 1:
+    raise ValueError(
+        f'newton kernel: one environment (nefc={nefc}, nv={nv}, ncg={ncg}) '
+        f'needs {4 * (block + warp)} bytes of shared memory, over the '
+        f'{SMEM_LIMIT} a block has')
+  warps = min(MAX_WARPS, fit)
+  return warps, 4 * (block + warps * warp)
+
+
 def _types_on(lay: efc.Layout, device) -> torch.Tensor:
   key = ('types_i32', str(device))
   t = lay._cache.get(key)
@@ -325,34 +356,24 @@ def newton_solve_batched(J, M, aref, d_, fl, active, a, warm, *, lay,
     if tuple(t.shape) != shape:
       raise ValueError(f'{name}: shape {tuple(t.shape)} != {shape}')
 
-  j_t = J.permute(2, 1, 0).contiguous()         # (nv, nefc, B)
-  m_t = M.permute(1, 2, 0).contiguous()         # (nv, nv, B)
-  rows = [x.permute(1, 0).contiguous() for x in (aref, d_, fl, active)]
-  a_t, w_t = a.permute(1, 0).contiguous(), warm.permute(1, 0).contiguous()
-  for t in [j_t, m_t, a_t, w_t] + rows:
-    assert t.is_contiguous()
-  x_t = torch.empty((nv, B), dtype=torch.float32, device=J.device)
-  f_t = torch.empty((nefc, B), dtype=torch.float32, device=J.device)
+  cones = _cones_on(lay, J.device) if lay.ell_groups else None
+  ncg = cones[0].shape[0] if cones else 0
+  warps, smem = launch_config(nefc, nv, ncg)
+  # batch-first as the port holds them: no transposing copy
+  ins = [t.contiguous() for t in (J, M, aref, d_, fl, active, a, warm)]
+  x = torch.empty((B, nv), dtype=torch.float32, device=J.device)
+  f = torch.empty((B, nefc), dtype=torch.float32, device=J.device)
   iters = torch.empty((B,), dtype=torch.int32, device=J.device)
-  jar = torch.empty((nefc, B), dtype=torch.float32, device=J.device)
-  djar = torch.empty_like(jar)
   scale = 1.0 / (max(meaninertia, 1e-12) * max(nv, 1))
-  if lay.ell_groups:
-    cone_rows, cone_mu, s_row = _cones_on(lay, J.device)
-    ncg, ptrs = cone_rows.shape[0], (cone_rows.data_ptr(),
-                                     cone_mu.data_ptr(), s_row.data_ptr())
-  else:
-    ncg, ptrs = 0, (None, None, None)
+  ptrs = [t.data_ptr() for t in cones] if cones else [None, None, None]
   lib = build.library()
   err = lib.dmc_newton_solve(
-      j_t.data_ptr(), m_t.data_ptr(), rows[0].data_ptr(), rows[1].data_ptr(),
-      rows[2].data_ptr(), rows[3].data_ptr(), a_t.data_ptr(),
-      w_t.data_ptr(), _types_on(lay, J.device).data_ptr(), *ptrs,
-      x_t.data_ptr(), f_t.data_ptr(), iters.data_ptr(), jar.data_ptr(),
-      djar.data_ptr(), nefc, nv, ncg, B, int(niter), int(ls_iter),
-      float(tol), float(scale), torch.cuda.current_stream().cuda_stream)
+      *[t.data_ptr() for t in ins], _types_on(lay, J.device).data_ptr(),
+      *ptrs, x.data_ptr(), f.data_ptr(), iters.data_ptr(), nefc, nv, ncg, B,
+      int(niter), int(ls_iter), float(tol), float(scale), warps, smem,
+      torch.cuda.current_stream().cuda_stream)
   build.check(err, 'dmc_newton_solve')
   LAUNCHES['newton_solve_ell' if ncg else 'newton_solve_batched'] += 1
   if return_iters:
-    return x_t.permute(1, 0), f_t.permute(1, 0), iters
-  return x_t.permute(1, 0), f_t.permute(1, 0)
+    return x, f, iters
+  return x, f

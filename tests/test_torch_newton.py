@@ -12,6 +12,7 @@ differ by about that (the bound of test_pallas.py).  The CUDA kernels run
 only on a card (`cuda` marker).
 """
 
+import ctypes
 import functools
 
 import jax
@@ -178,6 +179,63 @@ def test_wrapper_routes_elliptic_cpu_tensors_to_plain():
 def test_kernel_limit_matches_source():
   src = (nk.build.CSRC / 'newton_kernel.cu').read_text()
   assert f'constexpr int MAX_NV = {nk.MAX_NV};' in src
+  assert f'constexpr int MAX_WARPS = {nk.MAX_WARPS};' in src
+  assert f'constexpr int SMEM_LIMIT = {nk.SMEM_LIMIT};' in src
+
+
+# (nefc, nv, ncg) -> (warps per block, dynamic shared bytes), counted by
+# hand from the kernel's carve: per block 2 nefc + 4 ncg words; per warp
+# nefc ld + 2 nv ld + 8 nefc + 11 ncg + 4 nv words, ld = nv | 1.
+@pytest.mark.parametrize('shape,want', [
+    ((62, 9, 0), (4, 4 * (124 + 4 * 1252))),            # walker
+    ((105, 3, 34), (4, 4 * (346 + 4 * 1559))),          # finger
+    ((200, 32, 0), (4, 4 * (400 + 4 * 10440))),         # nv 32
+    ((400, 32, 100), (2, 4 * (1200 + 2 * 19740))),      # two warps fit
+], ids=['walker', 'finger', 'nv32', 'nv32-two-warps'])
+def test_launch_config(shape, want):
+  warps, smem = nk.launch_config(*shape)
+  assert (warps, smem) == want
+  assert smem <= nk.SMEM_LIMIT
+
+
+def test_launch_config_raises_where_one_warp_cannot_fit():
+  """A problem past one block's shared memory raises before any launch
+  (there is no fallback to the plain version on the card)."""
+  nk.reset_launches()
+  with pytest.raises(ValueError, match='shared memory'):
+    nk.launch_config(3000, 32, 0)
+  assert nk.launch_config(1000, 32, 0)[0] == 1       # one warp still fits
+  assert sum(nk.LAUNCHES.values()) == 0
+
+
+def _c_argtypes(name):
+  """ctypes argument types of a C entry point, read from its declaration
+  in csrc/*.cu: pointers as c_void_p, int and float as themselves."""
+  for src in sorted(nk.build.CSRC.glob('*.cu')):
+    text = src.read_text()
+    head = f'extern "C" int {name}('
+    if head in text:
+      start = text.index(head) + len(head)
+      args = text[start:text.index(')', start)].split(',')
+      kinds = []
+      for arg in args:
+        arg = ' '.join(arg.split())
+        if '*' in arg:
+          kinds.append(ctypes.c_void_p)
+        elif arg.startswith('int '):
+          kinds.append(ctypes.c_int)
+        else:
+          assert arg.startswith('float '), arg
+          kinds.append(ctypes.c_float)
+      return tuple(kinds)
+  raise AssertionError(f'{name} is declared in no source')
+
+
+@pytest.mark.parametrize('name', sorted(nk.build._SIGNATURES))
+def test_c_signature_matches_source(name):
+  """build._SIGNATURES, read as text from the sources: a pointer passed as
+  a c_int would be cut to 32 bits."""
+  assert nk.build._SIGNATURES[name] == _c_argtypes(name)
 
 
 def _check_kernel_on_card(domain, task_name, kernel, **cut):
@@ -217,3 +275,26 @@ def test_ell_kernel_one_newton_step_matches_plain_on_card():
   whose step is exact; chip_smoke.py holds the other lanes.)"""
   _check_kernel_on_card('finger', 'spin', 'newton_solve_ell', niter=1,
                         ls_iter=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('domain,task_name', [('walker', 'walk'),
+                                              ('finger', 'spin')],
+                         ids=['walker', 'finger'])
+def test_kernel_odd_batch_matches_full_batch_on_card(domain, task_name):
+  """One warp per environment: the first B - 3 lanes alone (no multiple
+  of the warps per block) give the full batch's bits, and two launches on
+  the same inputs agree bit for bit."""
+  if not torch.cuda.is_available():
+    pytest.skip('needs a CUDA device; chip_smoke.py runs this check there')
+  m, lay, args, kw = _solver_inputs(domain, task_name)
+  kw = dict(kw, tol=max(kw['tol'], 1e-6))
+  dev = [torch.from_numpy(a.astype(np.float32)).cuda() for a in args]
+  full = nk.newton_solve_batched(*dev, lay=lay, return_iters=True, **kw)
+  again = nk.newton_solve_batched(*dev, lay=lay, return_iters=True, **kw)
+  n = BATCH - 3
+  part = nk.newton_solve_batched(*[t[:n] for t in dev], lay=lay,
+                                 return_iters=True, **kw)
+  for x, y, z in zip(full, again, part):
+    assert torch.equal(x, y)
+    assert torch.equal(x[:n], z)

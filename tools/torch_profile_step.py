@@ -2,16 +2,17 @@
 
 Run on a machine with one CUDA device, from the root of a checkout:
 
-    python3 tools/torch_profile_step.py
+    python3 tools/torch_profile_step.py [--task walker-walk|finger-spin]
 
-Builds walker-walk at batch 4096 (bench.py's batch) on the card, warms it
-up, then runs the same window of 3 control steps three ways and prints,
-per control step:
+Builds the task (walker-walk by default) at batch 4096 (bench.py's batch)
+on the card, warms it up, then runs the same window of 3 control steps
+three ways and prints, per control step:
 
   * untraced: wall time, with the stream synchronised at both ends;
   * torch.profiler: CUDA kernels launched and summed kernel time, then the
-    device's idle share, 1 - kernel time / untraced wall time, and the
-    kernels that take the most device time;
+    device's idle share, 1 - kernel time / untraced wall time, the
+    kernels that take the most device time, and the Newton kernel's share
+    of the kernel time (K2 on walker, K2-ell on finger);
   * cProfile: host time by Python function (cProfile slows the host, so
     read its shares, not its times), and the share of `types.mirror`.
 
@@ -19,6 +20,7 @@ Prints the card's name and power limit, the host's architecture, the cores
 this process may use and the load average first.
 """
 
+import argparse
 import cProfile
 import os
 import platform
@@ -37,9 +39,13 @@ from dm_control_tpu_torch.parallel import BatchedEnv  # noqa: E402
 
 BATCH = 4096
 STEPS = 3
+TASKS = {'walker-walk': ('walker', 'walk'), 'finger-spin': ('finger', 'spin')}
 
 
 def main():
+  parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+  parser.add_argument('--task', choices=sorted(TASKS), default='walker-walk')
+  task = parser.parse_args().task
   if not torch.cuda.is_available():
     sys.exit('needs a CUDA device')
   print(subprocess.run(
@@ -47,11 +53,11 @@ def main():
       capture_output=True, text=True, check=True).stdout.strip())
   print(f'host: {platform.machine()}; {len(os.sched_getaffinity(0))} cores; '
         f'load average {os.getloadavg()}')
-  env = BatchedEnv(suite.build_task('walker', 'walk'), BATCH)
+  env = BatchedEnv(suite.build_task(*TASKS[task]), BATCH)
   gen = torch.Generator(device='cuda')
   gen.manual_seed(0)
   state = env.reset()
-  state, _ = env.rollout_fn(30)(state, gen)       # warm, walkers on the floor
+  state, _ = env.rollout_fn(30)(state, gen)       # warm; walkers on the floor
   run = env.rollout_fn(STEPS)
 
   torch.cuda.synchronize()
@@ -68,7 +74,7 @@ def main():
   kernels = [e for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA]
   busy_us = sum(e.device_time for e in kernels)
-  print(f'walker-walk@{BATCH}: {wall / STEPS * 1e3:.2f} ms per control step '
+  print(f'{task}@{BATCH}: {wall / STEPS * 1e3:.2f} ms per control step '
         f'(wall, untraced), {wall_traced / STEPS * 1e3:.2f} ms (wall, '
         f'traced), {len(kernels) / STEPS:.0f} CUDA kernels per control step, '
         f'{busy_us / STEPS / 1e3:.2f} ms kernel time per control step, '
@@ -80,6 +86,11 @@ def main():
   print('kernel time per control step, top 15:')
   for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
     print(f'  {t / STEPS / 1e3:8.3f} ms  {c / STEPS:7.0f} calls  {name[:90]}')
+  newton = [(t, c) for name, (t, c) in by_name.items() if 'newton_kernel' in name]
+  t_newton = sum(t for t, _ in newton)
+  print(f'newton_kernel: {t_newton / STEPS / 1e3:.3f} ms per control step in '
+        f'{sum(c for _, c in newton) / STEPS:.0f} launches, '
+        f'{t_newton / max(busy_us, 1e-9):.3f} of the kernel time')
 
   prof_host = cProfile.Profile()
   torch.cuda.synchronize()
