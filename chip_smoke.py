@@ -13,8 +13,12 @@ any failure exits non-zero and no phase catches its own failure:
      nvcc for sm_90a (one nvcc per source, all started together);
   2. kernels: holds each kernel against its plain PyTorch version on the
      card at float32: K1a/b/c (batched Cholesky factor, fused solve,
-     substitution) at walker's (4096, 9, 9) and at n = 27, 56, bound 1e-4
-     scaled by max(1, |ref|); K2 (Newton solve) on walker's solver inputs
+     substitution) at finger's (4096, 3, 3), walker's (4096, 9, 9) and at
+     n = 27, 56, 96 (MAX_N), bound 1e-4 scaled by max(1, |ref|); for K1a
+     and K1b also the launch configuration (lanes per environment), the
+     first 4093 lanes alone and a second launch giving the full batch's
+     bits, and K1a's L exactly 0 above the diagonal and unchanged when A's
+     upper triangle is NaN; K2 (Newton solve) on walker's solver inputs
      at batch 4096 made by the port, against the plain float32 solve and
      the plain float64 optimum: mean <= 1e-4, max <= 5e-2 and <= 10% of
      lanes above 1e-3 (tests/test_pallas.py), each error scaled by
@@ -43,7 +47,14 @@ any failure exits non-zero and no phase catches its own failure:
      main path's shapes, and, for K1, the one torch.linalg call that
      computes the same function (`library_ms`, never used by the port);
      the Newton rows carry the largest iteration count of their inputs
-     (`max_iters`), which sets a launch's time.
+     (`max_iters`), which sets a launch's time.  K1 rows are at walker's
+     (4096, 9, 9) with finger's (4096, 3, 3) beside them (`finger`), and
+     add `kernel_ms` (CUDA events around 50 back-to-back launches of the
+     ctypes entry on pre-made buffers, no wrapper work between them),
+     `device_ms` and `kernels_per_call` (the CUDA kernels of one wrapper
+     call and their device time, torch.profiler; K1a and K1b must launch
+     exactly one), and the launch configuration; then walker's K1 time
+     per control step, 11 K1a + 10 K1b + 10 K1c.
 
 Output: the card's name and power limit (nvidia-smi), env-steps/s of
 walker-walk@4096 and finger-spin@4096 (each the median of three runs), one
@@ -133,6 +144,23 @@ def cuda_ms(fn, reps):
   end.record()
   torch.cuda.synchronize()
   return start.elapsed_time(end) / reps
+
+
+def device_kernels(fn, reps):
+  """(CUDA kernels per call, their device ms per call) of fn() over reps
+  calls under torch.profiler."""
+  import torch
+  from torch.profiler import ProfilerActivity, profile
+  fn()
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    for _ in range(reps):
+      fn()
+    torch.cuda.synchronize()
+  kernels = [e for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+  return (len(kernels) / reps,
+          sum(e.device_time for e in kernels) / reps / 1e3)
 
 
 def bound_ms(nbytes, flops):
@@ -231,6 +259,57 @@ def newton_bits(nk, what, args, lay, kw, full):
       f'launch give the full batch\'s bits (qacc, forces, iterations)')
 
 
+def k1_bits(lk, A, b, L, x):
+  """K1a's and K1b's launch configuration, printed; the first B - 3 lanes
+  alone and a second launch must give the full batch's L and x bits (each
+  environment's factor depends on its own matrix alone); K1a's L must be
+  exactly 0 above the diagonal and unchanged when A's upper triangle is
+  NaN (only the lower triangle is read)."""
+  import torch
+  B, n, _ = A.shape
+  envs, threads, smem = lk.launch_config(n)
+  log(f'# phase kernels: cholesky_batched / chol_solve_batched n={n} '
+      f'launch: {threads // envs} lanes per environment, {envs} '
+      f'environments per block of {threads} threads, {smem} bytes of '
+      f'dynamic shared memory, {-(-B // envs)} blocks')
+  m = B - 3
+  for what, x_full, fn in (
+      ('cholesky_batched', L, lambda a, v: lk.cholesky_batched(a)),
+      ('chol_solve_batched', x, lk.chol_solve_batched)):
+    assert torch.equal(fn(A, b), x_full), f'{what} n={n}: two launches differ'
+    assert torch.equal(fn(A[:m], b[:m]), x_full[:m]), (
+        f'{what} n={n}: {m} lanes alone differ')
+  assert bool((torch.triu(L, 1) == 0).all()), f'K1a n={n}: L above diagonal'
+  upper = torch.ones(n, n, dtype=torch.bool, device=A.device).triu(1)
+  assert torch.equal(lk.cholesky_batched(A.masked_fill(upper, float('nan'))),
+                     L), f'K1a n={n}: L depends on the upper triangle'
+  log(f'# phase kernels: cholesky_batched / chol_solve_batched n={n}: the '
+      f'first {m} lanes alone and a second launch give the full batch\'s '
+      f'bits; L is 0 above the diagonal and reads no upper entry')
+
+
+def one_step(m, data, lanes, ctrl, n_sub, dtype, dev):
+  """qpos and qvel after one control step (n_sub substeps) of `data`'s
+  `lanes` under `ctrl`, run by the port's model m at dtype on dev."""
+  from dm_control_tpu_torch._src import forward
+  small = {f: x[lanes].to(dev, dtype) if x.is_floating_point()
+           else x[lanes].to(dev) for f, x in forward.state_of(data).items()}
+  d = forward.make_data(m, ctrl.shape[0], dtype, dev).replace(**small)
+  d = forward.substeps(m, d.replace(ctrl=ctrl.to(dev, dtype)), n_sub)
+  return {'qpos': d.qpos, 'qvel': d.qvel}
+
+
+def reference_errors(m, m_cpu, data, lanes, ctrl, n_sub):
+  """Each lane's max scaled error of qpos and qvel after one control step:
+  the port on the card at float32 (model m) against its float64 CPU path
+  (m_cpu, plain versions) from the same state."""
+  import torch
+  card = one_step(m, data, lanes, ctrl, n_sub, torch.float32, ctrl.device)
+  cpu = one_step(m_cpu, data, lanes, ctrl, n_sub, torch.float64, 'cpu')
+  return {f: scaled_err(card[f].cpu().double(), cpu[f]).amax(dim=1)
+          for f in card}
+
+
 def finger_solver_inputs(m, lay, B, gen, dev):
   """finger-spin solver inputs for B lanes in contact, float32 on dev.
 
@@ -315,14 +394,19 @@ def main() -> int:
   gen = torch.Generator(device=dev)
   gen.manual_seed(0)
 
-  def spd(n):
-    a = torch.randn((BATCH, n, n), generator=gen, device=dev)
+  def spd(n, g):
+    a = torch.randn((BATCH, n, n), generator=g, device=dev)
     return a @ a.transpose(1, 2) + n * torch.eye(n, device=dev)
 
+  # n = 3 and MAX_N draw from a generator of their own, so that every
+  # later phase sees the same draws of `gen` as before they were added
+  k1_gen = torch.Generator(device=dev)
+  k1_gen.manual_seed(1)
   k1_err = {}
-  for n in (9, 27, 56):
-    A = spd(n)
-    b = torch.randn((BATCH, n), generator=gen, device=dev)
+  for n, g in ((9, gen), (27, gen), (56, gen), (3, k1_gen),
+               (lk.MAX_N, k1_gen)):
+    A = spd(n, g)
+    b = torch.randn((BATCH, n), generator=g, device=dev)
     L_ref = lk.cholesky_plain(A)
     pairs = {
         'cholesky_batched': (lk.cholesky_batched(A), L_ref),
@@ -334,10 +418,11 @@ def main() -> int:
     torch.cuda.synchronize()
     for k, (x, ref) in pairs.items():
       err = scaled_err(x, ref).max().item()
-      if n == 9:
-        k1_err[k] = (x - ref).abs().max().item()
+      k1_err[k, n] = (x - ref).abs().max().item()
       log(f'# phase kernels: {k} n={n}: max scaled err {err:.2e}')
       assert err <= 1e-4, f'{k} at n={n}: {err:.2e} > 1e-4'
+    k1_bits(lk, A, b, pairs['cholesky_batched'][0],
+            pairs['chol_solve_batched'][0])
 
   task = suite.build_task('walker', 'walk')        # CUDA by default
   m = task.model
@@ -466,40 +551,25 @@ def main() -> int:
   # -- 3. against the float64 CPU path on a small input -------------------------
   cpu_task = suite.build_task('walker', 'walk', device='cpu')
   lanes = slice(0, 64)
-  small = {f: x[lanes] for f, x in forward.state_of(state.data).items()}
   ctrl = torch.rand((64, m.nu), generator=gen, device=dev) * 2 - 1
-  d_gpu = forward.make_data(m, 64, torch.float32, dev).replace(**small)
-  d_cpu = forward.make_data(cpu_task.model, 64, torch.float64, 'cpu').replace(
-      **{k: v.cpu().double() if v.is_floating_point() else v.cpu()
-         for k, v in small.items()})
-  d_gpu = forward.substeps(m, d_gpu.replace(ctrl=ctrl), env.n_sub_steps)
-  d_cpu = forward.substeps(cpu_task.model,
-                           d_cpu.replace(ctrl=ctrl.cpu().double()),
-                           env.n_sub_steps)
-  for f in ('qpos', 'qvel'):
-    e = scaled_err(getattr(d_gpu, f).cpu().double(), getattr(d_cpu, f))
+  errs = reference_errors(m, cpu_task.model, state.data, lanes, ctrl,
+                          env.n_sub_steps)
+  for f, e in errs.items():
+    e = e.max().item()
     log(f'# phase reference: {f} after one control step, float32 card vs '
-        f'float64 CPU: max scaled err {e.max().item():.2e}')
-    assert e.max().item() <= 1e-2, f'{f} disagrees with the CPU reference'
+        f'float64 CPU: max scaled err {e:.2e}')
+    assert e <= 1e-2, f'{f} disagrees with the CPU reference'
 
   # finger-spin: 64 lanes in contact from the K2-ell inputs
   f_cpu = suite.build_task('finger', 'spin', device='cpu')
-  small = {f: x[lanes] for f, x in forward.state_of(f_d).items()}
   ctrl = torch.rand((64, fm.nu), generator=gen, device=dev) * 2 - 1
-  d_gpu = forward.make_data(fm, 64, torch.float32, dev).replace(**small)
-  d_cpu = forward.make_data(f_cpu.model, 64, torch.float64, 'cpu').replace(
-      **{k: v.cpu().double() if v.is_floating_point() else v.cpu()
-         for k, v in small.items()})
-  d_gpu = forward.substeps(fm, d_gpu.replace(ctrl=ctrl),
-                           f_task.n_sub_steps())
-  d_cpu = forward.substeps(f_cpu.model,
-                           d_cpu.replace(ctrl=ctrl.cpu().double()),
-                           f_task.n_sub_steps())
-  for f in ('qpos', 'qvel'):
-    e = scaled_err(getattr(d_gpu, f).cpu().double(), getattr(d_cpu, f))
+  errs = reference_errors(fm, f_cpu.model, f_d, lanes, ctrl,
+                          f_task.n_sub_steps())
+  for f, e in errs.items():
+    e = e.max().item()
     log(f'# phase reference: finger-spin {f} after one control step, '
-        f'float32 card vs float64 CPU: max scaled err {e.max().item():.2e}')
-    assert e.max().item() <= 1e-2, f'finger {f} disagrees with the CPU path'
+        f'float32 card vs float64 CPU: max scaled err {e:.2e}')
+    assert e <= 1e-2, f'finger {f} disagrees with the CPU path'
 
   # -- 4. the main path: walker-walk@4096 rollout, three runs -----------------
   run = env.rollout_fn(CONTROL_STEPS)
@@ -594,12 +664,72 @@ def main() -> int:
     assert n == want, f'finger pool run {k}: {n} launches, expected {want}'
 
   # -- 5. timing at the main path's shapes ----------------------------------------
-  A = d.qM.contiguous()
-  b = d.qfrc_smooth.contiguous()
-  L = lk.cholesky_batched(A)
-  n, nv, nefc = m.nv, m.nv, lay.nefc
-  mat, vec = BATCH * n * n * 4, BATCH * n * 4
+  lib = build.library()
+  stream = torch.cuda.current_stream().cuda_stream
   rows = []
+
+  def k1_rows(A, b, counts):
+    """K1a/b/c timings on one task's (B, n, n) qM and (B, n) vector; the
+    `kernel_ms` entries run the ctypes entries on pre-made buffers."""
+    B, n, _ = A.shape
+    cfg = lk.launch_config(n)
+    L = lk.cholesky_batched(A)
+    l_out, x_out = torch.empty_like(A), torch.empty_like(b)
+    lt, bt = lk._batch_last(L), lk._batch_last(b)
+    xt = torch.empty_like(bt)
+    mat, vec = B * n * n * 4, B * n * 4
+    calls = {
+        'cholesky_batched': (
+            lambda: lk.cholesky_batched(A), lambda: lk.cholesky_plain(A),
+            lambda: torch.linalg.cholesky(A),
+            lambda: lib.dmc_cholesky(A.data_ptr(), l_out.data_ptr(), n, B,
+                                     *cfg, stream),
+            2 * mat, B * n ** 3 / 3),
+        'chol_solve_batched': (
+            lambda: lk.chol_solve_batched(A, b),
+            lambda: lk.chol_solve_plain(A, b),
+            lambda: torch.linalg.solve(A, b),
+            lambda: lib.dmc_chol_solve(A.data_ptr(), b.data_ptr(),
+                                       x_out.data_ptr(), n, B, *cfg, stream),
+            mat + 2 * vec, B * (n ** 3 / 3 + 2 * n * n)),
+        'cho_solve_batched': (
+            lambda: lk.cho_solve_batched(L, b),
+            lambda: lk.cho_solve_plain(L, b),
+            lambda: torch.cholesky_solve(b[..., None], L),
+            lambda: lib.dmc_cho_solve(lt.data_ptr(), bt.data_ptr(),
+                                      xt.data_ptr(), n, B, stream),
+            mat + 2 * vec, B * 2 * n * n)}
+    out = {}
+    for k, (fn, plain, library, entry, nbytes, flops) in calls.items():
+      build.check(entry(), k)
+      kernels, device_ms = device_kernels(fn, 20)
+      if k != 'cho_solve_batched':
+        assert kernels == 1, f'{k} n={n}: {kernels} CUDA kernels per call'
+      b_ms, b_by = bound_ms(nbytes, flops)
+      out[k] = dict(
+          launches=counts[k], max_abs_err=k1_err[k, n], ms=cuda_ms(fn, 50),
+          plain_ms=cuda_ms(plain, 5), bound_ms=b_ms, bound_by=b_by,
+          library_ms=cuda_ms(library, 50), kernel_ms=cuda_ms(entry, 50),
+          device_ms=device_ms, kernels_per_call=kernels, shape=[B, n, n],
+          **(dict(envs=cfg[0], threads=cfg[1], smem_bytes=cfg[2])
+             if k != 'cho_solve_batched' else {}))
+      log(f'# phase timing: {k} n={n}: {out[k]}')
+    return out
+
+  walker_k1 = k1_rows(d.qM.contiguous(), d.qfrc_smooth.contiguous(),
+                      launches)
+  finger_k1 = k1_rows(f_d.qM.contiguous(), f_d.qfrc_smooth.contiguous(),
+                      f_launches)
+  for k in ('cholesky_batched', 'chol_solve_batched', 'cho_solve_batched'):
+    rows.append(dict(name=k, route='cuda', source=SOURCES[k],
+                     replaces=REPLACES[k], **walker_k1[k],
+                     finger=finger_k1[k]))
+  per_step = {what: sum(PER_STEP[k] * walker_k1[k][what]
+                        for k in walker_k1)
+              for what in ('ms', 'kernel_ms', 'device_ms')}
+  log(f'# phase timing: walker K1 per control step (11 K1a + 10 K1b + 10 '
+      f'K1c): wrapper {per_step["ms"]:.6g} ms, ctypes launches '
+      f'{per_step["kernel_ms"]:.6g} ms, device {per_step["device_ms"]:.6g} ms')
 
   def row(k, fn, plain, library, nbytes, flops, err, reps=50, plain_reps=5,
           **extra):
@@ -615,17 +745,7 @@ def main() -> int:
         f'({b_by}), plain {rows[-1]["plain_ms"]:.6g} ms, library '
         f'{rows[-1]["library_ms"]} ms; {extra or ""}')
 
-  row('cholesky_batched', lambda: lk.cholesky_batched(A),
-      lambda: lk.cholesky_plain(A), lambda: torch.linalg.cholesky(A),
-      2 * mat, BATCH * n ** 3 / 3, k1_err['cholesky_batched'])
-  row('chol_solve_batched', lambda: lk.chol_solve_batched(A, b),
-      lambda: lk.chol_solve_plain(A, b), lambda: torch.linalg.solve(A, b),
-      mat + 2 * vec, BATCH * (n ** 3 / 3 + 2 * n * n),
-      k1_err['chol_solve_batched'])
-  row('cho_solve_batched', lambda: lk.cho_solve_batched(L, b),
-      lambda: lk.cho_solve_plain(L, b),
-      lambda: torch.cholesky_solve(b[..., None], L),
-      mat + 2 * vec, BATCH * 2 * n * n, k1_err['cho_solve_batched'])
+  n, nv, nefc = m.nv, m.nv, lay.nefc
   k2_bytes = BATCH * 4 * (nefc * nv + nv * nv + 4 * nefc + 2 * nv
                           + nv + nefc)
   row('newton_solve_batched',

@@ -5,51 +5,293 @@
 //   dmc_chol_solve  <- chol_solve_batched (_factor + _solve)
 //   dmc_cho_solve   <- cho_solve_batched  (_solve)
 //
-// Layout: batch-last, as the TPU kernel kept it: A/L are (n, n, B) and
-// vectors (n, B), so element (i, j) of environment b lives at
-// (i * n + j) * B + b.  One thread owns one environment and runs the
-// column-loop factor (pivot sqrt(max(a_jj, 1e-30))) and the forward/back
-// substitutions in place in its output; neighbouring threads touch
-// neighbouring addresses, so every load and store is coalesced.
-//
-// What bounds it on an H100: at walker's (4096, 9, 9) the factor moves
+// What bounds them on an H100: at walker's (4096, 9, 9) the factor moves
 // 2.6 MB (A in, L out) and does ~1 MFLOP, so its floor is bytes, under a
-// microsecond at 3.35 TB/s.  What bounds THIS design is latency: one thread
-// per environment gives 4096 threads = 32 blocks of 128 on 132 SMs, each
-// thread walking n^3/6 dependent global read-modify-writes (served from
-// L1/L2).  The design keeps the data in the TPU kernel's layout so the
-// wrapper is a transpose and a launch; a later design spreads an
-// environment's matrix over a warp and keeps it in shared memory.
+// microsecond at 3.35 TB/s; the fused solve moves half that.  What bounds
+// a launch in practice is latency: the factor of one matrix is a chain of
+// n dependent columns (a square root and a reciprocal on each), and the
+// substitutions chains of n dependent steps, while a whole launch is only
+// a few microseconds of work spread over the card.
+//
+// Design of dmc_cholesky and dmc_chol_solve:
+//   - Batch-first in, the port's own layout: A (B, n, n), b (B, n).  A
+//     block takes `envs` consecutive environments, whose matrices are one
+//     contiguous span of device memory; the whole block copies the span
+//     into shared memory with 16-byte loads from the first 16-byte
+//     boundary on, four in flight per thread, and the factor runs there.
+//     The fused solve writes only x (B, n), as one span again; its L never
+//     leaves the SM.  dmc_cholesky writes L once, with zeros above the
+//     diagonal, batch-last (n, n, B): the layout dmc_cho_solve reads, so
+//     that the factor reaches the substitution with no transposing copy
+//     (the wrapper returns a batch-first view).  For each element the
+//     block's environments are consecutive words.
+//   - A group of G lanes (1, 2, 4, ... 32, chosen by n on the host:
+//     ops/linalg_kernel.py launch_config) works on one environment, 32 / G
+//     environments to a warp.  Lane g owns rows i = g mod G.  The factor is
+//     left-looking: for column j each lane sums a_ij - sum_k<j l_ik l_jk
+//     over its rows i >= j, in k order as the TPU kernel's right-looking
+//     updates subtract them; the pivot's owner hands a_jj to its group by
+//     shuffle, every lane takes d = sqrt(max(a_jj, 1e-30)) and one IEEE
+//     reciprocal 1/d and scales its rows; one __syncwarp per column.  The
+//     substitutions are the TPU kernel's column sweeps, each solved entry
+//     passed to the group by shuffle, multiplied by the stored reciprocal
+//     of its pivot.  IEEE sqrtf and one IEEE reciprocal per pivot: L and
+//     x are within ~1.5 ulp per step of the TPU kernel's divisions.
+//   - One environment's matrix has row stride ld = n | 1 (odd) and the
+//     environments of a warp start G * ld words apart modulo 32, so the 32
+//     lanes of a warp reading one column of their own rows hit 32 banks.
+//   - Only A's lower triangle is read by the arithmetic (the upper one is
+//     copied in with its rows and never used).  Each environment's result
+//     depends on its own inputs alone, in a fixed order: a launch is
+//     deterministic and independent of the batch around an environment.
+//
+// dmc_cho_solve is the first design, not yet redone: batch-last (n, n, B)
+// and (n, B), one thread per environment, substituting in place in its
+// output in device memory.
+//
+// Everything is float32, as on the TPU.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int MAX_N = 96;
+constexpr int SMEM_LIMIT = 232448;      // dynamic shared bytes of a block
+constexpr unsigned FULL = 0xffffffffu;
 constexpr float kTiny = 1e-30f;
+constexpr int kLoads = 4;               // 16-byte loads in flight per thread
+
+// ---------------------------------------------------------------------------
+// Shared-memory carve: per environment its matrix (n rows of stride ld),
+// then y (n) and the pivots' reciprocals (n), padded so that environment q
+// of a warp starts q * G * ld words (mod 32) after environment 0.
+// ---------------------------------------------------------------------------
+
+__host__ __device__ inline int row_stride(int n) { return n | 1; }
+
+__host__ __device__ inline int env_words(int n, int group) {
+  const int ld = row_stride(n);
+  const int used = n * ld + 2 * n;
+  return used + ((group * ld - used) % 32 + 32) % 32;
+}
+
+// A span of consecutive environments' rows of n floats in device memory
+// (`rows` per environment: n for their matrices, 1 for their vectors) and
+// where they go in shared memory: row i of environment e at
+// e * words + base + i * ld.  Element k of the span is found with two
+// divisions (`locate`); the elements after it by stepping (`next`).
+struct Span {
+  int n, rows, ld, words, base;
+  struct At {
+    int e, i, j;
+  };
+  __device__ At locate(int k) const {
+    const int e = k / (rows * n), r = k - e * rows * n, i = r / n;
+    return {e, i, r - i * n};
+  }
+  __device__ void next(At& p) const {
+    if (++p.j == n) {
+      p.j = 0;
+      if (++p.i == rows) {
+        p.i = 0;
+        ++p.e;
+      }
+    }
+  }
+  __device__ int word(const At& p) const {
+    return p.e * words + base + p.i * ld + p.j;
+  }
+};
+
+// The whole block copies `count` contiguous floats of device memory into
+// shared memory as `span` places them: 16-byte loads from the first
+// 16-byte boundary on, kLoads of them issued before the first is stored
+// (so a thread waits out one memory latency per kLoads, not per load),
+// single floats before and after.
+__device__ void load_span(float* smem, const float* src, int count,
+                          const Span& span) {
+  int head = (int)(((16u - ((uintptr_t)src & 15u)) & 15u) >> 2);
+  head = head < count ? head : count;
+  const int n4 = (count - head) >> 2;
+  const float4* s4 = reinterpret_cast<const float4*>(src + head);
+  for (int k = threadIdx.x; k < head; k += blockDim.x)
+    smem[span.word(span.locate(k))] = src[k];
+  for (int q0 = threadIdx.x; q0 < n4; q0 += kLoads * blockDim.x) {
+    float4 v[kLoads];
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u) {
+      const int q = q0 + u * blockDim.x;
+      if (q < n4) v[u] = s4[q];
+    }
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u) {
+      const int q = q0 + u * blockDim.x;
+      if (q < n4) {
+        Span::At p = span.locate(head + 4 * q);
+        smem[span.word(p)] = v[u].x;
+        span.next(p);
+        smem[span.word(p)] = v[u].y;
+        span.next(p);
+        smem[span.word(p)] = v[u].z;
+        span.next(p);
+        smem[span.word(p)] = v[u].w;
+      }
+    }
+  }
+  for (int k = head + 4 * n4 + threadIdx.x; k < count; k += blockDim.x)
+    smem[span.word(span.locate(k))] = src[k];
+}
+
+// The whole block writes `count` contiguous floats of device memory from
+// shared memory as `span` places them, with 16-byte stores from the first
+// 16-byte boundary on.
+__device__ void store_span(float* dst, int count, const float* smem,
+                           const Span& span) {
+  int head = (int)(((16u - ((uintptr_t)dst & 15u)) & 15u) >> 2);
+  head = head < count ? head : count;
+  const int n4 = (count - head) >> 2;
+  float4* d4 = reinterpret_cast<float4*>(dst + head);
+  for (int k = threadIdx.x; k < head; k += blockDim.x)
+    dst[k] = smem[span.word(span.locate(k))];
+  for (int q = threadIdx.x; q < n4; q += blockDim.x) {
+    Span::At p = span.locate(head + 4 * q);
+    float4 v;
+    v.x = smem[span.word(p)];
+    span.next(p);
+    v.y = smem[span.word(p)];
+    span.next(p);
+    v.z = smem[span.word(p)];
+    span.next(p);
+    v.w = smem[span.word(p)];
+    d4[q] = v;
+  }
+  for (int k = head + 4 * n4 + threadIdx.x; k < count; k += blockDim.x)
+    dst[k] = smem[span.word(span.locate(k))];
+}
+
+// The whole block writes its `count` environments' factors batch-last, as
+// dmc_cho_solve reads them: element (i, j) of environment b0 + e at
+// (i * n + j) * batch + b0 + e, 0 above the diagonal.  envs is a power of
+// two; thread t keeps environment e = t mod envs and writes the elements
+// t / envs, + G, + 2 G, ... of its matrix, so that for each element the
+// block's environments are consecutive words.
+__device__ void store_factor(float* l, const float* smem, int n, int ld,
+                             int words, long long batch, long long b0,
+                             int count, int envs, int G) {
+  const int e = threadIdx.x & (envs - 1);
+  if (e >= count) return;
+  const float* m = smem + e * words;
+  float* dst = l + b0 + e;
+  const int first = threadIdx.x / envs;
+  for (int i = first / n, j = first - i * n; i < n;) {
+    dst[(long long)(i * n + j) * batch] = j <= i ? m[i * ld + j] : 0.0f;
+    for (j += G; j >= n; j -= n) ++i;
+  }
+}
+
+// v from lane `src` of this lane's group of G (G uniform over the warp;
+// every lane of the warp takes part).
+__device__ __forceinline__ float group_bcast(float v, int src, int G) {
+  return G > 1 ? __shfl_sync(FULL, v, src, G) : v;
+}
+
+// Left-looking lower Cholesky of the matrix at m (stride ld) in place, by
+// the G lanes of a group, lane g owning rows i = g mod G; inv[j] = 1 / l_jj
+// (written by the owner of row j).  Reads only the lower triangle.
+__device__ void factor(float* m, float* inv, int n, int ld, int g, int G) {
+  for (int j = 0; j < n; ++j) {
+    const float* rj = m + j * ld;
+    const int owner = j & (G - 1);
+    const int i0 = j + ((g - j) & (G - 1));   // this lane's first row >= j
+    float ajj = 0.0f;
+    for (int i = i0; i < n; i += G) {
+      float* ri = m + i * ld;
+      float s = ri[j];
+#pragma unroll 4
+      for (int k = 0; k < j; ++k) s -= ri[k] * rj[k];
+      ri[j] = s;
+      if (i == j) ajj = s;
+    }
+    const float d = sqrtf(fmaxf(group_bcast(ajj, owner, G), kTiny));
+    const float r = 1.0f / d;
+    for (int i = i0; i < n; i += G)
+      m[i * ld + j] = i == j ? d : m[i * ld + j] * r;
+    if (g == owner) inv[j] = r;
+    __syncwarp();
+  }
+}
+
+// L L' x = y in place on y (the TPU kernel's column sweeps), given the
+// factor and reciprocals of `factor`; y[i] belongs to row i's lane.
+__device__ void substitute(const float* m, float* y, const float* inv, int n,
+                           int ld, int g, int G) {
+  for (int j = 0; j < n; ++j) {              // forward: L z = y
+    const int owner = j & (G - 1);
+    float zj = 0.0f;
+    if (g == owner) y[j] = zj = y[j] * inv[j];
+    zj = group_bcast(zj, owner, G);
+    for (int i = j + 1 + ((g - j - 1) & (G - 1)); i < n; i += G)
+      y[i] -= m[i * ld + j] * zj;
+  }
+  for (int j = n - 1; j >= 0; --j) {         // backward: L' x = z
+    const int owner = j & (G - 1);
+    float xj = 0.0f;
+    if (g == owner) y[j] = xj = y[j] * inv[j];
+    xj = group_bcast(xj, owner, G);
+    const float* rj = m + j * ld;
+    for (int i = g; i < j; i += G) y[i] -= rj[i] * xj;
+  }
+}
+
+// One block: `envs` environments from b0 = blockIdx.x * envs, G =
+// blockDim.x / envs lanes each.  SOLVE: x = A^-1 rhs into out (B, n);
+// else L into out (n, n, B).
+template <bool SOLVE>
+__global__ void k1_kernel(const float* a, const float* rhs, float* out, int n,
+                          long long batch, int envs) {
+  extern __shared__ float smem[];
+  const int G = blockDim.x / envs;
+  const int ld = row_stride(n), words = env_words(n, G);
+  const Span mats{n, n, ld, words, 0}, vecs{n, 1, 0, words, n * ld};
+  const long long b0 = (long long)blockIdx.x * envs;
+  const int count = batch - b0 < envs ? (int)(batch - b0) : envs;
+  load_span(smem, a + b0 * n * n, count * n * n, mats);
+  if (SOLVE) load_span(smem, rhs + b0 * n, count * n, vecs);
+  __syncthreads();
+
+  // environments past the batch run on whatever their words hold and
+  // store nothing, so that every lane of a warp takes part in its shuffles
+  const int g = threadIdx.x & (G - 1);
+  float* m = smem + (threadIdx.x / G) * words;
+  float* y = m + n * ld;
+  float* inv = y + n;
+  factor(m, inv, n, ld, g, G);
+  if (SOLVE) substitute(m, y, inv, n, ld, g, G);
+  __syncthreads();
+
+  if (SOLVE)
+    store_span(out + b0 * n, count * n, smem, vecs);
+  else
+    store_factor(out, smem, n, ld, words, batch, b0, count, envs, G);
+}
+
+// ---------------------------------------------------------------------------
+// dmc_cho_solve: the first design (batch-last, one thread per environment).
+// ---------------------------------------------------------------------------
+
+constexpr int kThreads = 128;
 
 __device__ __forceinline__ long long at(int i, int j, int n, long long B,
                                         long long b) {
   return ((long long)i * n + j) * B + b;
 }
 
-// Lower Cholesky in place on the lower triangle of l (upper left as is).
-__device__ void factor_inplace(float* l, int n, long long B, long long b) {
-  for (int j = 0; j < n; ++j) {
-    const float pivot = sqrtf(fmaxf(l[at(j, j, n, B, b)], kTiny));
-    l[at(j, j, n, B, b)] = pivot;
-    for (int i = j + 1; i < n; ++i) l[at(i, j, n, B, b)] /= pivot;
-    for (int i = j + 1; i < n; ++i) {
-      const float lij = l[at(i, j, n, B, b)];
-      for (int k = j + 1; k <= i; ++k)
-        l[at(i, k, n, B, b)] -= lij * l[at(k, j, n, B, b)];
-    }
-  }
-}
-
-// L L^T x = y in place on x (n, B), given lower L.
-__device__ void solve_inplace(const float* l, float* x, int n, long long B,
-                              long long b) {
+__global__ void cho_solve_kernel(const float* l, const float* rhs, float* x,
+                                 int n, long long B) {
+  const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  for (int i = 0; i < n; ++i) x[(long long)i * B + b] = rhs[(long long)i * B + b];
   for (int j = 0; j < n; ++j) {           // forward: L y = b
     const float yj = x[(long long)j * B + b] / l[at(j, j, n, B, b)];
     for (int i = j + 1; i < n; ++i) x[(long long)i * B + b] -= l[at(i, j, n, B, b)] * yj;
@@ -62,62 +304,51 @@ __device__ void solve_inplace(const float* l, float* x, int n, long long B,
   }
 }
 
-// Lower triangle of a into l, zeros above the diagonal.
-__device__ void copy_lower(const float* a, float* l, int n, long long B,
-                           long long b) {
-  for (int i = 0; i < n; ++i)
-    for (int j = 0; j < n; ++j)
-      l[at(i, j, n, B, b)] = j <= i ? a[at(i, j, n, B, b)] : 0.0f;
-}
-
-__global__ void cholesky_kernel(const float* a, float* l, int n, long long B) {
-  const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  copy_lower(a, l, n, B, b);
-  factor_inplace(l, n, B, b);
-}
-
-__global__ void chol_solve_kernel(const float* a, const float* rhs, float* l,
-                                  float* x, int n, long long B) {
-  const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  copy_lower(a, l, n, B, b);
-  factor_inplace(l, n, B, b);
-  for (int i = 0; i < n; ++i) x[(long long)i * B + b] = rhs[(long long)i * B + b];
-  solve_inplace(l, x, n, B, b);
-}
-
-__global__ void cho_solve_kernel(const float* l, const float* rhs, float* x,
-                                 int n, long long B) {
-  const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  for (int i = 0; i < n; ++i) x[(long long)i * B + b] = rhs[(long long)i * B + b];
-  solve_inplace(l, x, n, B, b);
-}
-
-inline unsigned blocks_for(int batch) {
-  return (unsigned)((batch + kThreads - 1) / kThreads);
-}
-
 }  // namespace
 
-extern "C" int dmc_cholesky(const float* a, float* l, int n, int batch,
-                            void* stream) {
-  cholesky_kernel<<<blocks_for(batch), kThreads, 0, (cudaStream_t)stream>>>(
-      a, l, n, batch);
+// The checks of ops/linalg_kernel.py launch_config, again: a launch the
+// carve does not cover is refused before it is made.
+template <bool SOLVE>
+static int launch_k1(const float* a, const float* rhs, float* out, int n,
+                     int batch, int envs, int threads, int smem_bytes,
+                     void* stream) {
+  if (n < 1 || n > MAX_N || batch < 1 || envs < 1 || (envs & (envs - 1)) ||
+      threads < 32 || threads > 1024 || threads % 32 || threads % envs)
+    return (int)cudaErrorInvalidValue;
+  const int group = threads / envs;
+  if (group > 32 || (group & (group - 1)) ||
+      4LL * envs * env_words(n, group) != smem_bytes ||
+      smem_bytes > SMEM_LIMIT)
+    return (int)cudaErrorInvalidValue;
+  if (smem_bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        k1_kernel<SOLVE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem_bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const unsigned blocks = (unsigned)((batch + envs - 1) / envs);
+  k1_kernel<SOLVE><<<blocks, threads, smem_bytes, (cudaStream_t)stream>>>(
+      a, rhs, out, n, batch, envs);
   return (int)cudaGetLastError();
 }
 
-extern "C" int dmc_chol_solve(const float* a, const float* rhs, float* l,
-                              float* x, int n, int batch, void* stream) {
-  chol_solve_kernel<<<blocks_for(batch), kThreads, 0, (cudaStream_t)stream>>>(
-      a, rhs, l, x, n, batch);
-  return (int)cudaGetLastError();
+extern "C" int dmc_cholesky(const float* a, float* l, int n, int batch,
+                            int envs, int threads, int smem_bytes,
+                            void* stream) {
+  return launch_k1<false>(a, nullptr, l, n, batch, envs, threads, smem_bytes,
+                          stream);
+}
+
+extern "C" int dmc_chol_solve(const float* a, const float* b, float* x, int n,
+                              int batch, int envs, int threads, int smem_bytes,
+                              void* stream) {
+  return launch_k1<true>(a, b, x, n, batch, envs, threads, smem_bytes, stream);
 }
 
 extern "C" int dmc_cho_solve(const float* l, const float* rhs, float* x, int n,
                              int batch, void* stream) {
-  cho_solve_kernel<<<blocks_for(batch), kThreads, 0, (cudaStream_t)stream>>>(
+  const unsigned blocks = (unsigned)((batch + kThreads - 1) / kThreads);
+  cho_solve_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       l, rhs, x, n, batch);
   return (int)cudaGetLastError();
 }

@@ -8,9 +8,12 @@ points, each with a plain PyTorch version beside it:
   cho_solve_batched   L (B, n, n), (B, n) -> A^-1 b     (K1c, solve_m)
 
 A CPU tensor goes to the plain version; a CUDA tensor goes to the kernel
-in `csrc/linalg_kernel.cu` (float32, n <= MAX_N) or raises.  The wrapper
-transposes to the batch-last (n, n, B) layout the kernel reads, exactly
-as the TPU wrapper did, and returns a batch-first view.
+in `csrc/linalg_kernel.cu` (float32, n <= MAX_N) or raises.  K1a and K1b
+read the port's batch-first tensors as they are, one kernel launch per
+call, in the block shape `launch_config` gives; K1b writes x batch-first.
+K1c's kernel reads the batch-last (n, n, B) layout of the TPU wrapper, so
+K1a writes its factor there and returns a batch-first view of it: K1c's
+transpose of L is then no copy (of b it still is).
 
 The plain versions follow the kernels' algorithm: a right-looking column
 loop with pivot sqrt(max(a_jj, 1e-30)), then forward and back
@@ -19,12 +22,21 @@ substitution.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from dm_control_tpu_torch.ops import build
 
 MAX_N = 96
+SMEM_LIMIT = 232448      # dynamic shared bytes of a block
 _TINY = 1e-30
+# Lanes per environment (G) by n, as (largest n, G), and warps per block:
+# on the card the fastest of tools/linalg_kernel_designs.py's candidates,
+# or within 5% of it, at n = 3, 9, 27, 56, 96 (PERF.md, PR 4); the bounds
+# between those n are not measured.
+GROUPS = ((4, 4), (16, 8), (40, 16), (MAX_N, 32))
+WARPS = 2
 
 # launches of each kernel since the last reset_launches() (plain-version
 # calls do not count)
@@ -101,26 +113,65 @@ def _check(name: str, mat: torch.Tensor, vec: torch.Tensor | None = None):
   return B, n
 
 
+def env_words(n: int, group: int) -> int:
+  """4-byte words of one environment in the kernel's shared memory (its
+  `env_words`): the matrix with odd row stride ld = n | 1, then y and the
+  pivots' reciprocals, padded to G * ld words modulo 32."""
+  ld = n | 1
+  used = n * ld + 2 * n
+  return used + (group * ld - used) % 32
+
+
+@functools.lru_cache(maxsize=None)
+def launch_config(n: int, group: int | None = None,
+                  warps: int = WARPS) -> tuple[int, int, int]:
+  """(environments per block, threads per block, dynamic shared bytes) of
+  the K1a/K1b kernels for n x n matrices.
+
+  `group` lanes work on one environment (by default GROUPS's choice for
+  n), 32 * warps / group environments to a block; the shared memory is
+  the kernel's carve (`env_words` per environment; the C entry checks the
+  bytes again).  Raises where the block's environments do not fit.
+  """
+  if not 1 <= n <= MAX_N:
+    raise ValueError(f'n={n} outside the kernel limit 1..{MAX_N}')
+  if group is None:
+    group = next(g for top, g in GROUPS if n <= top)
+  if group not in (1, 2, 4, 8, 16, 32) or warps not in (1, 2, 4, 8, 16, 32):
+    raise ValueError(f'group {group} / warps {warps}: no such block shape')
+  envs = 32 * warps // group
+  smem = 4 * envs * env_words(n, group)
+  if smem > SMEM_LIMIT:
+    raise ValueError(
+        f'{envs} environments of n={n} need {smem} bytes of shared memory, '
+        f'over the {SMEM_LIMIT} a block has')
+  return envs, 32 * warps, smem
+
+
 def _batch_last(x: torch.Tensor) -> torch.Tensor:
   out = x.permute(*range(1, x.dim()), 0).contiguous()
   assert out.is_contiguous()
   return out
 
 
-def _stream() -> int:
-  return torch.cuda.current_stream().cuda_stream
+def _stream(device: torch.device) -> int:
+  """The current CUDA stream's raw handle on `device`, read without
+  building a torch.cuda.Stream object (a wrapper call is host-bound)."""
+  return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def cholesky_batched(a: torch.Tensor) -> torch.Tensor:
-  """(B, n, n) SPD -> lower Cholesky factor (B, n, n)."""
+  """(B, n, n) SPD -> lower Cholesky factor (B, n, n); on the card a
+  batch-first view of batch-last storage (what cho_solve_batched reads)."""
   if a.device.type == 'cpu':
     return cholesky_plain(a)
   B, n = _check('cholesky_batched', a)
-  at = _batch_last(a)
-  lt = torch.empty_like(at)
-  lib = build.library()
-  build.check(lib.dmc_cholesky(at.data_ptr(), lt.data_ptr(), n, B, _stream()),
-              'dmc_cholesky')
+  a = a.contiguous()
+  lt = torch.empty((n, n, B), dtype=a.dtype, device=a.device)
+  build.check(build.library().dmc_cholesky(
+      a.data_ptr(), lt.data_ptr(), n, B, *launch_config(n),
+      _stream(a.device)),
+      'dmc_cholesky')
   LAUNCHES['cholesky_batched'] += 1
   return lt.permute(2, 0, 1)
 
@@ -130,15 +181,13 @@ def chol_solve_batched(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
   if a.device.type == 'cpu':
     return chol_solve_plain(a, b)
   B, n = _check('chol_solve_batched', a, b)
-  at, bt = _batch_last(a), _batch_last(b)
-  lt = torch.empty_like(at)
-  xt = torch.empty_like(bt)
-  lib = build.library()
-  build.check(lib.dmc_chol_solve(at.data_ptr(), bt.data_ptr(), lt.data_ptr(),
-                                 xt.data_ptr(), n, B, _stream()),
-              'dmc_chol_solve')
+  a, b = a.contiguous(), b.contiguous()
+  x = torch.empty_like(b)
+  build.check(build.library().dmc_chol_solve(
+      a.data_ptr(), b.data_ptr(), x.data_ptr(), n, B, *launch_config(n),
+      _stream(a.device)), 'dmc_chol_solve')
   LAUNCHES['chol_solve_batched'] += 1
-  return xt.permute(1, 0)
+  return x
 
 
 def cho_solve_batched(l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -150,7 +199,7 @@ def cho_solve_batched(l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
   xt = torch.empty_like(bt)
   lib = build.library()
   build.check(lib.dmc_cho_solve(lt.data_ptr(), bt.data_ptr(), xt.data_ptr(),
-                                n, B, _stream()),
+                                n, B, _stream(l.device)),
               'dmc_cho_solve')
   LAUNCHES['cho_solve_batched'] += 1
   return xt.permute(1, 0)
