@@ -4,27 +4,26 @@
 //   dmc_cholesky    <- cholesky_batched   (body _factor)
 //   dmc_chol_solve  <- chol_solve_batched (_factor + _solve)
 //   dmc_cho_solve   <- cho_solve_batched  (_solve)
+// All three are one kernel, k1_kernel<MODE>: factor, factor and solve, or
+// solve with a given factor.
 //
 // What bounds them on an H100: at walker's (4096, 9, 9) the factor moves
 // 2.6 MB (A in, L out) and does ~1 MFLOP, so its floor is bytes, under a
-// microsecond at 3.35 TB/s; the fused solve moves half that.  What bounds
-// a launch in practice is latency: the factor of one matrix is a chain of
+// microsecond at 3.35 TB/s; the solves move half that.  What bounds a
+// launch in practice is latency: the factor of one matrix is a chain of
 // n dependent columns (a square root and a reciprocal on each), and the
 // substitutions chains of n dependent steps, while a whole launch is only
 // a few microseconds of work spread over the card.
 //
-// Design of dmc_cholesky and dmc_chol_solve:
-//   - Batch-first in, the port's own layout: A (B, n, n), b (B, n).  A
-//     block takes `envs` consecutive environments, whose matrices are one
-//     contiguous span of device memory; the whole block copies the span
-//     into shared memory with 16-byte loads from the first 16-byte
-//     boundary on, four in flight per thread, and the factor runs there.
-//     The fused solve writes only x (B, n), as one span again; its L never
-//     leaves the SM.  dmc_cholesky writes L once, with zeros above the
-//     diagonal, batch-last (n, n, B): the layout dmc_cho_solve reads, so
-//     that the factor reaches the substitution with no transposing copy
-//     (the wrapper returns a batch-first view).  For each element the
-//     block's environments are consecutive words.
+// Design:
+//   - Batch-first in and out, the port's own layout: A or L (B, n, n), b
+//     and x (B, n).  A block takes `envs` consecutive environments, whose
+//     matrices are one contiguous span of device memory; the whole block
+//     copies the span into shared memory with 16-byte loads from the first
+//     16-byte boundary on, four in flight per thread, and the arithmetic
+//     runs there.  The solves write only x (B, n), as one span again; the
+//     fused solve's L never leaves the SM.  dmc_cholesky writes L (B, n, n)
+//     the same way, with zeros above the diagonal.
 //   - A group of G lanes (1, 2, 4, ... 32, chosen by n on the host:
 //     ops/linalg_kernel.py launch_config) works on one environment, 32 / G
 //     environments to a warp.  Lane g owns rows i = g mod G.  The factor is
@@ -37,17 +36,18 @@
 //     passed to the group by shuffle, multiplied by the stored reciprocal
 //     of its pivot.  IEEE sqrtf and one IEEE reciprocal per pivot: L and
 //     x are within ~1.5 ulp per step of the TPU kernel's divisions.
+//   - dmc_cho_solve forms the reciprocals 1.0f / l_jj of the given factor
+//     (each row's owner, once per pivot) and runs the same substitution:
+//     1 / l_jj is bit for bit the r that the factor computed for l_jj = d,
+//     so cho_solve(cholesky(A), b) gives chol_solve(A, b)'s bits.
 //   - One environment's matrix has row stride ld = n | 1 (odd) and the
 //     environments of a warp start G * ld words apart modulo 32, so the 32
 //     lanes of a warp reading one column of their own rows hit 32 banks.
-//   - Only A's lower triangle is read by the arithmetic (the upper one is
-//     copied in with its rows and never used).  Each environment's result
-//     depends on its own inputs alone, in a fixed order: a launch is
-//     deterministic and independent of the batch around an environment.
-//
-// dmc_cho_solve is the first design, not yet redone: batch-last (n, n, B)
-// and (n, B), one thread per environment, substituting in place in its
-// output in device memory.
+//   - Only the lower triangle of A or L is read by the arithmetic (the
+//     upper one is copied in with its rows and never used).  Each
+//     environment's result depends on its own inputs alone, in a fixed
+//     order: a launch is deterministic and independent of the batch around
+//     an environment.
 //
 // Everything is float32, as on the TPU.
 
@@ -145,49 +145,33 @@ __device__ void load_span(float* smem, const float* src, int count,
 
 // The whole block writes `count` contiguous floats of device memory from
 // shared memory as `span` places them, with 16-byte stores from the first
-// 16-byte boundary on.
+// 16-byte boundary on; with `lower`, 0 for the elements above a matrix's
+// diagonal (j > i).
 __device__ void store_span(float* dst, int count, const float* smem,
-                           const Span& span) {
+                           const Span& span, bool lower) {
+  auto value = [&](const Span::At& p) {
+    return lower && p.j > p.i ? 0.0f : smem[span.word(p)];
+  };
   int head = (int)(((16u - ((uintptr_t)dst & 15u)) & 15u) >> 2);
   head = head < count ? head : count;
   const int n4 = (count - head) >> 2;
   float4* d4 = reinterpret_cast<float4*>(dst + head);
   for (int k = threadIdx.x; k < head; k += blockDim.x)
-    dst[k] = smem[span.word(span.locate(k))];
+    dst[k] = value(span.locate(k));
   for (int q = threadIdx.x; q < n4; q += blockDim.x) {
     Span::At p = span.locate(head + 4 * q);
     float4 v;
-    v.x = smem[span.word(p)];
+    v.x = value(p);
     span.next(p);
-    v.y = smem[span.word(p)];
+    v.y = value(p);
     span.next(p);
-    v.z = smem[span.word(p)];
+    v.z = value(p);
     span.next(p);
-    v.w = smem[span.word(p)];
+    v.w = value(p);
     d4[q] = v;
   }
   for (int k = head + 4 * n4 + threadIdx.x; k < count; k += blockDim.x)
-    dst[k] = smem[span.word(span.locate(k))];
-}
-
-// The whole block writes its `count` environments' factors batch-last, as
-// dmc_cho_solve reads them: element (i, j) of environment b0 + e at
-// (i * n + j) * batch + b0 + e, 0 above the diagonal.  envs is a power of
-// two; thread t keeps environment e = t mod envs and writes the elements
-// t / envs, + G, + 2 G, ... of its matrix, so that for each element the
-// block's environments are consecutive words.
-__device__ void store_factor(float* l, const float* smem, int n, int ld,
-                             int words, long long batch, long long b0,
-                             int count, int envs, int G) {
-  const int e = threadIdx.x & (envs - 1);
-  if (e >= count) return;
-  const float* m = smem + e * words;
-  float* dst = l + b0 + e;
-  const int first = threadIdx.x / envs;
-  for (int i = first / n, j = first - i * n; i < n;) {
-    dst[(long long)(i * n + j) * batch] = j <= i ? m[i * ld + j] : 0.0f;
-    for (j += G; j >= n; j -= n) ++i;
-  }
+    dst[k] = value(span.locate(k));
 }
 
 // v from lane `src` of this lane's group of G (G uniform over the warp;
@@ -244,20 +228,27 @@ __device__ void substitute(const float* m, float* y, const float* inv, int n,
   }
 }
 
+// What a launch of k1_kernel computes.
+enum Mode : int {
+  kFactor = 0,        // L of A into out (B, n, n)           dmc_cholesky
+  kFactorSolve = 1,   // A^-1 rhs into out (B, n)            dmc_chol_solve
+  kSolve = 2,         // (L L')^-1 rhs, L given in a, into out (B, n)
+};                    //                                     dmc_cho_solve
+
 // One block: `envs` environments from b0 = blockIdx.x * envs, G =
-// blockDim.x / envs lanes each.  SOLVE: x = A^-1 rhs into out (B, n);
-// else L into out (n, n, B).
-template <bool SOLVE>
+// blockDim.x / envs lanes each.
+template <int MODE>
 __global__ void k1_kernel(const float* a, const float* rhs, float* out, int n,
                           long long batch, int envs) {
   extern __shared__ float smem[];
+  constexpr bool kRhs = MODE != kFactor;
   const int G = blockDim.x / envs;
   const int ld = row_stride(n), words = env_words(n, G);
   const Span mats{n, n, ld, words, 0}, vecs{n, 1, 0, words, n * ld};
   const long long b0 = (long long)blockIdx.x * envs;
   const int count = batch - b0 < envs ? (int)(batch - b0) : envs;
   load_span(smem, a + b0 * n * n, count * n * n, mats);
-  if (SOLVE) load_span(smem, rhs + b0 * n, count * n, vecs);
+  if (kRhs) load_span(smem, rhs + b0 * n, count * n, vecs);
   __syncthreads();
 
   // environments past the batch run on whatever their words hold and
@@ -266,49 +257,27 @@ __global__ void k1_kernel(const float* a, const float* rhs, float* out, int n,
   float* m = smem + (threadIdx.x / G) * words;
   float* y = m + n * ld;
   float* inv = y + n;
-  factor(m, inv, n, ld, g, G);
-  if (SOLVE) substitute(m, y, inv, n, ld, g, G);
+  if (MODE == kSolve) {
+    // the reciprocals `factor` leaves, of the given pivots; each row's
+    // owner forms and reads its own
+    for (int i = g; i < n; i += G) inv[i] = 1.0f / m[i * ld + i];
+  } else {
+    factor(m, inv, n, ld, g, G);
+  }
+  if (kRhs) substitute(m, y, inv, n, ld, g, G);
   __syncthreads();
 
-  if (SOLVE)
-    store_span(out + b0 * n, count * n, smem, vecs);
+  if (kRhs)
+    store_span(out + b0 * n, count * n, smem, vecs, false);
   else
-    store_factor(out, smem, n, ld, words, batch, b0, count, envs, G);
-}
-
-// ---------------------------------------------------------------------------
-// dmc_cho_solve: the first design (batch-last, one thread per environment).
-// ---------------------------------------------------------------------------
-
-constexpr int kThreads = 128;
-
-__device__ __forceinline__ long long at(int i, int j, int n, long long B,
-                                        long long b) {
-  return ((long long)i * n + j) * B + b;
-}
-
-__global__ void cho_solve_kernel(const float* l, const float* rhs, float* x,
-                                 int n, long long B) {
-  const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  for (int i = 0; i < n; ++i) x[(long long)i * B + b] = rhs[(long long)i * B + b];
-  for (int j = 0; j < n; ++j) {           // forward: L y = b
-    const float yj = x[(long long)j * B + b] / l[at(j, j, n, B, b)];
-    for (int i = j + 1; i < n; ++i) x[(long long)i * B + b] -= l[at(i, j, n, B, b)] * yj;
-    x[(long long)j * B + b] = yj;
-  }
-  for (int j = n - 1; j >= 0; --j) {      // backward: L^T x = y
-    const float xj = x[(long long)j * B + b] / l[at(j, j, n, B, b)];
-    for (int i = 0; i < j; ++i) x[(long long)i * B + b] -= l[at(j, i, n, B, b)] * xj;
-    x[(long long)j * B + b] = xj;
-  }
+    store_span(out + b0 * n * n, count * n * n, smem, mats, true);
 }
 
 }  // namespace
 
 // The checks of ops/linalg_kernel.py launch_config, again: a launch the
 // carve does not cover is refused before it is made.
-template <bool SOLVE>
+template <int MODE>
 static int launch_k1(const float* a, const float* rhs, float* out, int n,
                      int batch, int envs, int threads, int smem_bytes,
                      void* stream) {
@@ -322,12 +291,12 @@ static int launch_k1(const float* a, const float* rhs, float* out, int n,
     return (int)cudaErrorInvalidValue;
   if (smem_bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        k1_kernel<SOLVE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        k1_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem_bytes);
     if (err != cudaSuccess) return (int)err;
   }
   const unsigned blocks = (unsigned)((batch + envs - 1) / envs);
-  k1_kernel<SOLVE><<<blocks, threads, smem_bytes, (cudaStream_t)stream>>>(
+  k1_kernel<MODE><<<blocks, threads, smem_bytes, (cudaStream_t)stream>>>(
       a, rhs, out, n, batch, envs);
   return (int)cudaGetLastError();
 }
@@ -335,20 +304,20 @@ static int launch_k1(const float* a, const float* rhs, float* out, int n,
 extern "C" int dmc_cholesky(const float* a, float* l, int n, int batch,
                             int envs, int threads, int smem_bytes,
                             void* stream) {
-  return launch_k1<false>(a, nullptr, l, n, batch, envs, threads, smem_bytes,
-                          stream);
+  return launch_k1<kFactor>(a, nullptr, l, n, batch, envs, threads,
+                            smem_bytes, stream);
 }
 
 extern "C" int dmc_chol_solve(const float* a, const float* b, float* x, int n,
                               int batch, int envs, int threads, int smem_bytes,
                               void* stream) {
-  return launch_k1<true>(a, b, x, n, batch, envs, threads, smem_bytes, stream);
+  return launch_k1<kFactorSolve>(a, b, x, n, batch, envs, threads, smem_bytes,
+                                 stream);
 }
 
-extern "C" int dmc_cho_solve(const float* l, const float* rhs, float* x, int n,
-                             int batch, void* stream) {
-  const unsigned blocks = (unsigned)((batch + kThreads - 1) / kThreads);
-  cho_solve_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      l, rhs, x, n, batch);
-  return (int)cudaGetLastError();
+extern "C" int dmc_cho_solve(const float* l, const float* b, float* x, int n,
+                             int batch, int envs, int threads, int smem_bytes,
+                             void* stream) {
+  return launch_k1<kSolve>(l, b, x, n, batch, envs, threads, smem_bytes,
+                           stream);
 }

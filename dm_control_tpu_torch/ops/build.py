@@ -34,12 +34,12 @@ _F = ctypes.c_float
 
 # C entry points: name -> argument types (every one returns cudaError_t)
 _SIGNATURES = {
-    # (a, l (n, n, batch), n, batch, envs, threads, smem_bytes, stream)
+    # (a, l, n, batch, envs, threads, smem_bytes, stream)
     'dmc_cholesky': (_P, _P, _I, _I, _I, _I, _I, _P),
     # (a, b, x, n, batch, envs, threads, smem_bytes, stream)
     'dmc_chol_solve': (_P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # (l, b, x, n, batch, stream)
-    'dmc_cho_solve': (_P, _P, _P, _I, _I, _P),
+    # (l, b, x, n, batch, envs, threads, smem_bytes, stream)
+    'dmc_cho_solve': (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     # (J, M, aref, D, fl, active, a, warm, types, ell_rows, ell_mu, s_row,
     #  x, f, iters, nefc, nv, ncg, batch, niter, ls_iter, tol, scale,
     #  warps, smem_bytes, stream)

@@ -8,12 +8,11 @@ points, each with a plain PyTorch version beside it:
   cho_solve_batched   L (B, n, n), (B, n) -> A^-1 b     (K1c, solve_m)
 
 A CPU tensor goes to the plain version; a CUDA tensor goes to the kernel
-in `csrc/linalg_kernel.cu` (float32, n <= MAX_N) or raises.  K1a and K1b
-read the port's batch-first tensors as they are, one kernel launch per
-call, in the block shape `launch_config` gives; K1b writes x batch-first.
-K1c's kernel reads the batch-last (n, n, B) layout of the TPU wrapper, so
-K1a writes its factor there and returns a batch-first view of it: K1c's
-transpose of L is then no copy (of b it still is).
+in `csrc/linalg_kernel.cu` (float32, n <= MAX_N) or raises.  Each reads
+the port's batch-first tensors as they are and writes its result
+batch-first and contiguous, one kernel launch per call, in the block
+shape `launch_config` gives.  On the card cho_solve_batched(
+cholesky_batched(a), b) gives chol_solve_batched(a, b)'s bits.
 
 The plain versions follow the kernels' algorithm: a right-looking column
 loop with pivot sqrt(max(a_jj, 1e-30)), then forward and back
@@ -31,10 +30,11 @@ from dm_control_tpu_torch.ops import build
 MAX_N = 96
 SMEM_LIMIT = 232448      # dynamic shared bytes of a block
 _TINY = 1e-30
-# Lanes per environment (G) by n, as (largest n, G), and warps per block:
-# on the card the fastest of tools/linalg_kernel_designs.py's candidates,
-# or within 5% of it, at n = 3, 9, 27, 56, 96 (PERF.md, PR 4); the bounds
-# between those n are not measured.
+# Lanes per environment (G) by n, as (largest n, G), and warps per block,
+# for every mode of the kernel (factor, fused solve, solve with a given
+# factor): on the card the fastest of tools/linalg_kernel_designs.py's
+# candidates, or within 5% of it, at n = 3, 9, 27, 56, 96 (PERF.md); the
+# bounds between those n are not measured.
 GROUPS = ((4, 4), (16, 8), (40, 16), (MAX_N, 32))
 WARPS = 2
 
@@ -126,7 +126,7 @@ def env_words(n: int, group: int) -> int:
 def launch_config(n: int, group: int | None = None,
                   warps: int = WARPS) -> tuple[int, int, int]:
   """(environments per block, threads per block, dynamic shared bytes) of
-  the K1a/K1b kernels for n x n matrices.
+  the K1 kernel (every mode) for n x n matrices.
 
   `group` lanes work on one environment (by default GROUPS's choice for
   n), 32 * warps / group environments to a block; the shared memory is
@@ -148,12 +148,6 @@ def launch_config(n: int, group: int | None = None,
   return envs, 32 * warps, smem
 
 
-def _batch_last(x: torch.Tensor) -> torch.Tensor:
-  out = x.permute(*range(1, x.dim()), 0).contiguous()
-  assert out.is_contiguous()
-  return out
-
-
 def _stream(device: torch.device) -> int:
   """The current CUDA stream's raw handle on `device`, read without
   building a torch.cuda.Stream object (a wrapper call is host-bound)."""
@@ -161,19 +155,18 @@ def _stream(device: torch.device) -> int:
 
 
 def cholesky_batched(a: torch.Tensor) -> torch.Tensor:
-  """(B, n, n) SPD -> lower Cholesky factor (B, n, n); on the card a
-  batch-first view of batch-last storage (what cho_solve_batched reads)."""
+  """(B, n, n) SPD -> lower Cholesky factor (B, n, n), 0 above the
+  diagonal."""
   if a.device.type == 'cpu':
     return cholesky_plain(a)
   B, n = _check('cholesky_batched', a)
   a = a.contiguous()
-  lt = torch.empty((n, n, B), dtype=a.dtype, device=a.device)
+  l = torch.empty_like(a)
   build.check(build.library().dmc_cholesky(
-      a.data_ptr(), lt.data_ptr(), n, B, *launch_config(n),
-      _stream(a.device)),
-      'dmc_cholesky')
+      a.data_ptr(), l.data_ptr(), n, B, *launch_config(n),
+      _stream(a.device)), 'dmc_cholesky')
   LAUNCHES['cholesky_batched'] += 1
-  return lt.permute(2, 0, 1)
+  return l
 
 
 def chol_solve_batched(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -191,15 +184,15 @@ def chol_solve_batched(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def cho_solve_batched(l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-  """Solve L L^T x = b given lower L (B, n, n), b (B, n)."""
+  """Solve L L^T x = b given lower L (B, n, n) (its upper triangle is not
+  read), b (B, n)."""
   if l.device.type == 'cpu':
     return cho_solve_plain(l, b)
   B, n = _check('cho_solve_batched', l, b)
-  lt, bt = _batch_last(l), _batch_last(b)
-  xt = torch.empty_like(bt)
-  lib = build.library()
-  build.check(lib.dmc_cho_solve(lt.data_ptr(), bt.data_ptr(), xt.data_ptr(),
-                                n, B, _stream(l.device)),
-              'dmc_cho_solve')
+  l, b = l.contiguous(), b.contiguous()
+  x = torch.empty_like(b)
+  build.check(build.library().dmc_cho_solve(
+      l.data_ptr(), b.data_ptr(), x.data_ptr(), n, B, *launch_config(n),
+      _stream(l.device)), 'dmc_cho_solve')
   LAUNCHES['cho_solve_batched'] += 1
-  return xt.permute(1, 0)
+  return x

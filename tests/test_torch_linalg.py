@@ -97,8 +97,8 @@ def test_kernel_limits_match_source():
   assert f'constexpr int SMEM_LIMIT = {lk.SMEM_LIMIT};' in src
 
 
-# n -> (environments per block, threads, dynamic shared bytes), counted by
-# hand: G = 4, 8, 16, 32, 32 lanes for n <= 4, 16, 40, 96; two warps a
+# n -> (environments per block, threads, dynamic shared bytes) of every
+# mode of the K1 kernel, counted by hand: G = 4, 8, 16, 32, 32 lanes for n <= 4, 16, 40, 96; two warps a
 # block; per environment n ld + 2 n words, ld = n | 1, padded so that the
 # words are G ld mod 32: n=1 3+1, n=3 15+29, n=9 99+5, n=27 783+1, n=56
 # 3304+24, n=96 9504+0.
@@ -109,8 +109,8 @@ LAUNCH_CONFIGS = {1: (16, 64, 4 * 16 * 4), 3: (16, 64, 4 * 16 * 44),
 
 @pytest.mark.parametrize('n', sorted(LAUNCH_CONFIGS))
 def test_launch_config(n):
-  """(environments per block, threads, shared bytes) of K1a/K1b against
-  the kernel's carve counted by hand: G lanes per environment, 32 / G
+  """(environments per block, threads, shared bytes) of K1a/K1b/K1c
+  against the kernel's carve counted by hand: G lanes per environment, 32 / G
   environments per warp; per environment n rows of odd stride ld = n | 1,
   then y and the reciprocals (2 n words), padded to G * ld words mod 32."""
   envs, threads, smem = lk.launch_config(n)
@@ -153,9 +153,9 @@ def _c_param_count(name):
     ('cho_solve_batched', 'dmc_cho_solve')])
 def test_wrapper_calls_match_c_signatures(fn, entry, monkeypatch):
   """build._SIGNATURES has the C entry's parameter count, and the wrapper
-  passes exactly those arguments: pointers, then n, the batch and (K1a,
-  K1b) launch_config(n), then the stream.  Run on meta tensors with the
-  library and the device check stubbed, so no kernel is built."""
+  passes exactly those arguments: pointers, then n, the batch and
+  launch_config(n), then the stream.  Run on meta tensors with the library
+  and the device check stubbed, so no kernel is built."""
   calls = []
 
   class Library:
@@ -174,8 +174,7 @@ def test_wrapper_calls_match_c_signatures(fn, entry, monkeypatch):
   sig = lk.build._SIGNATURES[entry]
   assert name == entry and len(args) == len(sig) == _c_param_count(entry)
   ints = [v for v, t in zip(args, sig) if t is ctypes.c_int]
-  config = [] if fn == 'cho_solve_batched' else list(lk.launch_config(n))
-  assert ints == [n, B] + config and args[-1] == 12345
+  assert ints == [n, B] + list(lk.launch_config(n)) and args[-1] == 12345
   assert sig[-1] is ctypes.c_void_p
   assert all(t is ctypes.c_void_p for t in sig[:len(sig) - len(ints) - 1])
 
@@ -192,12 +191,40 @@ def _cuda_kernels(fn):
           if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
+def test_solve_entries_take_the_same_arguments():
+  """K1b's and K1c's C entries take (matrix, rhs, x, n, batch, envs,
+  threads, smem_bytes, stream), K1a's the same without rhs: one launch
+  configuration for every mode of the kernel."""
+  sig = lk.build._SIGNATURES
+  assert sig['dmc_cho_solve'] == sig['dmc_chol_solve']
+  assert sig['dmc_cholesky'] == sig['dmc_chol_solve'][:1] + sig[
+      'dmc_chol_solve'][2:]
+  src = (lk.build.CSRC / 'linalg_kernel.cu').read_text()
+  for entry, mode in (('dmc_cholesky', 'kFactor'),
+                      ('dmc_chol_solve', 'kFactorSolve'),
+                      ('dmc_cho_solve', 'kSolve')):
+    body = src[src.index(f'extern "C" int {entry}('):]
+    assert body[:body.index('}')].count(f'launch_k1<{mode}>') == 1
+
+
+@pytest.mark.cuda
+def test_cholesky_batched_is_contiguous_on_card():
+  """K1a returns L batch-first and contiguous, 0 above the diagonal."""
+  if not torch.cuda.is_available():
+    pytest.skip('needs a CUDA device; chip_smoke.py runs this check there')
+  rng = np.random.RandomState(1)
+  A = torch.from_numpy(_spd(rng, 37, 9, np.float32)).cuda()
+  L = lk.cholesky_batched(A)
+  assert L.is_contiguous() and L.shape == A.shape
+  assert bool((torch.triu(L, 1) == 0).all())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize('n', [3, 9, 27, 56, 96])
 def test_kernels_match_plain_on_card(n):
-  """Each kernel within 1e-4 of its plain version; K1a and K1b one CUDA
-  kernel per call, the first B - 3 lanes alone and a second launch giving
-  the full batch's bits."""
+  """Each kernel within 1e-4 of its plain version and one CUDA kernel per
+  call, the first B - 3 lanes alone and a second launch giving the full
+  batch's bits, and K1c on K1a's L giving K1b's bits."""
   if not torch.cuda.is_available():
     pytest.skip('needs a CUDA device; chip_smoke.py runs this check there')
   rng = np.random.RandomState(n)
@@ -217,5 +244,10 @@ def test_kernels_match_plain_on_card(n):
   assert torch.equal(lk.cholesky_batched(A[:m]), L[:m])
   assert torch.equal(lk.chol_solve_batched(A, b), x)
   assert torch.equal(lk.chol_solve_batched(A[:m], b[:m]), x[:m])
+  xc = lk.cho_solve_batched(L, b)
+  assert torch.equal(xc, x)
+  assert torch.equal(lk.cho_solve_batched(L, b), xc)
+  assert torch.equal(lk.cho_solve_batched(L[:m], b[:m]), xc[:m])
   assert len(_cuda_kernels(lambda: lk.cholesky_batched(A))) == 1
   assert len(_cuda_kernels(lambda: lk.chol_solve_batched(A, b))) == 1
+  assert len(_cuda_kernels(lambda: lk.cho_solve_batched(L, b))) == 1

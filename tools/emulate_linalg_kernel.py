@@ -1,4 +1,4 @@
-"""Rehearse the K1a/K1b kernels' lane groups on the CPU, where there is no nvcc.
+"""Rehearse the K1 kernel's lane groups on the CPU, where there is no nvcc.
 
     python3 tools/emulate_linalg_kernel.py [--batch 128]
 
@@ -9,11 +9,13 @@ a buffer; shared memory starts filled with NaN), adding the `width` form
 of `__shfl_sync` that the groups of G lanes use.
 
 For every n of the port's shapes and more (1 to MAX_N = 96) and every
-group size G whose block fits, it runs the emulated factor (K1a) and fused
-solve (K1b) on SPD matrices made from a seed and holds them against
-`cholesky_plain` / `chol_solve_plain` (1e-4 scaled by max(1, |ref|), as
-`chip_smoke.py`); L must be exactly 0 above the diagonal and must not
-change when A's upper triangle is NaN; the first B - 3 lanes alone and a
+group size G whose block fits, it runs the emulated factor (K1a), fused
+solve (K1b) and solve with a given factor (K1c, on K1a's L) on SPD
+matrices made from a seed and holds them against `cholesky_plain` /
+`chol_solve_plain` / `cho_solve_plain` (1e-4 scaled by max(1, |ref|), as
+`chip_smoke.py`); L (batch-first) must be exactly 0 above the diagonal and
+must not change when A's upper triangle is NaN, nor K1c's x when L's is;
+K1c on K1a's L must give K1b's bits; the first B - 3 lanes alone and a
 repeated launch must give the full batch's bits.
 The CPU's float32 arithmetic (no FMA contraction) is not the card's: this
 checks the kernel's logic, not its rounding or its speed.
@@ -43,7 +45,7 @@ static inline float __shfl_sync(unsigned, float v, int s, int width) {
 '''
 
 LAUNCHER = r'''
-extern "C" int emu_k1(int solve, const float* a, const float* rhs, float* out,
+extern "C" int emu_k1(int mode, const float* a, const float* rhs, float* out,
                       int n, int batch, int envs, int threads,
                       int smem_bytes) {
   const int group = threads / envs;
@@ -65,8 +67,10 @@ extern "C" int emu_k1(int solve, const float* a, const float* rhs, float* out,
       lanes.emplace_back([&, t] {
         threadIdx.x = t;
         blockIdx.x = blk;
-        if (solve) k1_kernel<true>(a, rhs, out, n, batch, envs);
-        else k1_kernel<false>(a, rhs, out, n, batch, envs);
+        if (mode == kFactor) k1_kernel<kFactor>(a, rhs, out, n, batch, envs);
+        else if (mode == kFactorSolve)
+          k1_kernel<kFactorSolve>(a, rhs, out, n, batch, envs);
+        else k1_kernel<kSolve>(a, rhs, out, n, batch, envs);
       });
     for (auto& t : lanes) t.join();
     for (auto& w : ws) delete w.bar;
@@ -98,17 +102,20 @@ def compile_emulation(out_dir: str) -> ctypes.CDLL:
   return emu
 
 
-def emulate(emu, a, b, config):
-  """K1a (b None) or K1b on CPU float32 tensors, in the block shape
-  `config` = (envs, threads, smem bytes)."""
+FACTOR, FACTOR_SOLVE, SOLVE = 0, 1, 2     # the kernel's Mode
+
+
+def emulate(emu, mode, a, b, config):
+  """K1a (b None), K1b or K1c (a the factor) on CPU float32 tensors, in the
+  block shape `config` = (envs, threads, smem bytes)."""
   B, n, _ = a.shape
   a = a.contiguous()
-  out = torch.empty((n, n, B)) if b is None else torch.empty_like(b)
-  err = emu.emu_k1(int(b is not None), a.data_ptr(),
+  out = torch.empty_like(a) if b is None else torch.empty_like(b)
+  err = emu.emu_k1(mode, a.data_ptr(),
                    None if b is None else b.contiguous().data_ptr(),
                    out.data_ptr(), n, B, *config)
   assert err == 0, 'shared-memory size disagrees with the kernel'
-  return out.permute(2, 0, 1) if b is None else out
+  return out
 
 
 def scaled_err(x, ref):
@@ -121,24 +128,33 @@ def check(emu, n, B, group, rng):
   A = torch.from_numpy((a @ a.transpose(0, 2, 1) + n * np.eye(n))
                        .astype(np.float32))
   b = torch.from_numpy(rng.randn(B, n).astype(np.float32))
-  L = emulate(emu, A, None, config)
-  x = emulate(emu, A, b, config)
+  L = emulate(emu, FACTOR, A, None, config)
+  x = emulate(emu, FACTOR_SOLVE, A, b, config)
+  xc = emulate(emu, SOLVE, L, b, config)
   errs = (scaled_err(L, lk.cholesky_plain(A)),
-          scaled_err(x, lk.chol_solve_plain(A, b)))
+          scaled_err(x, lk.chol_solve_plain(A, b)),
+          scaled_err(xc, lk.cho_solve_plain(L, b)))
   assert max(errs) <= 1e-4, (n, group, errs)
+  assert torch.equal(xc, x), (n, group, 'K1c on K1a\'s L is not K1b')
   assert bool((torch.triu(L, 1) == 0).all()), (n, group, 'upper not 0')
-  upper_nan = A.masked_fill(torch.ones(n, n).triu(1).bool(), float('nan'))
-  assert torch.equal(emulate(emu, upper_nan, None, config), L), (
+  upper = torch.ones(n, n).triu(1).bool()
+  assert torch.equal(emulate(emu, FACTOR, A.masked_fill(upper, float('nan')),
+                             None, config), L), (
       n, group, 'L depends on the upper triangle')
+  assert torch.equal(emulate(emu, SOLVE, L.masked_fill(upper, float('nan')),
+                             b, config), xc), (
+      n, group, 'K1c depends on the upper triangle')
   m = B - 3
-  for out, bb in ((L, None), (x, b)):
-    again = emulate(emu, A, bb, config)
-    part = emulate(emu, A[:m], None if bb is None else bb[:m], config)
+  for mode, out, mat, bb in ((FACTOR, L, A, None), (FACTOR_SOLVE, x, A, b),
+                             (SOLVE, xc, L, b)):
+    again = emulate(emu, mode, mat, bb, config)
+    part = emulate(emu, mode, mat[:m], None if bb is None else bb[:m], config)
     assert torch.equal(out, again) and torch.equal(out[:m], part), (
-        n, group, 'bits')
+        n, group, mode, 'bits')
   print(f'n={n:2d} G={group:2d} (envs, threads, smem) {config}: max scaled '
-        f'err L {errs[0]:.2e} x {errs[1]:.2e}; upper triangle unread; '
-        f'{m} lanes alone and a repeat give the same bits')
+        f'err L {errs[0]:.2e} x {errs[1]:.2e} K1c {errs[2]:.2e}; K1c on L '
+        f'gives K1b\'s bits; upper triangles unread; {m} lanes alone and a '
+        f'repeat give the same bits')
 
 
 def main():

@@ -1,30 +1,45 @@
-"""chip_smoke.py's reference steps with the K1 kernels and with K1's plain versions.
+"""chip_smoke.py's reference steps, with the K1 kernels and with K1's plain
+versions, and what flips on the lanes that miss the gate's tolerance.
 
-    python3 tools/k1_reference_step.py [--sizes 9,27,56] [--lanes 64]
+    python3 tools/k1_reference_step.py [--sizes 9,27,56] [--lanes 1024]
 
 Run on a machine with one CUDA device, from the root of a checkout.  It
 replays `chip_smoke.py`'s draws up to its reference phase: from one
 generator seeded 0, a (4096, n, n) and a (4096, n) normal draw for each n
 of `--sizes` (chip_smoke.py's kernel phase: 9, 27, 56), a 40-control-step
 walker-walk@4096 rollout, the finger-spin solver inputs in contact, then
-the two reference steps' controls (for the first 64 lanes; with more
-`--lanes`, the rest drawn after them).  On the states so made it runs one
-control step of the walker lanes and of the finger lanes on the card at
-float32 (`chip_smoke.one_step`) twice: through the K1 kernels, and with
-K1's wrappers on the card sent to their plain versions; and once on the
-CPU at float64.  For each route it prints each field's largest and mean
-per-lane max scaled error against float64 and the lanes above 1e-3 and
-1e-2 (chip_smoke.py gates the first 64 lanes' largest at 1e-2), and the
-same between the two float32 routes.  An error that the plain versions
-share is float32's on that state, not the kernels'.
+the reference steps' controls of chip_smoke.py's REF_LANES lanes of each
+task, drawn as it draws them (`chip_smoke.reference_controls`: the first
+64 from that generator, the rest from the reference generator, seeded 2),
+and those of the lanes past them from a third generator (seeded 3).  On the states so made it runs one control step of
+the walker lanes and of the finger lanes on the card at float32
+(`chip_smoke.one_step`) twice: through the K1 kernels (route `kernels`),
+and with K1's wrappers sent to their plain versions on the card (route
+`plain`); and once on the CPU at float64.  Each run records the discrete
+choices of every substep (`chip_smoke.branches`: contact and limit
+activity, the solve's warmstart choice, the zones of its rows and cones
+at the solution).
+
+For each route and task it prints the per-lane max scaled error of qpos
+and qvel against float64 (largest, mean, lanes above 1e-3 and REF_TOL),
+the lanes whose choices all matched and their largest error, and for
+every lane over REF_TOL the first choice that differs: substep, quantity,
+element, and how far the float64 run's deciding value stood from its
+threshold in units of EPS32 * scale, with the lane's error scaled by its
+own largest |value| beside it.  It then counts the first
+differences of all lanes by quantity with their distances' quantiles,
+the gate's verdicts (`chip_smoke.lane_verdicts`), and what
+the gate (`chip_smoke.gate_failures`) would fail on these lanes.
 
 Prints the card's name and power limit first.
 """
 
 import argparse
+import contextlib
 import os
 import subprocess
 import sys
+import time
 
 import torch
 
@@ -37,18 +52,17 @@ from dm_control_tpu_torch.ops import linalg_kernel as lk  # noqa: E402
 from dm_control_tpu_torch.parallel import BatchedEnv  # noqa: E402
 
 BATCH = 4096
-PLAIN = {'cholesky_batched': lk.cholesky_plain,
-         'chol_solve_batched': lk.chol_solve_plain,
-         'cho_solve_batched': lk.cho_solve_plain}
 
 
 def main():
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   parser.add_argument('--sizes', default='9,27,56')
-  parser.add_argument('--lanes', type=int, default=64)
+  parser.add_argument('--lanes', type=int, default=1024)
   args = parser.parse_args()
   sizes = [int(s) for s in args.sizes.split(',')]
   B = args.lanes
+  if B < cs.REF_LANES:
+    sys.exit(f'--lanes must be at least chip_smoke.py\'s {cs.REF_LANES}')
   if not torch.cuda.is_available():
     sys.exit('needs a CUDA device')
   print(subprocess.run(
@@ -57,6 +71,8 @@ def main():
   dev = torch.device('cuda')
   gen = torch.Generator(device=dev)
   gen.manual_seed(0)
+  ref_gen = torch.Generator(device=dev)
+  ref_gen.manual_seed(cs.REF_SEED)
   for n in sizes:
     torch.randn((BATCH, n, n), generator=gen, device=dev)
     torch.randn((BATCH, n), generator=gen, device=dev)
@@ -66,51 +82,86 @@ def main():
   f_task = suite.build_task('finger', 'spin')
   _, f_d = cs.finger_solver_inputs(f_task.model, efc.layout(f_task.model),
                                    BATCH, gen, dev)
+  tasks = (('walker-walk', task, state.data, env.n_sub_steps),
+           ('finger-spin', f_task, f_d, f_task.n_sub_steps()))
+  # chip_smoke.py's lanes first, drawn as it draws them; the lanes past
+  # them from a generator of their own
+  ctrls = [cs.reference_controls(gen, ref_gen, t.model.nu, cs.REF_LANES, dev)
+           for _, t, _, _ in tasks]
+  extra_gen = torch.Generator(device=dev)
+  extra_gen.manual_seed(cs.REF_SEED + 1)
+  steps = []
+  for (name, t, data, n_sub), ctrl in zip(tasks, ctrls):
+    extra = torch.rand((B - cs.REF_LANES, t.model.nu), generator=extra_gen,
+                       device=dev) * 2 - 1
+    cpu = suite.build_task(*name.split('-'), device='cpu').model
+    steps.append((name, t.model, cpu, data, n_sub,
+                  torch.cat([ctrl, extra])))
   lanes = slice(0, B)
-  models = {}
-  for name, t in (('walker-walk', task), ('finger-spin', f_task)):
-    nu = t.model.nu
-    ctrl = torch.rand((64, nu), generator=gen, device=dev) * 2 - 1
-    models[name] = [t.model, ctrl]
-  for name, (m, ctrl) in models.items():     # lanes past chip_smoke's 64
-    extra = torch.rand((B - 64, m.nu), generator=gen, device=dev) * 2 - 1
-    models[name][1] = torch.cat([ctrl, extra])[:B]
-  steps = (
-      ('walker-walk', suite.build_task('walker', 'walk', device='cpu').model,
-       state.data, env.n_sub_steps),
-      ('finger-spin', suite.build_task('finger', 'spin', device='cpu').model,
-       f_d, f_task.n_sub_steps()))
-  kernels = {k: getattr(lk, k) for k in PLAIN}
-  print(f'# draws before the rollout: n = {sizes}; lanes {B}')
-  for name, m_cpu, data, n_sub in steps:
-    m, ctrl = models[name]
-    ref = cs.one_step(m_cpu, data, lanes, ctrl, n_sub, torch.float64, 'cpu')
-    out = {}
-    for route in ('K1 kernels', 'K1 plain versions on the card'):
-      for k, fn in (PLAIN if 'plain' in route else kernels).items():
-        setattr(lk, k, fn)
+  print(f'# draws before the rollout: n = {sizes}; lanes {B}; band '
+        f'{cs.BAND:g} x EPS32 x scale')
+  for name, m, m_cpu, data, n_sub, ctrl in steps:
+    t0 = time.perf_counter()
+    ref = cs.one_step(m_cpu, data, lanes, ctrl, n_sub, torch.float64, 'cpu',
+                      record=True)
+    print(f'# {name}: float64 CPU step {time.perf_counter() - t0:.1f} s')
+    gated = {}
+    for route in ('kernels', 'plain'):
       lk.reset_launches()
-      out[route] = cs.one_step(m, data, lanes, ctrl, n_sub, torch.float32,
-                               dev)
-      report(f'{name}, {route} vs float64 CPU', out[route], ref,
-             sum(lk.LAUNCHES.values()))
-    for k, fn in kernels.items():
-      setattr(lk, k, fn)
-    report(f'{name}, K1 kernels vs K1 plain versions (both float32 card)',
-           out['K1 kernels'],
-           {f: x.double() for f, x in
-            out['K1 plain versions on the card'].items()}, None)
+      with cs.plain_k1(lk) if route == 'plain' else contextlib.nullcontext():
+        out = cs.one_step(m, data, lanes, ctrl, n_sub, torch.float32, dev,
+                          record=True)
+      gated[route] = report(f'{name}, K1 {route}', out, ref,
+                            sum(lk.LAUNCHES.values()))
+    failures = cs.gate_failures(gated['kernels'], gated['plain'])
+    print(f'{name}: the gate on these {B} lanes: '
+          f'{"; ".join(failures) or "passes"}', flush=True)
 
 
 def report(what, out, ref, launches):
-  for f in ('qpos', 'qvel'):
-    err = cs.scaled_err(out[f].cpu().double(), ref[f].cpu()).amax(dim=1)
-    print(f'{what}: {f} per-lane max scaled err: max {err.max().item():.2e} '
-          f'mean {err.mean().item():.2e} first 64 lanes max '
-          f'{err[:64].max().item():.2e}; lanes above 1e-3 '
-          f'{int((err > 1e-3).sum())}, above 1e-2 {int((err > 1e-2).sum())}'
-          + (f'; K1 launches {launches}' if launches is not None else ''),
+  errs = {f: cs.scaled_err(out[f].cpu().double(), ref[f]).amax(dim=1)
+          for f in ('qpos', 'qvel')}
+  for f, err in errs.items():
+    print(f'{what} vs float64 CPU: {f} per-lane max scaled err: max '
+          f'{err.max().item():.2e} mean {err.mean().item():.2e} first '
+          f'{cs.REF_LANES} lanes max {err[:cs.REF_LANES].max().item():.2e}; '
+          f'lanes above 1e-3 '
+          f'{int((err > 1e-3).sum())}, above {cs.REF_TOL:g} '
+          f'{int((err > cs.REF_TOL).sum())}; K1 launches {launches}',
           flush=True)
+  err = torch.maximum(errs['qpos'], errs['qvel'])
+  first = cs.first_differences(out['branches'], ref['branches'])
+  matched = torch.tensor([f is None for f in first])
+  print(f'{what}: lanes whose choices all matched {int(matched.sum())} of '
+        f'{len(first)}, their largest error '
+        f'{err[matched].max().item() if matched.any() else 0:.2e}')
+  lane_err = torch.maximum(*(
+      cs.lane_scaled_err(out[f].cpu().double(), ref[f]).amax(dim=1)
+      for f in ('qpos', 'qvel')))
+  for lane in torch.nonzero(err > cs.REF_TOL).flatten().tolist():
+    f = first[lane]
+    where = ('every choice matched' if f is None else
+             f'first difference at substep {f[0]}: {f[1]} element {f[2]}, '
+             f'float64 value {f[3]:.3g} x EPS32 x scale from its threshold')
+    print(f'{what}: lane {lane} error {err[lane].item():.2e} (lane-scaled '
+          f'{lane_err[lane].item():.2e}): {where}')
+  by_q = {}
+  for f in first:
+    if f is not None:
+      by_q.setdefault(f[1], []).append(f[3])
+  for q, dists in by_q.items():
+    d = torch.tensor(dists, dtype=torch.float64)
+    qs = torch.quantile(d, torch.tensor([0.0, 0.5, 0.9, 1.0],
+                                        dtype=torch.float64)).tolist()
+    print(f'{what}: first differences in {q}: {len(dists)} lanes; distance '
+          f'(x EPS32 x scale) min {qs[0]:.3g} median {qs[1]:.3g} p90 '
+          f'{qs[2]:.3g} max {qs[3]:.3g}')
+  verdicts = cs.lane_verdicts(err, first, cs.BAND)
+  print(f'{what}: verdicts: '
+        + ', '.join(f'{v} {verdicts.count(v)}'
+                    for v in ('held', 'excused', 'failed')),
+        flush=True)
+  return verdicts
 
 
 if __name__ == '__main__':

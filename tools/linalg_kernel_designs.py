@@ -1,4 +1,4 @@
-"""Time the K1a/K1b kernels' candidate block shapes on the card.
+"""Time the K1 kernel's candidate block shapes on the card, in each mode.
 
     python3 tools/linalg_kernel_designs.py [--sizes 3,9,27,56,96]
 
@@ -6,9 +6,10 @@ Run on a machine with one CUDA device, from the root of a checkout.  For
 each n, on B = 4096 SPD matrices and right-hand sides made from a seed on
 the card, and for every block shape `launch_config(n, group, warps)`
 allows (G = group lanes per environment, warps per block), it launches
-`dmc_cholesky` (K1a) and `dmc_chol_solve` (K1b) through their ctypes
-entries, holds each result against the plain version (1e-4 scaled by
-max(1, |ref|), as `chip_smoke.py`), and times it two ways:
+`dmc_cholesky` (K1a), `dmc_chol_solve` (K1b) and `dmc_cho_solve` (K1c, on
+the plain factor of the same matrices) through their ctypes entries,
+holds each result against the plain version (1e-4 scaled by max(1,
+|ref|), as `chip_smoke.py`), and times it two ways:
 
   * launch: CUDA events around 50 back-to-back launches of the ctypes
     entry on pre-made buffers (what `chip_smoke.py` calls kernel_ms; it
@@ -19,7 +20,8 @@ max(1, |ref|), as `chip_smoke.py`), and times it two ways:
     times of that n are not measured).
 
 Prints the card's name and power limit first, then one line per shape
-(the one `launch_config(n)` picks marked).
+(the one `launch_config(n)` picks marked), then for each n and kernel the
+fastest shape by device time and how far the picked one is from it.
 """
 
 import argparse
@@ -39,8 +41,9 @@ from dm_control_tpu_torch.ops import linalg_kernel as lk  # noqa: E402
 BATCH = 4096
 REPS = 20
 # each kernel's name in the profiler, demangled or not
-KERNELS = {'cholesky_batched': ('k1_kernel<false>', 'k1_kernelILb0E'),
-           'chol_solve_batched': ('k1_kernel<true>', 'k1_kernelILb1E')}
+KERNELS = {'cholesky_batched': ('k1_kernel<0>', 'k1_kernelILi0E'),
+           'chol_solve_batched': ('k1_kernel<1>', 'k1_kernelILi1E'),
+           'cho_solve_batched': ('k1_kernel<2>', 'k1_kernelILi2E')}
 
 
 def shapes(n):
@@ -73,13 +76,11 @@ def main():
     a = torch.randn((BATCH, n, n), generator=gen, device=dev)
     A = a @ a.transpose(1, 2) + n * torch.eye(n, device=dev)
     b = torch.randn((BATCH, n), generator=gen, device=dev)
-    refs = {'cholesky_batched': lk.cholesky_plain(A),
-            'chol_solve_batched': lk.chol_solve_plain(A, b)}
-    # K1a writes its factor batch-last (n, n, B); compare a batch-first view
-    outs = {'cholesky_batched': torch.empty((n, n, BATCH), device=dev),
-            'chol_solve_batched': torch.empty_like(b)}
-    views = {'cholesky_batched': outs['cholesky_batched'].permute(2, 0, 1),
-             'chol_solve_batched': outs['chol_solve_batched']}
+    L = lk.cholesky_plain(A)
+    refs = {'cholesky_batched': L,
+            'chol_solve_batched': lk.chol_solve_plain(A, b),
+            'cho_solve_batched': lk.cho_solve_plain(L, b)}
+    outs = {k: torch.empty_like(v) for k, v in refs.items()}
 
     def calls(config):
       return {
@@ -88,6 +89,9 @@ def main():
               *config, stream),
           'chol_solve_batched': lambda: lib.dmc_chol_solve(
               A.data_ptr(), b.data_ptr(), outs['chol_solve_batched'].data_ptr(),
+              n, BATCH, *config, stream),
+          'cho_solve_batched': lambda: lib.dmc_cho_solve(
+              L.data_ptr(), b.data_ptr(), outs['cho_solve_batched'].data_ptr(),
               n, BATCH, *config, stream)}
 
     cands = list(shapes(n))
@@ -100,7 +104,7 @@ def main():
       for k, launch in calls(config).items():
         build.check(launch(), k)
         torch.cuda.synchronize()
-        err = cs.scaled_err(views[k], refs[k]).max().item()
+        err = cs.scaled_err(outs[k], refs[k]).max().item()
         assert err <= 1e-4, f'{k} n={n} G={group} warps={warps}: {err:.2e}'
         row[k] = dict(err=err, launch_ms=cs.cuda_ms(launch, 50),
                       device_ms=None)
@@ -115,7 +119,7 @@ def main():
     events = sorted((e for e in prof.events()
                      if e.device_type == torch.autograd.DeviceType.CUDA),
                     key=lambda e: e.time_range.start)
-    if len(events) == 2 * REPS * len(cands):
+    if len(events) == len(KERNELS) * REPS * len(cands):
       it = iter(events)
       for row in n_rows:
         for k, kernel in KERNELS.items():
@@ -125,7 +129,8 @@ def main():
           row[k]['device_ms'] = sum(e.device_time for e in chunk) / REPS / 1e3
     else:
       print(f'# n={n}: the profiler kept {len(events)} kernel events of '
-            f'{2 * REPS * len(cands)} launches: device times not measured')
+            f'{len(KERNELS) * REPS * len(cands)} launches: device times not '
+            f'measured')
     for row in n_rows:
       print(f'n={n:2d} G={row["group"]:2d} warps={row["warps"]} '
             f'envs={row["envs"]:3d} threads={row["threads"]:4d} '
@@ -134,6 +139,17 @@ def main():
             + '; '.join(f'{k} device {v["device_ms"]} ms launch '
                         f'{v["launch_ms"]:.6g} ms err {v["err"]:.1e}'
                         for k, v in row.items() if isinstance(v, dict)),
+            flush=True)
+    for k in KERNELS:
+      timed = [r for r in n_rows if r[k]['device_ms'] is not None]
+      if not timed:
+        continue
+      best = min(timed, key=lambda r: r[k]['device_ms'])
+      chosen = next(r for r in timed if r['chosen'])
+      print(f'n={n:2d} {k}: fastest G={best["group"]} warps={best["warps"]} '
+            f'{best[k]["device_ms"]:.6g} ms; picked G={chosen["group"]} '
+            f'warps={chosen["warps"]} {chosen[k]["device_ms"]:.6g} ms '
+            f'({chosen[k]["device_ms"] / best[k]["device_ms"]:.3f}x)',
             flush=True)
 
 

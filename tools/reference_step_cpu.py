@@ -1,0 +1,164 @@
+"""The port's float32 control step against the JAX package's, on the CPU,
+over more lanes than tests/test_torch_reference_step.py holds.
+
+    python3 tools/reference_step_cpu.py [--lanes 1024] [--tasks walker-walk,finger-spin]
+
+Run from the root of a checkout (CPU only; JAX with float64 enabled, as the
+test suite runs it).  For each task it draws `--lanes` states as the test
+draws its 16 (`run_steps`: numpy, seed 5; at 16 lanes they are the test's)
+and runs one control step through the port at float32 and at
+float64 and through the JAX package at float32 (XLA core), each recording
+its discrete choices (`chip_smoke.branches`).  It prints, for each float32
+run against the port's float64, the reference gate's verdicts
+(`chip_smoke.lane_verdicts`) and the lanes over REF_TOL whose choices all
+matched; then the port against the JAX package on the lanes where the two
+made the same choices (quantiles, lanes above 1e-3 and REF_TOL, largest).
+
+Then, for every lane over REF_TOL with matched choices in the port's run,
+it takes the port's float32 solver inputs of the first substep (the one
+substep whose inputs both float32 runs share up to rounding) and solves
+them three ways: the port's plain Newton solve at float32, the JAX
+package's XLA core at float32, and the port's at float64 to 1e-10 (the
+optimum of those inputs).  It prints each float32 solve's distance from
+that optimum and from the other (scaled by max(1, |optimum|)), their
+iteration counts, and the cost at the optimum with its float32 spacing:
+a float32 solve stops where a step's cost change is below that spacing.
+"""
+
+import argparse
+import os
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path[:0] = [ROOT, os.path.join(ROOT, 'tests')]
+os.environ['JAX_PLATFORMS'] = 'cpu'
+
+import jax  # noqa: E402
+
+jax.config.update('jax_platforms', 'cpu')
+jax.config.update('jax_enable_x64', True)
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+import chip_smoke as cs  # noqa: E402
+import test_torch_reference_step as ref_step  # noqa: E402
+from dm_control_tpu import suite as jsuite  # noqa: E402
+from dm_control_tpu._src import efc as jefc  # noqa: E402
+from dm_control_tpu._src import solver as jsolver  # noqa: E402
+from dm_control_tpu_torch import suite  # noqa: E402
+from dm_control_tpu_torch._src import efc  # noqa: E402
+from dm_control_tpu_torch._src import solver  # noqa: E402
+from dm_control_tpu_torch.ops import newton_kernel as nk  # noqa: E402
+
+
+def quantiles(x):
+  q = torch.quantile(x.double(), torch.tensor([0.5, 0.9, 0.99, 1.0],
+                                              dtype=torch.float64))
+  return ', '.join(f'{k} {v:.3g}' for k, v in zip(('median', 'p90', 'p99',
+                                                   'max'), q.tolist()))
+
+
+def first_acc_stage(pm, d, ctrl, n_sub):
+  """The Data into and out of the first substep's acc stage of the port's
+  float32 step of all of `d`'s lanes."""
+  caught = []
+  with cs.recording(lambda before, after: caught.append((before, after))):
+    cs.one_step(pm, d, slice(0, ctrl.shape[0]), ctrl, n_sub, torch.float32,
+                'cpu')
+  return caught[0]
+
+
+def cost(pm, lay, args, x):
+  """The solve's cost at x (float64), as `chip_smoke.branches` forms it."""
+  J, M, aref, D, fl, active, a = args
+  types = torch.as_tensor(lay.types)
+  jar = torch.einsum('buv,bv->bu', J, x) - aref
+  _, _, c = nk._diag_terms(jar, D, fl, active, types == efc.EQUALITY,
+                           types == efc.FRICTION, types == efc.ONESIDED)
+  groups = nk._ell_groups(lay.ell_groups, J.device, J.dtype)
+  if groups:
+    c = c + nk._ell_terms(jar, D, active, groups)[1]
+  xa = x - a
+  return 0.5 * (xa * torch.einsum('buv,bv->bu', M, xa)).sum(-1) + c
+
+
+def stalls(what, pm, d, ctrl, n_sub, lanes):
+  """The first substep's solve of `lanes`, three ways (module docstring)."""
+  domain, task_name = what.split('-')
+  jm = jsuite.build_task(domain, task_name).model
+  lay, jlay = efc.layout(pm), jefc.layout(jm)
+  idx = torch.tensor(lanes)
+  before, out = first_acc_stage(pm, d, ctrl, n_sub)
+  args = [t[idx].to(torch.float32) for t in (
+      out.efc_J, out.qM, out.efc_aref, out.efc_D, out.efc_frictionloss,
+      out.efc_active, out.qacc_smooth)]
+  warm = before.qacc_warmstart[idx].to(torch.float32)
+  kw = dict(types=lay.types, ell_groups=lay.ell_groups, ls_iter=12,
+            niter=max(int(pm.opt.iterations), 1),
+            meaninertia=float(pm.stat_meaninertia or 1.0), return_iters=True)
+  x32, _, it32 = nk.newton_solve_plain(
+      *args, warm, tol=solver.effective_tol(pm.opt.tolerance, torch.float32),
+      **kw)
+  args64 = [t.double() for t in args]
+  x64, _, it64 = nk.newton_solve_plain(*args64, warm.double(),
+                                       **{**kw, 'niter': 100}, tol=1e-10)
+  core = lambda *a: jsolver._solve_core_xla(
+      *a, lay=jlay, niter=max(int(jm.opt.iterations), 1), ls_iter=12,
+      tol=jsolver.effective_tol(float(jm.opt.tolerance), jnp.float32),
+      meaninertia=float(jm.stat_meaninertia or 1.0), return_iters=True)
+  xj, _, itj = jax.jit(jax.vmap(core))(
+      *[jnp.asarray(t.numpy()) for t in args + [warm]])
+  xj = torch.tensor(np.asarray(xj, np.float64))
+  scale = x64.abs().clamp(min=1.0)
+  off = lambda x, y: ((x.double() - y) / scale).abs().amax(dim=1)
+  c64 = cost(pm, lay, args64, x64)
+  for i, lane in enumerate(lanes):
+    print(f'{what}: lane {lane}, substep 0 solve: port float32 '
+          f'{off(x32, x64)[i]:.3g} from the float64 optimum of its inputs '
+          f'({int(it32[i])} iterations), the JAX package\'s float32 '
+          f'{off(xj, x64)[i]:.3g} ({int(np.asarray(itj)[i])}), the two '
+          f'{off(x32, xj)[i]:.3g} apart (float64 {int(it64[i])}); cost at '
+          f'the optimum {c64[i]:.6g}, its float32 spacing '
+          f'{cs.EPS32 * abs(c64[i].item()):.3g}', flush=True)
+
+
+def main():
+  parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+  parser.add_argument('--lanes', type=int, default=1024)
+  parser.add_argument('--tasks', default='walker-walk,finger-spin')
+  args = parser.parse_args()
+  for what in args.tasks.split(','):
+    runs, pm, d, ctrl = ref_step.run_steps(what, args.lanes)
+    ref = runs['float64']
+    matched_misses = []
+    for name in ('float32', 'jax float32'):
+      err = ref_step._lane_err(runs[name], ref)
+      first = cs.first_differences(runs[name]['branches'], ref['branches'])
+      verdicts = cs.lane_verdicts(err, first, cs.BAND)
+      misses = [i for i, (e, f) in enumerate(zip(err.tolist(), first))
+                if e > cs.REF_TOL and f is None]
+      if name == 'float32':
+        matched_misses = misses
+      print(f'{what}, {args.lanes} lanes, {name} vs the port\'s float64: '
+            f'verdicts '
+            + ', '.join(f'{v} {verdicts.count(v)}'
+                        for v in ('held', 'excused', 'failed'))
+            + f'; over {cs.REF_TOL:g} with every choice matched: '
+            f'{[(i, round(err[i].item(), 5)) for i in misses]}', flush=True)
+    port, jax32 = runs['float32'], runs['jax float32']
+    same = torch.tensor([f is None for f in cs.first_differences(
+        port['branches'], jax32['branches'])])
+    err = ref_step._lane_err(port, jax32)[same]
+    print(f'{what}: port vs JAX, both float32, {int(same.sum())} lanes with '
+          f'the same choices: {quantiles(err)}; above 1e-3 '
+          f'{int((err > 1e-3).sum())}, above {cs.REF_TOL:g} '
+          f'{int((err > cs.REF_TOL).sum())}', flush=True)
+    if matched_misses:
+      n_sub = suite.build_task(*what.split('-'), device='cpu').n_sub_steps()
+      stalls(what, pm, d, ctrl, n_sub, matched_misses)
+
+
+if __name__ == '__main__':
+  main()

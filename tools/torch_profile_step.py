@@ -13,7 +13,7 @@ three ways and prints, per control step:
     device's idle share, 1 - kernel time / untraced wall time, the
     kernels that take the most device time, and the Newton kernel's share
     of the kernel time (K2 on walker, K2-ell on finger) and the K1
-    kernels' (factor, fused solve, substitution);
+    kernel's (factor, fused solve, substitution: each mode apart);
   * cProfile: host time by Python function (cProfile slows the host, so
     read its shares, not its times), and the share of `types.mirror`.
 
@@ -87,14 +87,16 @@ def main():
   print('kernel time per control step, top 15:')
   for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
     print(f'  {t / STEPS / 1e3:8.3f} ms  {c / STEPS:7.0f} calls  {name[:90]}')
-  for what, marks in (('newton_kernel', ('newton_kernel',)),
-                      ('K1 kernels', ('k1_kernel', 'cho_solve_kernel'))):
-    hits = [(t, c) for name, (t, c) in by_name.items()
-            if any(mark in name for mark in marks)]
-    t_hit = sum(t for t, _ in hits)
+  for what, mark in (('newton_kernel', 'newton_kernel'),
+                     ('K1 kernels', 'k1_kernel')):
+    hits = {name: tc for name, tc in by_name.items() if mark in name}
+    t_hit = sum(t for t, _ in hits.values())
     print(f'{what}: {t_hit / STEPS / 1e3:.3f} ms per control step in '
-          f'{sum(c for _, c in hits) / STEPS:.0f} launches, '
-          f'{t_hit / max(busy_us, 1e-9):.3f} of the kernel time')
+          f'{sum(c for _, c in hits.values()) / STEPS:.0f} launches, '
+          f'{t_hit / max(busy_us, 1e-9):.3f} of the kernel time'
+          + ''.join(f'; {name[:60]} {t / STEPS / 1e3:.4f} ms in '
+                    f'{c / STEPS:.0f}' for name, (t, c) in sorted(
+                        hits.items()) if len(hits) > 1))
 
   prof_host = cProfile.Profile()
   torch.cuda.synchronize()
