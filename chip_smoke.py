@@ -13,8 +13,10 @@ any failure exits non-zero and no phase catches its own failure:
      nvcc for sm_90a (one nvcc per source, all started together);
   2. kernels: holds each kernel against its plain PyTorch version on the
      card at float32: K1a/b/c (batched Cholesky factor, fused solve,
-     substitution) at finger's (4096, 3, 3), walker's (4096, 9, 9) and at
-     n = 27, 56, 96 (MAX_N), bound 1e-4 scaled by max(1, |ref|); for each
+     substitution) at finger's (4096, 3, 3), walker's (4096, 9, 9), at
+     n = 27, 56, 96 (MAX_N) and at the slice's n = 1 (pendulum), 2
+     (reacher, cartpole, acrobot) and 7 (hopper), bound 1e-4 scaled by
+     max(1, |ref|); for each
      also the launch configuration (lanes per environment), the first
      4093 lanes alone and a second launch giving the full batch's bits,
      K1c on K1a's L giving K1b's bits, K1a's L contiguous, exactly 0 above
@@ -32,19 +34,23 @@ any failure exits non-zero and no phase catches its own failure:
      depends on the Hessian's and the line search's cone terms); for
      both, the launch configuration (one warp per environment), and the
      first 4093 lanes alone (no multiple of the warps per block) and a
-     second launch must give the full batch's bits;
+     second launch must give the full batch's bits; K2 likewise on
+     cheetah's first impacts (nefc 222, nv 9) and on carts at cartpole's
+     slider limit (nefc 1, nv 2);
   3. reference: one control step of REF_LANES = 256 walker-walk lanes,
      and of 256 finger-spin lanes in contact, on the card at float32
      against the port's float64 CPU path (plain versions) from the same
-     state, every run recording its discrete choices at every substep
+     state, every run recording its discrete choices at every acc stage
      (contact activity and normals, limit activity, the solve's warmstart
      choice and its rows' and cones' zones): each lane within REF_TOL =
      1e-2 (max scaled error of qpos and qvel) is held; one over it is
      excused where its first differing choice stood within BAND * EPS32 *
-     scale of its threshold in the float64 run, and fails otherwise (a
-     lane whose choices all matched is held to REF_TOL unchanged); the
-     kernels' run may excuse at most twice the lanes that the same step
-     with K1 as plain PyTorch excuses, plus one;
+     scale of its threshold in the float64 run, or, with every choice
+     matched, where each of its float32 Newton solves stopped within BAND
+     * EPS32 * scale of the cost of the float64 optimum of its own inputs
+     (`solve stop`) and its error is within STOP_TOL = 5e-2, and fails
+     otherwise; the kernels' run may excuse at most twice the lanes that
+     the same step with K1 as plain PyTorch excuses, plus one;
   4. rollout: BatchedEnv(walker-walk, batch_size=4096) on the card, three
      runs of reset and 50 control steps (500 physics substeps) through
      `rollout_fn`; then
@@ -53,8 +59,9 @@ any failure exits non-zero and no phase catches its own failure:
      kernel's launch count exactly its expected count per control step;
      then finger-spin with an episode limit of 3 control steps, which
      sends every lane through the reset pool;
-  5. timing: each kernel and its plain version with CUDA events at the
-     main path's shapes, and, for K1, the one torch.linalg call that
+  5. timing (before phase 6): each kernel and its plain version with
+     CUDA events at the main path's shapes, and, for K1, the one
+     torch.linalg call that
      computes the same function (`library_ms`, never used by the port);
      the Newton rows carry the largest iteration count of their inputs
      (`max_iters`), which sets a launch's time.  K1 rows are at walker's
@@ -64,10 +71,27 @@ any failure exits non-zero and no phase catches its own failure:
      `device_ms` and `kernels_per_call` (the CUDA kernels of one wrapper
      call and their device time, torch.profiler; each must launch exactly
      one), and the launch configuration; then walker's K1 time per
-     control step, 11 K1a + 10 K1b + 10 K1c.
+     control step, 11 K1a + 10 K1b + 10 K1c.  K1 rows also carry the
+     slice's n = 1, 2 and 7 on pendulum's, reacher's and hopper's initial
+     states (`pendulum`, `reacher`, `hopper`), and the K2 row cheetah's
+     and cartpole's first impacts (`cheetah`, `cartpole`), each with the
+     launches of its task's run in phase 6;
+  6. slice (after phase 5, whose profiler sessions lost every event when
+     they ran after it): BatchedEnv(task, 4096) of each of cheetah-run,
+     hopper-hop, pendulum-swingup, reacher-easy, cartpole-swingup,
+     acrobot-swingup (both RK4) and finger-turn_easy, SLICE_RUNS runs of
+     reset and 50
+     control steps: states (model_var included) finite, rewards in [0, 1],
+     every kernel's launch count exactly `expected_launches` per control
+     step; then phase 3's gate on 256 lanes of each task's final states;
+     then reacher-easy, finger-turn_easy and cheetah-run with an episode
+     limit that ends every lane's episode: reacher's lanes hold the target
+     geom_pos their fresh init drew, finger-turn's and cheetah's their
+     reset pool entry (finger-turn's target site_pos included).
 
 Output: the card's name and power limit (nvidia-smi), env-steps/s of
-walker-walk@4096 and finger-spin@4096 (each the median of three runs), one
+walker-walk@4096, finger-spin@4096 and each slice task@4096 (each the
+median of three runs), one
 `{"kernels": [...]}` JSON line, and last the
 `{"ok": true, "device": {...}}` line.  The nvcc/ptxas log of the build
 is in dm_control_tpu_torch/_build/build.log; its register and spill lines
@@ -88,26 +112,24 @@ CONTROL_STEPS = 50
 # outside the tensor cores
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
-# expected launches per walker control step (n_sub = 10): step1 runs 9x in
-# the substep loop, 1x as the sync and 1x at the end of step(); the acc
-# stage and euler run 9x in the loop and 1x in step()
-PER_STEP = {'cholesky_batched': 11, 'cho_solve_batched': 10,
-            'chol_solve_batched': 10, 'newton_solve_batched': 10,
-            'newton_solve_ell': 0}
-# launches of one forward() (an auto-reset of done lanes)
+# launches of one forward() (an auto-reset of done lanes of walker or
+# reacher: K1a in step1, K1c and K2 in the acc stage)
 PER_RESET = {'cholesky_batched': 1, 'cho_solve_batched': 1,
              'chol_solve_batched': 0, 'newton_solve_batched': 1,
              'newton_solve_ell': 0}
-# expected launches per finger-spin control step (n_sub = 2): step1 runs
-# 1x in the substep loop, 1x as the sync and 1x at the end of step(); the
-# acc stage (solve_m, then the solve, which is K2-ell: finger's contacts
-# are elliptic) and euler (damped joints: K1b) run 1x in the loop and 1x
-# in step().  Its auto-resets come from the reset pool: no launches.
-FINGER_PER_STEP = {'cholesky_batched': 3, 'cho_solve_batched': 2,
-                   'chol_solve_batched': 2, 'newton_solve_batched': 0,
-                   'newton_solve_ell': 2}
 FINGER_RUNS = 3
 WALKER_RUNS = 3
+# the tasks of the sixth slice, each driven through one BatchedEnv of BATCH
+# lanes (phase slice) and gated against the float64 CPU path (phase
+# reference, on the rollout's final states)
+SLICE_TASKS = ('cheetah-run', 'hopper-hop', 'pendulum-swingup',
+               'reacher-easy', 'cartpole-swingup', 'acrobot-swingup',
+               'finger-turn_easy')
+SLICE_RUNS = 3
+# seeds of the slice's own generators (kernel draws, K2 inputs, the
+# reference controls of each task), so that every earlier phase keeps its
+# draws
+SLICE_SEED = 10
 REPLACES = {
     'cholesky_batched': 'dm_control_tpu/ops/linalg_kernel.py:118',
     'chol_solve_batched': 'dm_control_tpu/ops/linalg_kernel.py:142',
@@ -128,6 +150,31 @@ K2_MEAN, K2_MAX, K2_LANES = 1e-4, 5e-2, 0.1
 
 def log(msg):
   print(msg, flush=True)
+
+
+def expected_launches(task):
+  """Each kernel's launches per control step of `task` through
+  `forward.substeps` (n = n_sub physics steps): step1 (K1a) runs n + 1
+  times (n - 1 in the loop, the sync and the end of step(); n = 1: the
+  sync and the end), the acc stage (K1c, then K2, or K2-ell where the
+  model's contacts are elliptic, if it has constraint rows) n times, and
+  Euler's implicit damping (K1b) n times where a dof is damped.  Under
+  RK4 each physics step runs three more pipelines (`forward._forward_core`:
+  K1a, K1c, K2) and no K1b."""
+  import numpy as np
+  from dm_control_tpu_torch._src import efc
+  from dm_control_tpu_torch._src.types import Integrator
+  m, n = task.model, task.n_sub_steps()
+  lay = efc.layout(m)
+  rk4 = m.opt.integrator == Integrator.RK4
+  solves = (4 if rk4 else 1) * n if lay.nefc else 0
+  ell = bool(lay.ell_groups)
+  return {'cholesky_batched': n + 1 + (3 * n if rk4 else 0),
+          'cho_solve_batched': (4 if rk4 else 1) * n,
+          'chol_solve_batched': 0 if rk4 or not np.any(m.dof_damping > 0)
+                                else n,
+          'newton_solve_batched': 0 if ell else solves,
+          'newton_solve_ell': solves if ell else 0}
 
 
 def scaled_err(x, ref):
@@ -333,17 +380,18 @@ def recording(record):
 def one_step(m, data, lanes, ctrl, n_sub, dtype, dev, record=False):
   """qpos and qvel after one control step (n_sub substeps) of `data`'s
   `lanes` under `ctrl`, run by the port's model m at dtype on dev; with
-  `record`, also the discrete choices of every substep (`branches`, on the
+  `record`, also the discrete choices of every acc stage (`branches`, on the
   CPU) under 'branches'."""
   from dm_control_tpu_torch._src import efc
   from dm_control_tpu_torch._src import forward
-  small = {f: x[lanes].to(dev, dtype) if x.is_floating_point()
-           else x[lanes].to(dev) for f, x in forward.state_of(data).items()}
+  small = forward.map_state(
+      lambda x: x[lanes].to(dev, dtype) if x.is_floating_point()
+      else x[lanes].to(dev), forward.state_of(data))
   d = forward.make_data(m, ctrl.shape[0], dtype, dev).replace(**small)
   seen = []
   lay = efc.layout(m)
   keep = lambda before, after: seen.append(
-      {q: tuple(t.cpu() for t in v)
+      {q: tuple(None if t is None else t.cpu() for t in v)
        for q, v in branches(m, lay, before, after).items()})
   with recording(keep) if record else contextlib.nullcontext():
     d = forward.substeps(m, d.replace(ctrl=ctrl.to(dev, dtype)), n_sub)
@@ -355,16 +403,18 @@ def one_step(m, data, lanes, ctrl, n_sub, dtype, dev, record=False):
 
 # -- the reference-step gate ---------------------------------------------------
 # One control step on the card at float32 is held against the float64 CPU
-# path lane by lane.  A lane on which every discrete choice of every
-# substep (`branches`) came out as in the float64 run is held to REF_TOL.
-# A lane whose choices differ may be further off: it took another branch
-# of the physics.  It is excused where, at its first differing substep,
-# the first quantity that differs (in pipeline order) stood within BAND *
-# EPS32 * scale of its threshold in the float64 run on every differing
-# element: a choice that float32 rounding flips.  Any other lane over
-# REF_TOL fails; the excused lanes are counted against the same step run
-# with K1 as plain PyTorch (`gate_failures`).  PERF.md derives BAND and
-# shows what flips.
+# path lane by lane.  A lane on which every discrete choice of every acc
+# stage (`branches`) came out as in the float64 run is held to REF_TOL,
+# unless its float32 Newton solves all stopped where float32 can no
+# longer tell their cost from the optimum's: then it is excused up to
+# STOP_TOL.  A lane whose choices differ may be further off: it took
+# another branch of the physics.  It is excused where, at its first
+# differing stage, the first quantity that differs (in pipeline order)
+# stood within BAND * EPS32 * scale of its threshold in the float64 run
+# on every differing element: a choice that float32 rounding flips.  Any
+# other lane over REF_TOL fails; the excused lanes are counted against
+# the same step run with K1 as plain PyTorch (`gate_failures`).  PERF.md
+# derives BAND and shows what flips.
 REF_TOL = 1e-2
 EPS32 = 2.0 ** -23          # float32 spacing at 1 (torch.finfo().eps)
 BAND = 64
@@ -379,6 +429,57 @@ NORMAL_ANGLE = 0.1
 # the separation below which math.normalize clamps (its eps): a pair whose
 # cores cross takes its normal and contact point from rounding there
 CORE_EPS = 1e-12
+# a matched lane whose solves all stopped within the band is excused up to
+# K2's largest error for two float32 Newton solves (tests/test_pallas.py)
+STOP_TOL = 5e-2
+# the float64 solve of `solve_stop`: iterations and tolerance
+STOP_ITERATIONS, STOP_TOL64 = 100, 1e-10
+
+
+def solve_cost(lay, J, M, aref, D, fl, act, a, x):
+  """The Newton solve's cost at x for one acc stage's inputs (act the
+  active rows as 0/1), and its first-order rounding scale: the
+  quadratic's terms, and each row's |force| times its jar's scale
+  sum |J| |x| + |aref|."""
+  import torch
+  from dm_control_tpu_torch._src import efc
+  from dm_control_tpu_torch.ops import newton_kernel as nk
+  types = torch.as_tensor(lay.types, device=J.device)
+  groups = nk._ell_groups(lay.ell_groups, J.device, J.dtype)
+  mv = lambda A, v: torch.einsum('buv,bv->bu', A, v)
+  jar = mv(J, x) - aref
+  f, _, c = nk._diag_terms(jar, D, fl, act, types == efc.EQUALITY,
+                           types == efc.FRICTION, types == efc.ONESIDED)
+  if groups:
+    f_e, c_e, _ = nk._ell_terms(jar, D, act, groups)
+    f, c = f + f_e, c + c_e
+  xa = x - a
+  quad = 0.5 * (xa * mv(M, xa)).sum(-1)
+  scale = (xa.abs() * mv(M.abs(), xa.abs())).sum(-1)
+  jscale = mv(J.abs(), x.abs()) + aref.abs()
+  return quad + c, scale + (f.abs() * jscale).sum(-1)
+
+
+def solve_stop(m, lay, d):
+  """Where one acc stage's float32 Newton solve stopped: cost(x32) -
+  cost(x*), on the CPU at float64, x32 being the stage's solution d.qacc
+  and x* the plain float64 solve of the stage's own inputs (J, D, aref,
+  friction loss, active rows and cones, M, qacc_smooth) from x32, to
+  STOP_TOL64; its scale the sum of the two costs' `solve_cost` scales, as
+  the warmstart choice's.  Returns (None, value (B, 1), scale (B, 1))."""
+  import torch
+  from dm_control_tpu_torch._src import solver
+  from dm_control_tpu_torch.ops import newton_kernel as nk
+  cpu = lambda t: t.detach().to('cpu', torch.float64)
+  args = [cpu(t) for t in (d.efc_J, d.qM, d.efc_aref, d.efc_D,
+                           d.efc_frictionloss, d.efc_active, d.qacc_smooth)]
+  x32 = cpu(d.qacc)
+  x64, _ = nk.newton_solve_plain(
+      *args, x32, types=lay.types, ell_groups=lay.ell_groups,
+      niter=STOP_ITERATIONS, ls_iter=solver.LS_ITERATIONS, tol=STOP_TOL64,
+      meaninertia=float(m.stat_meaninertia or 1.0))
+  (c32, s32), (c64, s64) = (solve_cost(lay, *args, x) for x in (x32, x64))
+  return None, (c32 - c64)[:, None], (s32 + s64)[:, None]
 
 
 def branches(m, lay, before, after):
@@ -410,6 +511,9 @@ def branches(m, lay, before, after):
     cone top / cone bottom: active elliptic contacts, mu t - n <= 0 and
                mu n + t <= 0 (newton_kernel._ell_terms), on the scaled
                residuals; scale the same sums for n and t
+  and, for a float32 run with constraint rows, 'solve stop' (`solve_stop`:
+  no choice, so no state; `first_differences` does not read it,
+  `stop_distances` does).
   """
   import numpy as np
   import torch
@@ -455,17 +559,7 @@ def branches(m, lay, before, after):
     return torch.einsum('buv,bv->bu', J.abs(), x.abs()) + aref.abs()
 
   def cost(x):
-    """The solve's cost at x, and its first-order rounding scale: the
-    quadratic's terms, and each row's |force| times its jar's scale."""
-    jar = mv(J, x) - aref
-    f, _, c = nk._diag_terms(jar, D, fl, act, is_eq, is_fr, is_one)
-    if groups:
-      f_e, c_e, _ = nk._ell_terms(jar, D, act, groups)
-      f, c = f + f_e, c + c_e
-    xa = x - d.qacc_smooth
-    quad = 0.5 * (xa * mv(d.qM, xa)).sum(-1)
-    scale = (xa.abs() * mv(d.qM.abs(), xa.abs())).sum(-1)
-    return quad + c, scale + (f.abs() * jar_scale(x)).sum(-1)
+    return solve_cost(lay, J, d.qM, aref, D, fl, act, d.qacc_smooth, x)
 
   warm = (d.qacc_smooth if m.opt.disableflags & DisableBit.WARMSTART
           else before.qacc_warmstart)
@@ -509,17 +603,20 @@ def branches(m, lay, before, after):
   for q, parts in (('cone top', tops), ('cone bottom', bottoms)):
     if parts:
       out[q] = tuple(torch.cat(x, dim=1) for x in zip(*parts))
+  if J.dtype == torch.float32:
+    out['solve stop'] = solve_stop(m, lay, d)
   return out
 
 
-def first_differences(test, ref):
+def first_differences(test, ref, lanes=None):
   """For each lane, where the discrete choices of run `test` first differ
-  from those of run `ref` (lists of `branches` per substep, the same
-  lanes): None where they never do, else (substep, quantity, element,
-  distance), distance being the largest |value| / (EPS32 * scale) of the
-  reference run over that quantity's differing elements at that substep."""
+  from those of run `ref` (lists of `branches` per acc stage, the same
+  lanes; `lanes` of them, by default read off the records): None where
+  they never do, else (stage, quantity, element, distance), distance being
+  the largest |value| / (EPS32 * scale) of the reference run over that
+  quantity's differing elements at that stage."""
   import torch
-  B = next(iter(ref[0].values()))[0].shape[0]
+  B = lanes or next(v[1].shape[0] for b in ref for v in b.values())
   first = [None] * B
   for s, (bt, br) in enumerate(zip(test, ref)):
     for q in QUANTITIES:
@@ -539,24 +636,56 @@ def first_differences(test, ref):
   return first
 
 
-def lane_verdicts(err, first, band):
-  """Each lane's verdict from its largest scaled error `err` (B,) and its
-  `first_differences` entry:
+def stop_distances(test):
+  """Each lane's largest `solve stop` over the acc stages of run `test`
+  (its list of `branches`), in EPS32 x scale; inf where a stage recorded
+  none (no solve, or a float64 run)."""
+  import torch
+  B = next((v[1].shape[0] for b in test for v in b.values()), 0)
+  worst = torch.zeros(B, dtype=torch.float64)
+  for b in test:
+    if 'solve stop' not in b:
+      return torch.full((B,), float('inf'), dtype=torch.float64)
+    _, value, scale = b['solve stop']
+    value, scale = value.double().abs(), scale.double()
+    dist = torch.where(value == 0, 0.0, value / (EPS32 * scale)).amax(dim=1)
+    worst = torch.maximum(worst, dist)
+  return worst
+
+
+def lane_verdicts(err, first, band, stops=None):
+  """Each lane's verdict from its largest scaled error `err` (B,), its
+  `first_differences` entry and, where given, its `stop_distances` entry:
     'held'     err <= REF_TOL;
-    'excused'  over REF_TOL, its first differing choice within `band`
-               (x EPS32 x scale) of its threshold in the reference run;
-    'failed'   any other lane: over REF_TOL with every choice matched, or
-               with the first differing one outside the band.
+    'excused'  over REF_TOL, and either its first differing choice within
+               `band` (x EPS32 x scale) of its threshold in the reference
+               run, or every choice matched, every solve stopped within
+               `band` of its float64 optimum's cost and err <= STOP_TOL;
+    'failed'   any other lane over REF_TOL.
   """
   out = []
-  for e, f in zip(err.tolist(), first):
+  for i, (e, f) in enumerate(zip(err.tolist(), first)):
     if e <= REF_TOL:
       out.append('held')
-    elif f is not None and f[3] <= band:
+    elif f is not None:
+      out.append('excused' if f[3] <= band else 'failed')
+    elif stops is not None and stops[i] <= band and e <= STOP_TOL:
       out.append('excused')
     else:
       out.append('failed')
   return out
+
+
+def lane_reason(first, stop):
+  """What a lane over REF_TOL is judged by: its first differing choice
+  (`first_differences`), or, where every choice matched, the largest
+  distance its solves stopped at (`stop_distances`)."""
+  if first is not None:
+    return (f'first differing choice at stage {first[0]}: {first[1]} '
+            f'element {first[2]}, float64 value {first[3]:.3g} x EPS32 x '
+            f'scale from its threshold')
+  return (f'every choice matched; solve stopped at {float(stop):.3g} x '
+          f'EPS32 x scale from its float64 optimum\'s cost')
 
 
 def gate_failures(run, plain):
@@ -626,8 +755,10 @@ def reference_gate(what, m, m_cpu, data, ctrl, n_sub, lk):
     errs = {f: scaled_err(out[f].cpu().double(), ref[f]).amax(dim=1)
             for f in ('qpos', 'qvel')}
     err = torch.maximum(errs['qpos'], errs['qvel'])
-    first = first_differences(out['branches'], ref['branches'])
-    verdicts = lane_verdicts(err, first, BAND)
+    first = first_differences(out['branches'], ref['branches'],
+                              ctrl.shape[0])
+    stops = stop_distances(out['branches'])
+    verdicts = lane_verdicts(err, first, BAND, stops)
     gated[route] = verdicts
     counts[route] = {v: verdicts.count(v)
                      for v in ('held', 'excused', 'failed')}
@@ -640,13 +771,8 @@ def reference_gate(what, m, m_cpu, data, ctrl, n_sub, lk):
         f'{err[matched].max().item() if matched.any() else 0:.2e}; '
         f'{counts[route]}')
     for lane in torch.nonzero(err > REF_TOL).flatten().tolist():
-      f = first[lane]
-      where = ('every choice matched' if f is None else
-               f'first differing choice at substep {f[0]}: {f[1]} element '
-               f'{f[2]}, float64 value {f[3]:.3g} x EPS32 x scale from its '
-               f'threshold')
       log(f'#   {what}, K1 {route}: lane {lane} error {err[lane].item():.2e}'
-          f' {verdicts[lane]}: {where}')
+          f' {verdicts[lane]}: {lane_reason(first[lane], stops[lane])}')
   failures = gate_failures(gated['kernels'], gated['plain'])
   assert not failures, f'{what} reference gate: {"; ".join(failures)}'
   return largest['kernels']
@@ -678,6 +804,126 @@ def finger_solver_inputs(m, lay, B, gen, dev):
   args = (d.efc_J, d.qM, d.efc_aref, d.efc_D, d.efc_frictionloss,
           d.efc_active.to(torch.float32), d.qacc_smooth, d.qacc_smooth)
   return args, d
+
+
+def slice_run(env, i_task, run, dev, after_reset=lambda: None):
+  """Run `run` of slice task number `i_task` (in SLICE_TASKS): env.reset(
+  seed=run), after_reset(), then CONTROL_STEPS control steps through
+  `rollout_fn` with actions from a generator of its own.  Returns (state,
+  rewards, seconds of the reset, seconds of the steps), each ended by a
+  synchronize."""
+  import torch
+  gen = torch.Generator(device=dev)
+  gen.manual_seed(SLICE_SEED + 100 * (i_task + 1) + run)
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  state = env.reset(seed=run)
+  torch.cuda.synchronize()
+  t_reset = time.perf_counter() - t0
+  after_reset()
+  t0 = time.perf_counter()
+  state, rewards = env.rollout_fn(CONTROL_STEPS)(state, gen)
+  torch.cuda.synchronize()
+  return state, rewards, t_reset, time.perf_counter() - t0
+
+
+def slice_controls(i_task, nu, lanes, dev):
+  """The reference step's controls of slice task number `i_task`, uniform
+  in [-1, 1], from a generator of its own."""
+  import torch
+  gen = torch.Generator(device=dev)
+  gen.manual_seed(SLICE_SEED + 1 + i_task)
+  return torch.rand((lanes, nu), generator=gen, device=dev) * 2 - 1
+
+
+def impact_states(what, m, B, gen, dev):
+  """B states of `what` (cheetah-run or cartpole-swingup) at their first
+  impacts, float32 on dev, drawn from `gen`: cheetahs low enough that
+  their feet or legs touch the floor, near upright, with random joint
+  velocities; carts at the slider's limit (within 2 cm either side of it)
+  moving into it, poles at any angle.  Controls uniform."""
+  import math as pymath
+  import torch
+  from dm_control_tpu_torch._src import forward
+  kw = dict(generator=gen, device=dev)
+  u = lambda lo, hi, *shape: lo + (hi - lo) * torch.rand(shape or (B,), **kw)
+  adr = lambda name: int(m.jnt_qposadr[m.name2id('joint', name)])
+  d = forward.make_data(m, B, torch.float32, dev)
+  qpos = d.qpos.clone()
+  if what == 'cheetah-run':
+    for j in range(m.njnt):
+      lo, hi = m.jnt_range[j] if m.jnt_limited[j] else (-pymath.pi, pymath.pi)
+      qpos[:, int(m.jnt_qposadr[j])] = u(float(lo), float(hi))
+    qpos[:, adr('rootx')] = 0.0
+    qpos[:, adr('rootz')] = u(-0.3, -0.05)
+    qpos[:, adr('rooty')] = u(-0.5, 0.5)
+    qvel = torch.randn((B, m.nv), **kw)
+  else:
+    side = torch.where(torch.rand(B, **kw) < 0.5, -1.0, 1.0)
+    qpos[:, adr('slider')] = side * u(1.78, 1.82)
+    qpos[:, adr('hinge_1')] = u(-pymath.pi, pymath.pi)
+    qvel = torch.randn((B, m.nv), **kw)
+    qvel[:, 0] = side * u(0.0, 3.0)
+  ctrl = u(-1.0, 1.0, B, m.nu)
+  return d.replace(qpos=qpos, qvel=qvel, ctrl=ctrl)
+
+
+def k2_task_check(nk, what, m, lay, d):
+  """K2 on `what`'s solver inputs from the states d (the pipeline run up
+  to the solve, warm-started from d's qacc_warmstart), at least a quarter
+  of whose lanes must touch (an active contact row, or any active row
+  where the model has no contacts): against the plain float32 solve and
+  against the plain float64 optimum of the same inputs, at the model's
+  own tolerance, with the bounds of tests/test_pallas.py (mean <= 1e-4,
+  max <= 5e-2, <= 10% of lanes above 1e-3) on the lane-scaled error
+  (`k2_check`); the launch configuration; the first B - 3 lanes alone
+  and a second launch giving the full batch's bits.  The component-scaled
+  readings are printed for the record: on walker's first floor impacts
+  they fail 5e-2 for the plain float32 solve itself against float64, so
+  they measure float32, not the kernel.  Returns (args, kw, iterations,
+  max |kernel - plain|, the forward Data)."""
+  import torch
+  from dm_control_tpu_torch._src import forward
+  from dm_control_tpu_torch._src import solver
+  d = forward.step1(m, d, skipsensor=True)
+  d = forward.actuation(m, d)
+  d = forward.fwd_acceleration(m, d)
+  args = (d.efc_J, d.qM, d.efc_aref, d.efc_D, d.efc_frictionloss,
+          d.efc_active.to(torch.float32), d.qacc_smooth, d.qacc_warmstart)
+  kw = dict(niter=int(m.opt.iterations), ls_iter=solver.LS_ITERATIONS,
+            tol=solver.effective_tol(m.opt.tolerance, torch.float32),
+            meaninertia=float(m.stat_meaninertia))
+  B = args[0].shape[0]
+  x_k, f_k, iters = nk.newton_solve_batched(*args, lay=lay,
+                                            return_iters=True, **kw)
+  x_p, _ = nk.newton_solve_plain(*args, types=lay.types, **kw)
+  x_64, _ = nk.newton_solve_plain(
+      *[a.double() for a in args], types=lay.types,
+      **dict(kw, tol=solver.effective_tol(m.opt.tolerance, torch.float64)))
+  first = len(lay.fric_dof) + len(lay.lim_jnt)
+  touch = d.efc_active[:, first:] if lay.nefc > first else d.efc_active
+  active = int(touch.any(dim=1).sum())
+  log(f'# phase kernels: newton_solve_batched on {what} B={B} '
+      f'nefc={lay.nefc} nv={m.nv}: lanes in contact (or, without contacts, '
+      f'with an active row) {active}; iterations mean '
+      f'{iters.float().mean().item():.2f} max {int(iters.max())}')
+  assert active >= B // 4, f'K2 on {what}: too few lanes in contact'
+  assert torch.isfinite(f_k).all() and torch.isfinite(x_k).all()
+  k2_check(f'K2 on {what} kernel vs plain float32', x_k, x_p, gate=True)
+  k2_check(f'K2 on {what} kernel vs plain float64', x_k.double(), x_64,
+           gate=True)
+  k2_check(f'K2 on {what} plain float32 vs plain float64', x_p.double(),
+           x_64, gate=False)
+  newton_launch(nk, f'newton_solve_batched on {what}', lay, m.nv, B)
+  newton_bits(nk, f'newton_solve_batched on {what}', args, lay, kw,
+              (x_k, f_k, iters))
+  return args, kw, iters, (x_k - x_p).abs().max().item(), d
+
+
+def k2_bytes(B, nefc, nv):
+  """Bytes the Newton solve must move: J, M, the four row vectors, a,
+  warm, x and the forces, each once at float32."""
+  return B * 4 * (nefc * nv + nv * nv + 4 * nefc + 2 * nv + nv + nefc)
 
 
 def cone_zones(lay, J, aref, active, x):
@@ -744,9 +990,13 @@ def main() -> int:
   # later phase sees the same draws of `gen` as before they were added
   k1_gen = torch.Generator(device=dev)
   k1_gen.manual_seed(1)
+  # the slice's sizes (pendulum's n = 1, reacher's, cartpole's and
+  # acrobot's 2, hopper's 7) from the slice's generator
+  s_gen = torch.Generator(device=dev)
+  s_gen.manual_seed(SLICE_SEED)
   k1_err = {}
   for n, g in ((9, gen), (27, gen), (56, gen), (3, k1_gen),
-               (lk.MAX_N, k1_gen)):
+               (lk.MAX_N, k1_gen), (1, s_gen), (2, s_gen), (7, s_gen)):
     A = spd(n, g)
     b = torch.randn((BATCH, n), generator=g, device=dev)
     L_ref = lk.cholesky_plain(A)
@@ -773,45 +1023,13 @@ def main() -> int:
   env = BatchedEnv(task, BATCH)
   state = env.reset()
   state, _ = env.rollout_fn(40)(state, gen)   # falls onto the floor
-  d = forward.step1(m, state.data, skipsensor=True)
-  d = forward.actuation(m, d)
-  d = forward.fwd_acceleration(m, d)
-  k2_args = (d.efc_J, d.qM, d.efc_aref, d.efc_D, d.efc_frictionloss,
-             d.efc_active.to(torch.float32), d.qacc_smooth, d.qacc_warmstart)
-  k2_kw = dict(niter=int(m.opt.iterations), ls_iter=solver.LS_ITERATIONS,
-               tol=solver.effective_tol(m.opt.tolerance, torch.float32),
-               meaninertia=float(m.stat_meaninertia))
-  x_k, f_k, iters = nk.newton_solve_batched(*k2_args, lay=lay,
-                                            return_iters=True, **k2_kw)
-  x_p, f_p = nk.newton_solve_plain(*k2_args, types=lay.types, **k2_kw)
-  # the plain version at float64 on the same inputs, at the model's own
-  # tolerance: the optimum both float32 solves approximate
-  x_64, _ = nk.newton_solve_plain(
-      *[a.double() for a in k2_args], types=lay.types,
-      **dict(k2_kw, tol=solver.effective_tol(m.opt.tolerance, torch.float64)))
-  active_lanes = int(d.efc_active[:, 6:].any(dim=1).sum())
-  log(f'# phase kernels: newton_solve_batched B={BATCH} nefc={lay.nefc} '
-      f'nv={m.nv}: lanes in contact {active_lanes}; iterations mean '
-      f'{iters.float().mean().item():.2f} max {int(iters.max())}')
-  assert active_lanes >= BATCH // 4, 'K2 inputs: too few lanes in contact'
-  assert torch.isfinite(f_k).all() and torch.isfinite(x_k).all()
-  # The bounds of tests/test_pallas.py (mean <= 1e-4, max <= 5e-2, <= 10%
-  # of lanes above 1e-3), on the lane-scaled error (`lane_scaled_err`),
-  # against the plain float32 solve and against the float64 optimum.  The
-  # component-scaled readings are printed for the record: on walker's
-  # first floor impacts they fail 5e-2 for the plain float32 solve itself
-  # against float64, so they measure float32, not the kernel.
-  k2_check('K2 kernel vs plain float32', x_k, x_p, gate=True)
-  k2_check('K2 kernel vs plain float64', x_k.double(), x_64, gate=True)
-  k2_check('K2 plain float32 vs plain float64', x_p.double(), x_64,
-           gate=False)
-  k2_err = (x_k - x_p).abs().max().item()
-  newton_launch(nk, 'newton_solve_batched', lay, m.nv, BATCH)
-  newton_bits(nk, 'newton_solve_batched', k2_args, lay, k2_kw,
-              (x_k, f_k, iters))
+  k2_args, k2_kw, iters, k2_err, d = k2_task_check(nk, 'walker-walk', m,
+                                                   lay, state.data)
+  per_step = expected_launches(task)
 
   # K2-ell on finger-spin inputs rich in contacts, same bounds (ell_gates).
   f_task = suite.build_task('finger', 'spin')      # CUDA by default
+  finger_per_step = expected_launches(f_task)
   fm = f_task.model
   f_lay = efc.layout(fm)
   ell_args, f_d = finger_solver_inputs(fm, f_lay, BATCH, gen, dev)
@@ -891,6 +1109,17 @@ def main() -> int:
   ell_gates('K2-ell one iteration, one line-search step, alpha off 1,',
             *(x[off] for x in one[1]))
 
+  # K2 at the slice's new layouts: cheetah's (6 limits, 54 pyramidal
+  # contacts) and cartpole's (one slider-limit row) first impacts
+  slice_tasks = {what: suite.build_task(*what.split('-'))
+                 for what in SLICE_TASKS}
+  k2_slice = {}
+  for what in ('cheetah-run', 'cartpole-swingup'):
+    tm = slice_tasks[what].model
+    k2_slice[what] = k2_task_check(
+        nk, what, tm, efc.layout(tm),
+        impact_states(what, tm, BATCH, s_gen, dev))
+
   # -- 3. against the float64 CPU path -----------------------------------------
   # REF_LANES lanes of walker's state after the 40-step rollout, and of the
   # finger-spin lanes in contact; the first 64 lanes' controls from `gen`
@@ -931,7 +1160,7 @@ def main() -> int:
     assert tuple(rewards.shape) == (CONTROL_STEPS, BATCH)
     assert bool(((rewards >= 0) & (rewards <= 1)).all()), 'reward outside [0,1]'
     for k, n in launches.items():
-      want = PER_STEP[k] * CONTROL_STEPS + PER_RESET[k] * resets
+      want = per_step[k] * CONTROL_STEPS + PER_RESET[k] * resets
       assert n == want, f'{k}: {n} launches, expected {want}'
   log(f'# walker-walk@{BATCH} env-steps/s: '
       f'{sorted(w_sps)[len(w_sps) // 2]:.1f} (median of {WALKER_RUNS} runs: '
@@ -956,13 +1185,13 @@ def main() -> int:
     log(f'# phase rollout: finger-spin@{BATCH} run {i} x {CONTROL_STEPS} '
         f'control steps in {dt:.2f} s ({f_sps[-1]:.1f} env-steps/s); '
         f'launches {f_launches}; mean reward {rewards.mean().item():.4f}')
-    for f, x in forward.state_of(state.data).items():
+    for f, x in forward.state_items(forward.state_of(state.data)):
       assert x.dtype == torch.bool or torch.isfinite(x).all(), f'{f} not finite'
     assert tuple(rewards.shape) == (CONTROL_STEPS, BATCH)
     assert bool(((rewards >= 0) & (rewards <= 1)).all()), 'finger reward'
     assert f_env.reset_calls == resets0        # resets come from the pool
     for k, n in f_launches.items():
-      want = FINGER_PER_STEP[k] * CONTROL_STEPS
+      want = finger_per_step[k] * CONTROL_STEPS
       assert n == want, f'finger {k}: {n} launches, expected {want}'
   log(f'# finger-spin@{BATCH} env-steps/s: '
       f'{sorted(f_sps)[len(f_sps) // 2]:.1f} (median of {FINGER_RUNS} runs: '
@@ -990,11 +1219,12 @@ def main() -> int:
       f'{p_launches}')
   assert bool((state.episode_id == 1).all() and (state.step_count == 0).all())
   assert p_env.reset_calls == resets0, 'finger reset outside the pool'
-  for f, x in forward.state_of(state.data).items():
-    assert torch.equal(x, state.reset_pool[f][taken]), f'pool {f}'
+  pool = dict(forward.state_items(state.reset_pool))
+  for f, x in forward.state_items(forward.state_of(state.data)):
+    assert torch.equal(x, pool[f][taken]), f'pool {f}'
   assert bool(((rewards >= 0) & (rewards <= 1)).all()), 'finger reward'
   for k, n in p_launches.items():
-    want = FINGER_PER_STEP[k] * 3
+    want = finger_per_step[k] * 3
     assert n == want, f'finger pool run {k}: {n} launches, expected {want}'
 
   # -- 5. timing at the main path's shapes ----------------------------------------
@@ -1050,16 +1280,27 @@ def main() -> int:
                       launches)
   finger_k1 = k1_rows(f_d.qM.contiguous(), f_d.qfrc_smooth.contiguous(),
                       f_launches)
+  # the slice's K1 sizes on its tasks' initial states: pendulum's n = 1,
+  # reacher's 2 and hopper's 7 (their launches, those of the task's run in
+  # phase slice, are filled in after it: this phase runs first, while
+  # torch.profiler still sees every kernel of a session)
+  slice_k1 = {}
+  for what in ('pendulum-swingup', 'reacher-easy', 'hopper-hop'):
+    s_d = BatchedEnv(slice_tasks[what], BATCH).reset(seed=0).data
+    slice_k1[what] = k1_rows(s_d.qM.contiguous(),
+                             s_d.qfrc_smooth.contiguous(),
+                             dict.fromkeys(per_step))
   for k in ('cholesky_batched', 'chol_solve_batched', 'cho_solve_batched'):
     rows.append(dict(name=k, route='cuda', source=SOURCES[k],
                      replaces=REPLACES[k], **walker_k1[k],
-                     finger=finger_k1[k]))
-  per_step = {what: sum(PER_STEP[k] * walker_k1[k][what]
-                        for k in walker_k1)
-              for what in ('ms', 'kernel_ms', 'device_ms')}
+                     finger=finger_k1[k],
+                     **{t.split('-')[0]: r[k] for t, r in slice_k1.items()}))
+  k1_step = {what: sum(per_step[k] * walker_k1[k][what]
+                       for k in walker_k1)
+             for what in ('ms', 'kernel_ms', 'device_ms')}
   log(f'# phase timing: walker K1 per control step (11 K1a + 10 K1b + 10 '
-      f'K1c): wrapper {per_step["ms"]:.6g} ms, ctypes launches '
-      f'{per_step["kernel_ms"]:.6g} ms, device {per_step["device_ms"]:.6g} ms')
+      f'K1c): wrapper {k1_step["ms"]:.6g} ms, ctypes launches '
+      f'{k1_step["kernel_ms"]:.6g} ms, device {k1_step["device_ms"]:.6g} ms')
 
   def row(k, fn, plain, library, nbytes, flops, err, reps=50, plain_reps=5,
           **extra):
@@ -1075,20 +1316,36 @@ def main() -> int:
         f'({b_by}), plain {rows[-1]["plain_ms"]:.6g} ms, library '
         f'{rows[-1]["library_ms"]} ms; {extra or ""}')
 
-  n, nv, nefc = m.nv, m.nv, lay.nefc
-  k2_bytes = BATCH * 4 * (nefc * nv + nv * nv + 4 * nefc + 2 * nv
-                          + nv + nefc)
+  # K2 at the slice's layouts (cheetah's and cartpole's first impacts),
+  # with the launches of that task's rollout run
+  k2_sub = {}
+  for what, (s_args, s_kw, s_iters, s_err, _) in k2_slice.items():
+    s_m = slice_tasks[what].model
+    s_lay = efc.layout(s_m)
+    b_ms, b_by = bound_ms(
+        k2_bytes(BATCH, s_lay.nefc, s_m.nv),
+        newton_flops(s_lay.nefc, s_m.nv, solver.LS_ITERATIONS, s_iters))
+    k2_sub[what.split('-')[0]] = dict(
+        launches=None, max_abs_err=s_err,
+        ms=cuda_ms(lambda: nk.newton_solve_batched(*s_args, lay=s_lay,
+                                                   **s_kw), 10),
+        plain_ms=cuda_ms(lambda: nk.newton_solve_plain(
+            *s_args, types=s_lay.types, **s_kw), 2),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        max_iters=int(s_iters.max()), shape=[BATCH, s_lay.nefc, s_m.nv])
+    log(f'# phase timing: newton_solve_batched on {what}: '
+        f'{k2_sub[what.split("-")[0]]}')
+
+  nv, nefc = m.nv, lay.nefc
   row('newton_solve_batched',
       lambda: nk.newton_solve_batched(*k2_args, lay=lay, **k2_kw),
       lambda: nk.newton_solve_plain(*k2_args, types=lay.types, **k2_kw),
-      None, k2_bytes,
+      None, k2_bytes(BATCH, nefc, nv),
       newton_flops(nefc, nv, solver.LS_ITERATIONS, iters), k2_err,
-      reps=10, plain_reps=2, max_iters=int(iters.max()))
+      reps=10, plain_reps=2, max_iters=int(iters.max()), **k2_sub)
   f_nv, f_nefc = fm.nv, f_lay.nefc
   ncg = len(f_lay.ell_groups[3][0])
-  ell_bytes = (BATCH * 4 * (f_nefc * f_nv + f_nv * f_nv + 4 * f_nefc
-                            + 2 * f_nv + f_nv + f_nefc)
-               + 4 * (3 * ncg + ncg + f_nefc))
+  ell_bytes = k2_bytes(BATCH, f_nefc, f_nv) + 4 * (3 * ncg + ncg + f_nefc)
   row('newton_solve_ell',
       lambda: nk.newton_solve_batched(*ell_args, lay=f_lay, **ell_kw),
       lambda: nk.newton_solve_plain(*ell_args, **plain_kw, **ell_kw),
@@ -1096,6 +1353,116 @@ def main() -> int:
       newton_flops(f_nefc, f_nv, solver.LS_ITERATIONS, ell_iters,
                    cones=cones.to(ell_iters.device)), ell_err,
       reps=10, plain_reps=2, max_iters=int(ell_iters.max()))
+
+  # -- 6. the slice: seven more tasks, reference gates, resets ---------------
+  # Each task: SLICE_RUNS runs of reset and CONTROL_STEPS control steps of
+  # BATCH lanes, states finite, rewards in [0, 1], every kernel launched
+  # exactly `expected_launches` times per control step (no episode ends);
+  # then the reference gate on REF_LANES lanes of the last run's final
+  # states, each task's controls from a generator of its own.
+  slice_launches, slice_sps = {}, {}
+  t_slice = time.perf_counter()
+  for i_task, what in enumerate(SLICE_TASKS):
+    s_task = slice_tasks[what]
+    s_env = BatchedEnv(s_task, BATCH)
+    want = expected_launches(s_task)
+    sps = []
+    for i in range(SLICE_RUNS):
+      state, rewards, t_reset, dt = slice_run(
+          s_env, i_task, i, dev,
+          after_reset=lambda: (lk.reset_launches(), nk.reset_launches()))
+      got = dict(lk.LAUNCHES, **nk.LAUNCHES)
+      sps.append(BATCH * CONTROL_STEPS / dt)
+      log(f'# phase slice: {what}@{BATCH} run {i}: reset {t_reset:.2f} s; '
+          f'{CONTROL_STEPS} control steps in {dt:.2f} s ({sps[-1]:.1f} '
+          f'env-steps/s); launches {got}; mean reward '
+          f'{rewards.mean().item():.4f}')
+      for f, x in forward.state_items(forward.state_of(state.data)):
+        assert x.dtype == torch.bool or torch.isfinite(x).all(), (
+            f'{what}: {f} not finite')
+      assert tuple(rewards.shape) == (CONTROL_STEPS, BATCH)
+      assert bool(((rewards >= 0) & (rewards <= 1)).all()), (
+          f'{what}: reward outside [0, 1]')
+      assert not bool(state.episode_id.any()), f'{what}: an episode ended'
+      for k, n in got.items():
+        assert n == want[k] * CONTROL_STEPS, (
+            f'{what} {k}: {n} launches, expected {want[k] * CONTROL_STEPS}')
+    slice_sps[what] = sps
+    slice_launches[what] = got
+    log(f'# {what}@{BATCH} env-steps/s: {sorted(sps)[len(sps) // 2]:.1f} '
+        f'(median of {SLICE_RUNS} runs: {", ".join(f"{v:.1f}" for v in sps)})'
+        f'; launches per control step {want}')
+    t0 = time.perf_counter()
+    m_s = s_task.model
+    cpu = suite.build_task(*what.split('-'), device='cpu').model
+    reference_gate(what, m_s, cpu, state.data,
+                   slice_controls(i_task, m_s.nu, REF_LANES, dev),
+                   s_task.n_sub_steps(), lk)
+    log(f'# phase reference: {what} {time.perf_counter() - t0:.1f} s')
+
+  # Episode limits that end every lane's episode: reacher's fresh lanes
+  # hold the target geom_pos that init_states drew for them (the same
+  # generator state drawn again); finger-turn's and cheetah's lanes hold
+  # their reset pool entry, its model_var (finger-turn's target site_pos)
+  # included, and init_states is not called.
+  for what, limit_steps in (('reacher-easy', 2), ('finger-turn_easy', 3),
+                            ('cheetah-run', 2)):
+    s_task = slice_tasks[what]
+    r_env = BatchedEnv(s_task, BATCH, time_limit=limit_steps * (
+        s_task.model.opt.timestep * s_task.n_sub_steps()))
+    state = r_env.reset(seed=SLICE_RUNS)
+    old = forward.state_of(state.data)['model_var']
+    state, _ = r_env.rollout_fn(limit_steps - 1)(state, s_gen)
+    drawn = r_env.generator.get_state()
+    torch.cuda.synchronize()
+    lk.reset_launches()
+    nk.reset_launches()
+    resets0 = r_env.reset_calls
+    state, rewards = r_env.rollout_fn(1)(state, s_gen)
+    torch.cuda.synchronize()
+    got = dict(lk.LAUNCHES, **nk.LAUNCHES)
+    assert bool((state.episode_id == 1).all() and (state.step_count == 0).all())
+    assert bool(((rewards >= 0) & (rewards <= 1)).all()), f'{what} reward'
+    want = expected_launches(s_task)
+    st = forward.state_of(state.data)
+    if s_task.expensive_init:
+      assert r_env.reset_calls == resets0, f'{what}: reset outside the pool'
+      taken = runner.pool_index(torch.zeros_like(state.episode_id),
+                                torch.arange(BATCH, device=dev), BATCH)
+      pool = dict(forward.state_items(state.reset_pool))
+      for f, x in forward.state_items(st):
+        assert torch.equal(x, pool[f][taken]), f'{what}: pool {f}'
+      ref_mv = {k: v[taken] for k, v in state.reset_pool['model_var'].items()}
+    else:
+      assert r_env.reset_calls == resets0 + 1
+      r_env.generator.set_state(drawn)
+      fresh = forward.state_of(r_env.init_states(BATCH))
+      for f in ('qpos', 'model_var.geom_pos'):
+        assert torch.equal(dict(forward.state_items(st))[f],
+                           dict(forward.state_items(fresh))[f]), (
+            f'{what}: {f} is not its fresh draw')
+      ref_mv = fresh['model_var']
+      want = {k: v + PER_RESET[k] for k, v in want.items()}
+    for k, n in got.items():
+      assert n == want[k], f'{what} reset step {k}: {n} launches, want {want[k]}'
+    for k, v in st['model_var'].items():
+      assert torch.equal(v, ref_mv[k])
+      moved = (v != old[k]).flatten(1).any(dim=1)
+      assert bool(moved.all()), f'{what}: a lane kept its old {k}'
+    log(f'# phase slice: {what}@{BATCH}, episode limit {limit_steps} '
+        f'control steps: every lane reset ({"reset pool" if s_task.expensive_init else "fresh init_states"}); '
+        f'model_var {sorted(st["model_var"])} per lane as drawn; launches '
+        f'{got}')
+  log(f'# phase slice: {time.perf_counter() - t_slice:.1f} s')
+
+  for what, r in slice_k1.items():
+    for k in r:
+      r[k]['launches'] = slice_launches[what][k]
+      r[k]['launches_per_control_step'] = r[k]['launches'] / CONTROL_STEPS
+  for what in k2_slice:
+    sub = k2_sub[what.split('-')[0]]
+    sub['launches'] = slice_launches[what]['newton_solve_batched']
+    sub['launches_per_control_step'] = sub['launches'] / CONTROL_STEPS
 
   log(smi)
   log(json.dumps({'kernels': rows}, allow_nan=False))

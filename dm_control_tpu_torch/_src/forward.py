@@ -4,7 +4,9 @@ The port of `dm_control_tpu/_src/forward.py`, batch-first.  `step` and
 `substeps` keep the JAX package's stage order (step2-then-step1 bracketing,
 the standard order inside `substeps`, the n <= 1 self-sync) so that the
 trajectories agree step for step.  `jax.lax.scan` becomes a Python loop.
-RK4 is not ported yet and raises.
+The integrators are semi-implicit Euler and RK4, whose three inner stages
+run the whole pipeline without sensors (`_forward_core`), as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -274,6 +276,14 @@ def forward(m: Model, d: Data) -> Data:
   return d
 
 
+def _forward_core(m: Model, d: Data) -> Data:
+  """Full pipeline without sensors/energy (RK4's inner stages)."""
+  d = fwd_position(m, d)
+  d = fwd_velocity(m, d)
+  d = _acc_stage(m, d, skipsensor=True)
+  return d
+
+
 def _energy(m: Model, d: Data) -> Data:
   ref = d.qpos
   tr = tree.get(m)
@@ -347,9 +357,43 @@ def euler(m: Model, d: Data) -> Data:
   return _advance(m, d, qacc)
 
 
+_RK4_A = np.array([
+    [0.5, 0.0, 0.0],
+    [0.0, 0.5, 0.0],
+    [0.0, 0.0, 1.0],
+])
+_RK4_B = np.array([1.0 / 6, 1.0 / 3, 1.0 / 3, 1.0 / 6])
+
+
+def rk4(m: Model, d: Data) -> Data:
+  """Classic RK4 over (qpos, qvel) with the full pipeline per stage: d's
+  own qacc is the first stage's, three `_forward_core` runs give the
+  others (each one acc stage, so one K1c solve and one Newton solve)."""
+  if m.na:
+    raise NotImplementedError('activation states are not ported yet')
+  h = float(m.opt.timestep)
+  d0 = d
+  qvels = [d.qvel]
+  qaccs = [d.qacc]
+  for i in range(3):
+    a = _RK4_A[i]
+    dqvel = sum(float(a[j]) * qvels[j] for j in range(i + 1))
+    dqacc = sum(float(a[j]) * qaccs[j] for j in range(i + 1))
+    di = d0.replace(qpos=_integrate_pos(m, d0.qpos, dqvel, h),
+                    qvel=d0.qvel + h * dqacc)
+    di = _forward_core(m, di)
+    qvels.append(di.qvel)
+    qaccs.append(di.qacc)
+  fvel = sum(float(_RK4_B[j]) * qvels[j] for j in range(4))
+  facc = sum(float(_RK4_B[j]) * qaccs[j] for j in range(4))
+  qpos = _integrate_pos(m, d0.qpos, fvel, h)
+  qvel = d0.qvel + h * facc
+  return d0.replace(qpos=qpos, qvel=qvel, time=d0.time + h)
+
+
 def _integrate(m: Model, d: Data) -> Data:
   if m.opt.integrator == Integrator.RK4:
-    raise NotImplementedError('the RK4 integrator is not ported yet')
+    return rk4(m, d)
   return euler(m, d)
 
 
@@ -370,9 +414,34 @@ _STATE_FIELDS = ('time', 'qpos', 'qvel', 'act', 'ctrl', 'qfrc_applied',
 
 
 def state_of(d: Data) -> dict:
-  """The batched integration-state tensors of d, by field name (every
-  state field but `model_var`, which is not per lane)."""
-  return {f: getattr(d, f) for f in _STATE_FIELDS if f != 'model_var'}
+  """The integration state of d, by field name: (B, ...) tensors, and
+  under 'model_var' the dict of the lanes' model overrides, {name: (B,
+  ...)} (empty where the task sets none)."""
+  st = {f: getattr(d, f) for f in _STATE_FIELDS if f != 'model_var'}
+  st['model_var'] = dict(d.model_var or {})
+  return st
+
+
+def map_state(fn, *states) -> dict:
+  """fn applied key by key to the tensors of one or more `state_of`
+  dicts (model_var's by name), in the keys of the first."""
+  out = {}
+  for f, x in states[0].items():
+    if f == 'model_var':
+      out[f] = {k: fn(*(s[f][k] for s in states)) for k in x}
+    else:
+      out[f] = fn(*(s[f] for s in states))
+  return out
+
+
+def state_items(st: dict):
+  """(name, tensor) for every tensor of a `state_of` dict, model_var's
+  named 'model_var.<name>'."""
+  for f, x in st.items():
+    if f == 'model_var':
+      yield from ((f'model_var.{k}', v) for k, v in x.items())
+    else:
+      yield f, x
 
 
 def substeps(m: Model, d: Data, n: int) -> Data:

@@ -2,10 +2,11 @@
 
 States cross between the port and anything else (the JAX package in the
 tests, checkpoints, a learner) as a flat dict of numpy arrays keyed by
-field name, with the Contact fields under 'contact.<name>'.  Every array
-carries the batch on its leading axis.  Floating fields take the dtype
-asked for; integer and boolean fields keep their own.  `model_var` is
-not part of the dict.
+field name, with the Contact fields under 'contact.<name>' and the
+per-lane model overrides (`Data.model_var`, e.g. reacher's target
+`geom_pos`) under 'model_var.<name>'.  Every array carries the batch on
+its leading axis.  Floating fields take the dtype asked for; integer and
+boolean fields keep their own.
 """
 
 from __future__ import annotations
@@ -41,7 +42,9 @@ def data_from_numpy(fields: Dict[str, np.ndarray], device,
     if f.name in ('contact', 'model_var'):
       continue
     kw[f.name] = _to_tensor(fields[f.name], device, dtype)
-  return Data(contact=contact, model_var={}, **kw)
+  model_var = {k[len('model_var.'):]: _to_tensor(x, device, dtype)
+               for k, x in fields.items() if k.startswith('model_var.')}
+  return Data(contact=contact, model_var=model_var, **kw)
 
 
 def data_to_numpy(d: Data) -> Dict[str, np.ndarray]:
@@ -49,6 +52,8 @@ def data_to_numpy(d: Data) -> Dict[str, np.ndarray]:
   out = {}
   for f in dataclasses.fields(Data):
     if f.name == 'model_var':
+      for k, x in (d.model_var or {}).items():
+        out['model_var.' + k] = x.detach().cpu().numpy()
       continue
     if f.name == 'contact':
       for cf in dataclasses.fields(Contact):

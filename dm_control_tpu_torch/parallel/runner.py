@@ -15,12 +15,15 @@ lanes only.  They go through `forward`, as in the JAX package, which sets
 expensive init (`TaskDef.expensive_init`) resets from a pool instead: the
 initial batch's integration states, of which a done lane takes entry
 `pool_index(episode_id, lane, B)`, the JAX package's lane permutation.
+A lane's per-episode model overrides (`Data.model_var`, e.g. reacher's
+target `geom_pos`) are part of its integration state: the pool and the
+auto-reset carry them per lane with the rest.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -36,8 +39,9 @@ class RunnerState:
   data: Data                 # batched (leading axis B)
   step_count: torch.Tensor   # (B,) i4 control steps this episode
   episode_id: torch.Tensor   # (B,) i4
-  # integration states of the initial batch, for expensive-init tasks
-  reset_pool: Optional[Dict[str, torch.Tensor]] = None
+  # integration states of the initial batch (`forward.state_of`), for
+  # expensive-init tasks
+  reset_pool: Optional[Dict[str, Any]] = None
 
 
 def pool_index(episode_id: torch.Tensor, lanes: torch.Tensor,
@@ -84,7 +88,7 @@ class BatchedEnv:
     data = self.init_states(B)
     pool = None
     if self.task.expensive_init:
-      pool = {f: x.clone() for f, x in _forward.state_of(data).items()}
+      pool = _forward.map_state(torch.clone, _forward.state_of(data))
     return RunnerState(data=data, step_count=zeros,
                        episode_id=zeros.clone(), reset_pool=pool)
 
@@ -111,16 +115,17 @@ class BatchedEnv:
       lanes = done.nonzero().squeeze(1)
       if state.reset_pool is not None:
         idx = pool_index(state.episode_id[lanes], lanes, self.batch_size)
-        fresh = {f: x[idx] for f, x in state.reset_pool.items()}
+        fresh = _forward.map_state(lambda x: x[idx], state.reset_pool)
       else:
         self.reset_calls += 1
         fresh = _forward.state_of(self.init_states(int(lanes.numel())))
-      upd = {}
-      for f, x_new in fresh.items():
-        x = getattr(d, f).clone()
+
+      def put(x, x_new):
+        x = x.clone()
         x[lanes] = x_new
-        upd[f] = x
-      d = d.replace(**upd)
+        return x
+
+      d = d.replace(**_forward.map_state(put, _forward.state_of(d), fresh))
     return (RunnerState(data=d, step_count=torch.where(done, 0, step_count),
                         episode_id=state.episode_id + done.to(torch.int32),
                         reset_pool=state.reset_pool),

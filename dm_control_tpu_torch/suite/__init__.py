@@ -1,13 +1,21 @@
 """Control Suite tasks of the port (reference: dm_control/suite).
 
-Ported so far: walker (stand, walk, run) and finger (spin); the other
-domains and tasks raise.
+Ported so far: walker (stand, walk, run), finger (spin, turn_easy,
+turn_hard), cheetah (run), hopper (stand, hop), pendulum (swingup),
+reacher (easy, hard), cartpole (balance, balance_sparse, swingup,
+swingup_sparse, two_poles, three_poles) and acrobot (swingup,
+swingup_sparse); the other domains raise.
 """
 
 from __future__ import annotations
 
+import importlib
+
 from dm_control_tpu_torch._src.types import resolve_device
 from dm_control_tpu_torch.rl import control
+
+DOMAINS = ('walker', 'finger', 'cheetah', 'hopper', 'pendulum', 'reacher',
+           'cartpole', 'acrobot')
 
 
 def build_task(domain_name: str, task_name: str,
@@ -15,10 +23,7 @@ def build_task(domain_name: str, task_name: str,
   """The functional TaskDef for (domain, task), with its Model on `device`
   (CUDA unless the caller passes device='cpu')."""
   device = str(resolve_device(device))
-  if domain_name == 'walker':
-    from dm_control_tpu_torch.suite import walker
-    return walker.make_task(task_name, device)
-  if domain_name == 'finger':
-    from dm_control_tpu_torch.suite import finger
-    return finger.make_task(task_name, device)
-  raise NotImplementedError(f'domain {domain_name!r} is not ported yet')
+  if domain_name not in DOMAINS:
+    raise NotImplementedError(f'domain {domain_name!r} is not ported yet')
+  module = importlib.import_module(f'dm_control_tpu_torch.suite.{domain_name}')
+  return module.make_task(task_name, device)

@@ -1,6 +1,6 @@
 """Shared task machinery: batched episode randomizers and init helpers.
 
-The port of `dm_control_tpu/suite/base.py` for what walker and finger
+The port of `dm_control_tpu/suite/base.py` for what the ported domains
 use.  Random draws come from an explicit torch.Generator on the data's
 device; they do not reproduce `jax.random` streams (tests feed both
 packages the same states instead).
@@ -72,10 +72,18 @@ def select_collision_free(m: Model, candidates: List[Data]) -> Data:
   first = torch.argmax(ok.to(torch.int32), dim=0)
   idx = torch.where(ok.any(0), first, len(candidates) - 1)
   lanes = torch.arange(idx.shape[0], device=idx.device)
-  states = [_forward.state_of(dk) for dk in candidates]
-  return candidates[0].replace(**{
-      f: torch.stack([st[f] for st in states])[idx, lanes]
-      for f in states[0]})
+  return candidates[0].replace(**_forward.map_state(
+      lambda *xs: torch.stack(xs)[idx, lanes],
+      *[_forward.state_of(dk) for dk in candidates]))
+
+
+def settle(m: Model, d: Data, n_steps: int) -> Data:
+  """Step physics n times with the given (zero) ctrl and reset time (e.g.
+  cheetah's 200-step settling, reference suite/cheetah.py:76-80)."""
+  d = _forward.forward(m, d)  # establish the step1-synced invariant
+  for _ in range(n_steps):
+    d = _forward.step(m, d)
+  return d.replace(time=torch.zeros_like(d.time))
 
 
 def collision_free_init(

@@ -1,0 +1,289 @@
+"""The port's cheetah, hopper, pendulum, reacher, cartpole, acrobot and
+finger-turn against the JAX package's, float64 on the CPU.
+
+For each task numpy draws 8 lanes' joint positions and velocities (where
+the task would start out of contact, positions that touch; reacher's and
+finger-turn's per-lane targets, `model_var`, come from the JAX package's
+episode init), and the port takes the same states through the bridge.
+The same numpy actions then drive the JAX package's `substeps` and the
+port's BatchedEnv for 5 control steps.  qpos, qvel, reward and
+every observation key agree to 1e-6 scaled by max(1, |ref|) at every
+step, the rollout tests' bound: the solves stop at opt.tolerance and their
+differences pass into everything after them.  The RK4 step alone, the
+n <= 1 branch of `substeps` and `settle` are held to the JAX package's
+functions as well.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dm_control_tpu import suite as jsuite
+from dm_control_tpu._src import forward as jforward
+from dm_control_tpu.suite import base as jbase
+from dm_control_tpu_torch import bridge
+from dm_control_tpu_torch import suite
+from dm_control_tpu_torch._src import forward
+from dm_control_tpu_torch.parallel import runner
+from dm_control_tpu_torch.suite import base
+
+BATCH = 8
+STEPS = 5
+TOL = 1e-6
+
+
+def _fields(d):
+  """Flat numpy dict of a batched JAX Data, keyed as the bridge keys it
+  (`model_var` included)."""
+  out = {f.name: np.asarray(getattr(d, f.name))
+         for f in dataclasses.fields(d)
+         if f.name not in ('contact', 'model_var')}
+  out.update({'contact.' + f.name: np.asarray(getattr(d.contact, f.name))
+              for f in dataclasses.fields(d.contact)})
+  out.update({'model_var.' + k: np.asarray(x)
+              for k, x in (d.model_var or {}).items()})
+  return out
+
+
+def _scaled(x, ref):
+  x, ref = np.asarray(x, np.float64), np.asarray(ref, np.float64)
+  return float((np.abs(x - ref) / np.maximum(1.0, np.abs(ref))).max(
+      initial=0.0))
+
+
+def _jax_batch(fn):
+  return jax.jit(jax.vmap(fn))
+
+
+def _states(what, jtask, rng):
+  """The 8 lanes' starting (qpos, qvel, model_var) in numpy: joint
+  positions uniform in range ([-pi, pi] where unlimited), placed where the
+  task would start out of contact, random velocities; reacher's and
+  finger-turn's targets (`model_var`) from the JAX package's own episode
+  init."""
+  jm = jtask.model
+  qpos = np.tile(jm.qpos0, (BATCH, 1))
+  for j in range(jm.njnt):
+    lo, hi = jm.jnt_range[j] if jm.jnt_limited[j] else (-np.pi, np.pi)
+    qpos[:, jm.jnt_qposadr[j]] = rng.uniform(lo, hi, BATCH)
+  qvel = rng.randn(BATCH, jm.nv)
+  adr = lambda name: jm.jnt_qposadr[jm.name2id('joint', name)]
+  half = np.arange(BATCH) < BATCH // 2
+  side = np.where(np.arange(BATCH) % 2, 1.0, -1.0)
+  if what in ('cheetah-run', 'hopper-hop'):
+    # low enough that the feet or legs touch the floor, near upright
+    qpos[:, adr('rootx')] = 0.0
+    qpos[:, adr('rootz')] = rng.uniform(-0.3, -0.05, BATCH)
+    qpos[:, adr('rooty')] = rng.uniform(-0.5, 0.5, BATCH)
+  if what.startswith('cartpole'):
+    # half the carts at the slider's limit, moving into it: its row
+    qpos[half, adr('slider')] = 1.78 * side[half]
+    qvel[half, 0] = 2.0 * side[half]
+  if what.startswith('reacher'):
+    # half the wrists at their limit, moving into it: its row
+    j = int(np.flatnonzero(jm.jnt_limited)[0])
+    qpos[half, jm.jnt_qposadr[j]] = np.where(
+        side[half] > 0, jm.jnt_range[j, 1] - 0.01, jm.jnt_range[j, 0] + 0.01)
+    qvel[half, jm.jnt_dofadr[j]] = 3.0 * side[half]
+  model_var = {}
+  if what.split('-')[0] in ('reacher', 'finger'):
+    d0 = jforward.make_data(jm)
+    init = _jax_batch(lambda k: jtask.init_episode(jm, d0, k))
+    model_var = {k: np.asarray(x) for k, x in init(jax.random.split(
+        jax.random.PRNGKey(3), BATCH)).model_var.items()}
+  return qpos, qvel, model_var
+
+
+CASES = ['cheetah-run', 'hopper-hop', 'pendulum-swingup', 'reacher-easy',
+         'cartpole-swingup', 'cartpole-two_poles', 'acrobot-swingup',
+         'finger-turn_easy']
+
+
+@pytest.mark.parametrize('what', CASES)
+def test_domain_matches_jax(what):
+  """5 control steps of 8 lanes, the JAX package's substeps, reward and
+  observations against the port's BatchedEnv from the same states (their
+  model_var through the bridge): every lane's qpos, qvel, reward and
+  observations within TOL at every step; the lanes' model_var arrives per
+  lane and stays; the task's rows (if it has any) are active on some
+  lane."""
+  domain, task_name = what.split('-')
+  jtask = jsuite.build_task(domain, task_name)
+  task = suite.build_task(domain, task_name, device='cpu')
+  jm, m = jtask.model, task.model
+  rng = np.random.RandomState(7)
+  qpos, qvel, model_var = _states(what, jtask, rng)
+  lo, hi = m.actuator_ctrlrange.T
+  actions = rng.uniform(lo, hi, (STEPS, BATCH, m.nu))
+  n_sub = task.n_sub_steps()
+  d0 = jforward.make_data(jm)
+
+  def jstep(d, u):
+    d = jforward.substeps(jm, d.replace(ctrl=u), n_sub)
+    return d, jtask.get_reward(jm, d), jtask.get_observation(jm, d)
+
+  jstep = _jax_batch(jstep)
+  jd = _jax_batch(lambda q, v, mv: d0.replace(qpos=q, qvel=v, model_var=mv))(
+      jnp.asarray(qpos), jnp.asarray(qvel),
+      {k: jnp.asarray(x) for k, x in model_var.items()})
+  env = runner.BatchedEnv(task, BATCH, dtype=torch.float64)
+  data = bridge.data_from_numpy(_fields(jd), device='cpu',
+                                dtype=torch.float64)
+  assert data.model_var.keys() == model_var.keys()
+  for k, x in data.model_var.items():
+    assert x.shape[0] == BATCH and not torch.equal(x[0], x[1]), k
+  state = runner.RunnerState(
+      data=data, step_count=torch.zeros(BATCH, dtype=torch.int32),
+      episode_id=torch.zeros(BATCH, dtype=torch.int32))
+  errs, rows = {}, np.zeros(BATCH, bool)
+  for t in range(STEPS):
+    jd, jrew, jobs = jstep(jd, jnp.asarray(actions[t]))
+    state, (obs, rew, done, _) = env.step(state, torch.tensor(actions[t]))
+    ref = dict(qpos=jd.qpos, qvel=jd.qvel, reward=jrew,
+               **{'obs.' + k: x for k, x in jobs.items()})
+    out = dict(qpos=state.data.qpos, qvel=state.data.qvel, reward=rew,
+               **{'obs.' + k: x for k, x in obs.items()})
+    assert out.keys() == ref.keys()
+    for k in ref:
+      assert np.shape(out[k]) == np.shape(ref[k]), (k, t)
+      errs[k] = max(errs.get(k, 0.0), _scaled(out[k].numpy(), ref[k]))
+    assert not done.any()
+    rows |= state.data.efc_active.any(dim=1).numpy()
+  for k, x in state.data.model_var.items():
+    np.testing.assert_array_equal(x.numpy(), model_var[k])
+  print(f'{what}: max scaled err over {STEPS} control steps: '
+        + ', '.join(f'{k} {e:.2e}' for k, e in errs.items()))
+  assert all(e <= TOL for e in errs.values()), errs
+  if state.data.efc_active.shape[1]:
+    assert rows.any(), f'{what}: no constraint row was active'
+
+
+@pytest.mark.parametrize('what', ['cartpole-swingup', 'acrobot-swingup'])
+def test_rk4_step_matches_jax(what):
+  """One RK4 step (after the acc stage of a forward-synced state) of
+  numpy-drawn states: qpos and qvel within 1e-9; cartpole's first four
+  lanes start past the slider limit, so its row is active."""
+  domain, task_name = what.split('-')
+  jm = jsuite.build_task(domain, task_name).model
+  m = suite.build_task(domain, task_name, device='cpu').model
+  rng = np.random.RandomState(2)
+  qpos = np.tile(jm.qpos0, (BATCH, 1)) + rng.uniform(-3, 3, (BATCH, jm.nq))
+  qvel = 2 * rng.randn(BATCH, jm.nv)
+  ctrl = rng.uniform(-1, 1, (BATCH, jm.nu))
+  if domain == 'cartpole':
+    qpos[:4, 0], qvel[:4, 0] = 1.81, 3.0
+  d0 = jforward.make_data(jm)
+
+  def one(q, v, u):
+    d = jforward.forward(jm, d0.replace(qpos=q, qvel=v, ctrl=u))
+    d = jforward.rk4(jm, d)
+    return d.qpos, d.qvel
+
+  jq, jv = _jax_batch(one)(*map(jnp.asarray, (qpos, qvel, ctrl)))
+  d = forward.make_data(m, BATCH, torch.float64, 'cpu').replace(
+      qpos=torch.tensor(qpos), qvel=torch.tensor(qvel),
+      ctrl=torch.tensor(ctrl))
+  d = forward.forward(m, d)
+  if domain == 'cartpole':
+    assert bool(d.efc_active[:4].all())
+  d = forward.rk4(m, d)
+  err = max(_scaled(d.qpos.numpy(), jq), _scaled(d.qvel.numpy(), jv))
+  print(f'{what}: one RK4 step, max scaled err {err:.2e}')
+  assert err <= 1e-9
+
+
+def test_substeps_single_step_self_syncs():
+  """`substeps` with n = 1 (reacher's n_sub, and cheetah's) on Data whose
+  derived fields belong to other states (what auto-reset lanes give it):
+  the same bits as on the synced Data, and the JAX package's result
+  within 1e-9 (its per-lane target geom_pos included)."""
+  jtask = jsuite.build_task('reacher', 'easy')
+  jm = jtask.model
+  m = suite.build_task('reacher', 'easy', device='cpu').model
+  assert suite.build_task('reacher', 'easy', device='cpu').n_sub_steps() == 1
+  rng = np.random.RandomState(4)
+  qpos = rng.uniform(-3, 3, (BATCH, jm.nq))
+  qvel = 3 * rng.randn(BATCH, jm.nv)
+  ctrl = rng.uniform(-1, 1, (BATCH, jm.nu))
+  geom_pos = np.tile(jm.geom_pos, (BATCH, 1, 1))
+  geom_pos[:, jm.name2id('geom', 'target'), :2] = rng.uniform(
+      -.2, .2, (BATCH, 2))
+  d0 = jforward.make_data(jm)
+
+  def one(q, v, u, gp):
+    d = d0.replace(qpos=q, qvel=v, ctrl=u, model_var={'geom_pos': gp})
+    d = jforward.substeps(jm, d, 1)
+    return d.qpos, d.qvel
+
+  jq, jv = _jax_batch(one)(*map(jnp.asarray, (qpos, qvel, ctrl, geom_pos)))
+  t = lambda x: torch.tensor(x)
+  mv = {'geom_pos': t(geom_pos)}
+  fresh = forward.make_data(m, BATCH, torch.float64, 'cpu')
+  synced = forward.forward(m, fresh.replace(qpos=t(qpos), qvel=t(qvel),
+                                            model_var=mv))
+  # derived fields of the lanes in reverse order
+  stale = forward.forward(m, fresh.replace(
+      qpos=t(qpos[::-1].copy()), qvel=t(qvel[::-1].copy()),
+      model_var={'geom_pos': t(geom_pos[::-1].copy())}))
+  stale = stale.replace(**forward.state_of(synced))
+  outs = [forward.substeps(m, d.replace(ctrl=t(ctrl)), 1)
+          for d in (synced, stale)]
+  for f in ('qpos', 'qvel', 'qacc', 'xpos', 'efc_force'):
+    assert torch.equal(getattr(outs[0], f), getattr(outs[1], f)), f
+  err = max(_scaled(outs[1].qpos.numpy(), jq),
+            _scaled(outs[1].qvel.numpy(), jv))
+  print(f'substeps(n=1) on stale Data vs JAX: max scaled err {err:.2e}')
+  assert err <= 1e-9
+
+
+def test_settle_matches_jax():
+  """`base.settle` of cheetah over 20 steps from numpy-drawn joint angles
+  against the JAX package's: qpos and qvel within 1e-6, time back at 0."""
+  jm = jsuite.build_task('cheetah', 'run').model
+  m = suite.build_task('cheetah', 'run', device='cpu').model
+  rng = np.random.RandomState(6)
+  qpos = np.tile(jm.qpos0, (4, 1))
+  lim = jm.jnt_limited.astype(bool)
+  qpos[:, jm.jnt_qposadr[lim]] = rng.uniform(*jm.jnt_range[lim].T, (4,
+                                                                   lim.sum()))
+  d0 = jforward.make_data(jm)
+  settle = _jax_batch(lambda q: jbase.settle(jm, d0.replace(qpos=q), 20))
+  jd = settle(jnp.asarray(qpos))
+  d = base.settle(m, forward.make_data(m, 4, torch.float64, 'cpu').replace(
+      qpos=torch.tensor(qpos)), 20)
+  err = max(_scaled(d.qpos.numpy(), jd.qpos), _scaled(d.qvel.numpy(),
+                                                       jd.qvel))
+  print(f'settle(20) vs JAX: max scaled err {err:.2e}')
+  assert err <= TOL
+  assert bool((d.time == 0).all()) and bool(d.efc_active.any())
+
+
+TASKS = [('cheetah', 'run'), ('hopper', 'stand'), ('hopper', 'hop'),
+         ('pendulum', 'swingup'), ('reacher', 'easy'), ('reacher', 'hard'),
+         ('cartpole', 'balance'), ('cartpole', 'balance_sparse'),
+         ('cartpole', 'swingup'), ('cartpole', 'swingup_sparse'),
+         ('cartpole', 'two_poles'), ('cartpole', 'three_poles'),
+         ('acrobot', 'swingup'), ('acrobot', 'swingup_sparse'),
+         ('finger', 'turn_easy'), ('finger', 'turn_hard')]
+
+
+@pytest.mark.parametrize('domain,task_name', TASKS)
+def test_every_task_builds_and_steps(domain, task_name):
+  """Each task of the slice builds on the CPU when asked, resets 2 lanes
+  and takes 2 control steps with finite states and rewards in [0, 1];
+  without a CUDA device and without device='cpu', build_task raises."""
+  task = suite.build_task(domain, task_name, device='cpu')
+  env = runner.BatchedEnv(task, 2, dtype=torch.float64)
+  gen = torch.Generator()
+  gen.manual_seed(0)
+  state, rewards = env.rollout_fn(2)(env.reset(seed=0), gen)
+  for f, x in forward.state_items(forward.state_of(state.data)):
+    assert x.dtype == torch.bool or bool(torch.isfinite(x).all()), f
+  assert bool(((rewards >= 0) & (rewards <= 1)).all())
+  if not torch.cuda.is_available():
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+      suite.build_task(domain, task_name)

@@ -228,7 +228,9 @@ def trajectories(models, contact_states):
   data = bridge.data_from_numpy(_fields(jstate.data), device='cpu',
                                 dtype=torch.float64)
   pool = {f: torch.tensor(np.asarray(jstate.reset_pool[f]))
-          for f in forward.state_of(data)}
+          for f in forward.state_of(data) if f != 'model_var'}
+  pool['model_var'] = {k: torch.tensor(np.asarray(x)) for k, x in
+                       jstate.reset_pool['model_var'].items()}
   state = runner.RunnerState(
       data=data, step_count=torch.zeros(BATCH, dtype=torch.int32),
       episode_id=torch.zeros(BATCH, dtype=torch.int32), reset_pool=pool)

@@ -2,26 +2,34 @@
 
 The gate (chip_smoke.py phase reference) holds one control step of the
 card's float32 path against the float64 CPU path lane by lane: every run
-records the discrete choices of every substep (`chip_smoke.branches`:
+records the discrete choices of every acc stage (`chip_smoke.branches`:
 contact activity, crossed cores and normals, limit activity, the solve's
-warmstart choice, the zones of its rows and cones at the solution).  A
-lane within REF_TOL = 1e-2 (the max scaled error of qpos and qvel) is
-held; one over it is excused where its first differing choice stood
-within BAND x EPS32 x scale of its threshold in the reference run, and
-fails otherwise; the excused count is held to a second float32 run's.
+warmstart choice, the zones of its rows and cones at the solution) and,
+at float32, where each Newton solve stopped (`solve stop`: its cost over
+the float64 optimum's of the same inputs).  A lane within REF_TOL = 1e-2
+(the max scaled error of qpos and qvel) is held; one over it is excused
+where its first differing choice stood within BAND x EPS32 x scale of its
+threshold in the reference run, or, with every choice matched, where
+every solve stopped within BAND x EPS32 x scale of the optimum's cost and
+its error is within STOP_TOL; it fails otherwise; the excused count is
+held to a second float32 run's.
 
 Here the same rule holds the port's float32 step on the CPU (K1's plain
 versions, the batched torch solve) and the JAX package's float32 step
 (XLA core on the CPU) against the port's float64 step, on 16 lanes of
-walker-walk and of finger-spin drawn with numpy, all three recording
-their choices through the same `branches`, and the port's counts to the
-JAX package's.  The port's float32 step is also held to the JAX
-package's directly: by the gate's rule where their choices differ, and
-where they are the same by the median lane and within K2's largest error
-for two float32 Newton solves.  And the gate's own functions are held to
-their rule on records made by hand: a matched lane is held at 9e-3 and
-not at 2e-2; a lane whose contact flipped is excused with dist - margin
-inside the band and fails outside it.
+walker-walk, finger-spin, cheetah-run and hopper-hop drawn with numpy,
+all three recording their choices through the same `branches`, and the
+port's counts to the JAX package's.  The port's float32 step is also
+held to the JAX package's directly: by the gate's rule where their
+choices differ, and where they are the same by the median lane and
+within K2's largest error for two float32 Newton solves.  And the gate's
+own functions are held to their rule on records made by hand: a matched
+lane is held at 9e-3 and not at 2e-2; a lane whose contact flipped is
+excused with dist - margin inside the band and fails outside it; a
+matched lane whose solves stopped inside the band is excused up to
+STOP_TOL and fails past it or outside the band; and on a real recorded
+stage whose solution is pushed off the optimum, the solve stop leaves
+the band and the lane fails.
 """
 
 import dataclasses
@@ -64,6 +72,18 @@ def _walker_states(jm, rng, n):
   return qpos, rng.randn(n, jm.nv), rng.uniform(-1, 1, (n, jm.nu))
 
 
+def _planar_states(jm, rng, n):
+  """n cheetahs or hoppers low enough that their feet or legs touch the
+  floor, near upright."""
+  qpos = _draw_qpos(jm, n, rng)
+  adr = lambda name: jm.jnt_qposadr[jm.name2id('joint', name)]
+  qpos[:, adr('rootx')] = 0.0
+  low = (-0.3, -0.05) if jm.nv == 9 else (-0.6, -0.25)   # cheetah, hopper
+  qpos[:, adr('rootz')] = rng.uniform(*low, n)
+  qpos[:, adr('rooty')] = rng.uniform(-0.5, 0.5, n)
+  return qpos, rng.randn(n, jm.nv), rng.uniform(-1, 1, (n, jm.nu))
+
+
 def _finger_states(jm, rng, n):
   """n fingers in contact (kept from 16 n draws where the JAX package's
   has_contacts is true), sliding."""
@@ -76,16 +96,18 @@ def _finger_states(jm, rng, n):
           rng.uniform(-1, 1, (n, jm.nu)))
 
 
-def _jax_step(jm, n_sub, qpos, qvel, ctrl):
+def _jax_step(jm, n_sub, qpos, qvel, ctrl, warm=None):
   """The JAX package's control step at float32, in its substeps' stage
   order (step1, then per substep the acc stage, Euler, the divergence
-  check and step1), with each acc stage's incoming warmstart and outgoing
-  Data."""
+  check and step1), from qacc_warmstart `warm` (default 0), with each acc
+  stage's incoming warmstart and outgoing Data."""
   d0 = jforward.make_data(jm, jnp.float32)
+  if warm is None:
+    warm = np.zeros_like(qvel)
 
-  def one(q, v, u):
-    d = jforward.step1(jm, d0.replace(qpos=q, qvel=v, ctrl=u),
-                       skipsensor=True)
+  def one(q, v, u, w):
+    d = jforward.step1(jm, d0.replace(qpos=q, qvel=v, ctrl=u,
+                                      qacc_warmstart=w), skipsensor=True)
 
     def sub(d, _):
       warm = d.qacc_warmstart
@@ -99,7 +121,7 @@ def _jax_step(jm, n_sub, qpos, qvel, ctrl):
     return d.qpos, d.qvel, recs
 
   f32 = lambda x: jnp.asarray(x, jnp.float32)
-  return jax.jit(jax.vmap(one))(f32(qpos), f32(qvel), f32(ctrl))
+  return jax.jit(jax.vmap(one))(f32(qpos), f32(qvel), f32(ctrl), f32(warm))
 
 
 def _jax_branches(pm, warm, after, n_sub):
@@ -148,8 +170,9 @@ def _lane_err(out, ref):
 
 
 def run_steps(what, n):
-  """One control step of n lanes of task `what` ('walker-walk' or
-  'finger-spin') drawn with numpy (seed 5): the port's at float32 and at
+  """One control step of n lanes of task `what` ('walker-walk',
+  'finger-spin', 'cheetah-run' or 'hopper-hop') drawn with numpy (seed 5):
+  the port's at float32 and at
   float64 and the JAX package's at float32, each with its choices
   ({run: {'qpos', 'qvel', 'branches'}}); with the port's CPU model, its
   float64 Data of the drawn states and the controls."""
@@ -158,7 +181,8 @@ def run_steps(what, n):
   task = suite.build_task(domain, task_name, device='cpu')
   jm, pm = jtask.model, task.model
   rng = np.random.RandomState(5)
-  draw = _walker_states if domain == 'walker' else _finger_states
+  draw = {'walker': _walker_states, 'finger': _finger_states}.get(
+      domain, _planar_states)
   qpos, qvel, ctrl = draw(jm, rng, n)
   n_sub = task.n_sub_steps()
   d = forward.make_data(pm, n, torch.float64, 'cpu').replace(
@@ -175,7 +199,8 @@ def run_steps(what, n):
   return runs, pm, d, torch.tensor(ctrl)
 
 
-@pytest.fixture(scope='module', params=['walker-walk', 'finger-spin'])
+@pytest.fixture(scope='module', params=['walker-walk', 'finger-spin',
+                                        'cheetah-run', 'hopper-hop'])
 def steps(request):
   """`run_steps` of BATCH lanes of each task."""
   return request.param, run_steps(request.param, BATCH)[0]
@@ -196,7 +221,8 @@ def test_port_float32_step_matches_jax_under_the_gate_rule(steps):
   for name in ('float32', 'jax float32'):
     err = _lane_err(runs[name], ref)
     first = cs.first_differences(runs[name]['branches'], ref['branches'])
-    gated[name] = cs.lane_verdicts(err, first, cs.BAND)
+    gated[name] = cs.lane_verdicts(err, first, cs.BAND,
+                                   cs.stop_distances(runs[name]['branches']))
     print(f'{what}, {BATCH} lanes, {name} vs the port\'s float64: max '
           f'scaled err {err.max().item():.2e}; first differences '
           f'{[f for f in first if f is not None]}; verdicts '
@@ -219,7 +245,7 @@ def test_port_float32_step_matches_jax_under_the_gate_rule(steps):
   touching = first_sub['contact'][0].any(dim=1)
   assert touching.float().mean() >= 0.5, 'too few lanes in contact'
   assert set(first_sub) >= {'contact', 'contact normal', 'limit',
-                            'warmstart', 'row zone'}
+                            'warmstart', 'row zone', 'solve stop'}
 
 
 def _records(contact_port, contact_ref, value_ref):
@@ -270,3 +296,73 @@ def test_gate_excuses_a_contact_flip_only_inside_the_band(distance, verdict):
   assert cs.gate_failures(['excused'] * 2, ['held'] * 2) == [
       '2 lanes excused, the plain run 0']
   assert cs.gate_failures(['excused'] * 3, ['excused'] + ['held'] * 2) == []
+
+
+@pytest.mark.parametrize('distance,err,verdict', [
+    (0.5, 2e-2, 'excused'), (0.5, 6e-2, 'failed'), (2.0, 2e-2, 'failed')])
+def test_gate_rule_for_a_matched_lane_by_its_solve_stop(distance, err,
+                                                        verdict):
+  """Two substeps with every choice matched; lane 0's second solve
+  stopped `distance` bands above its optimum's cost, lane 1's at it.  Lane
+  0 at `err`: excused inside the band up to STOP_TOL, failed past it or
+  outside the band.  A run that recorded no solve stop (a task without
+  rows) excuses no matched lane."""
+  band = cs.BAND * cs.EPS32
+  state = torch.tensor([[True, False]] * 2)
+  value = torch.tensor([[-1e-3, 1e-3]] * 2, dtype=torch.float64)
+  stop = lambda v: (None, torch.tensor([[v], [0.0]], dtype=torch.float64),
+                    torch.ones(2, 1, dtype=torch.float64))
+  rec = [{'contact': (state, value, torch.ones_like(value)),
+          'solve stop': stop(0.1 * band)},
+         {'contact': (state, value, torch.ones_like(value)),
+          'solve stop': stop(distance * band)}]
+  ref = [{'contact': r['contact']} for r in rec]
+  first = cs.first_differences(rec, ref)
+  assert first == [None, None]
+  stops = cs.stop_distances(rec)
+  assert stops.tolist() == pytest.approx([distance * cs.BAND, 0.0])
+  verdicts = cs.lane_verdicts(torch.tensor([err, 9e-3]), first, cs.BAND,
+                              stops)
+  assert verdicts == [verdict, 'held']
+  assert 'solve stopped at' in cs.lane_reason(first[0], stops[0])
+  assert cs.stop_distances(ref).isinf().all()
+  assert cs.lane_verdicts(torch.tensor([err, 9e-3]), first, cs.BAND,
+                          cs.stop_distances(ref))[0] == 'failed'
+
+
+def test_solve_stop_off_the_optimum_fails_the_lane():
+  """The first acc stage of the port's float32 walker step (16 lanes in
+  contact): every solve stopped within the band of its float64 optimum,
+  so a matched lane at 2e-2 is excused.  With the stage's solution pushed
+  off the optimum by 1e-2 of the lane's largest |qacc|, the lanes with
+  active rows stop outside the band, and such a lane fails."""
+  task = suite.build_task('walker', 'walk', device='cpu')
+  pm = task.model
+  qpos, qvel, ctrl = _walker_states(pm, np.random.RandomState(5), BATCH)
+  d = forward.make_data(pm, BATCH, torch.float64, 'cpu').replace(
+      qpos=torch.tensor(qpos), qvel=torch.tensor(qvel))
+  caught = []
+  with cs.recording(lambda before, after: caught.append(after)):
+    cs.one_step(pm, d, slice(0, BATCH), torch.tensor(ctrl), 1,
+                torch.float32, 'cpu')
+  after = caught[0]
+  lay = efc.layout(pm)
+  x = after.qacc
+  pushed = after.replace(
+      qacc=x + 1e-2 * x.abs().amax(dim=1, keepdim=True).clamp(min=1.0))
+  stops = {}
+  for name, dd in (('solved', after), ('pushed', pushed)):
+    stops[name] = cs.stop_distances([{'solve stop':
+                                      cs.solve_stop(pm, lay, dd)}])
+    print(f'walker first stage, {name}: solve stop (x EPS32 x scale) '
+          f'{stops[name].tolist()}')
+  rows = after.efc_active.any(dim=1)
+  assert rows.float().mean() >= 0.5
+  assert (stops['solved'] <= cs.BAND).all()
+  assert (stops['pushed'][rows] > cs.BAND).all()
+  first = [None] * BATCH
+  err = torch.full((BATCH,), 2e-2)
+  assert set(cs.lane_verdicts(err, first, cs.BAND, stops['solved'])) == {
+      'excused'}
+  verdicts = cs.lane_verdicts(err, first, cs.BAND, stops['pushed'])
+  assert all(v == 'failed' for v, r in zip(verdicts, rows.tolist()) if r)

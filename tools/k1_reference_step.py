@@ -2,6 +2,7 @@
 versions, and what flips on the lanes that miss the gate's tolerance.
 
     python3 tools/k1_reference_step.py [--sizes 9,27,56] [--lanes 1024]
+        [--tasks walker-walk,finger-spin,cheetah-run,...]
 
 Run on a machine with one CUDA device, from the root of a checkout.  It
 replays `chip_smoke.py`'s draws up to its reference phase: from one
@@ -11,25 +12,40 @@ walker-walk@4096 rollout, the finger-spin solver inputs in contact, then
 the reference steps' controls of chip_smoke.py's REF_LANES lanes of each
 task, drawn as it draws them (`chip_smoke.reference_controls`: the first
 64 from that generator, the rest from the reference generator, seeded 2),
-and those of the lanes past them from a third generator (seeded 3).  On the states so made it runs one control step of
-the walker lanes and of the finger lanes on the card at float32
+and those of the lanes past them from a third generator (seeded 3).  The
+slice's tasks (`chip_smoke.SLICE_TASKS`: cheetah-run, hopper-hop,
+pendulum-swingup, reacher-easy, cartpole-swingup, acrobot-swingup,
+finger-turn_easy) start, as in chip_smoke.py's phase slice, from the
+final states of its last rollout run of each (`chip_smoke.slice_run`),
+with its reference controls first (`chip_smoke.slice_controls`) and those
+of the lanes past them from the third generator.  On the states so made
+it runs one control step of each task's lanes on the card at float32
 (`chip_smoke.one_step`) twice: through the K1 kernels (route `kernels`),
 and with K1's wrappers sent to their plain versions on the card (route
 `plain`); and once on the CPU at float64.  Each run records the discrete
 choices of every substep (`chip_smoke.branches`: contact and limit
 activity, the solve's warmstart choice, the zones of its rows and cones
-at the solution).
+at the solution, and, at float32, where each Newton solve stopped:
+`solve stop`).
 
 For each route and task it prints the per-lane max scaled error of qpos
 and qvel against float64 (largest, mean, lanes above 1e-3 and REF_TOL),
 the lanes whose choices all matched and their largest error, and for
-every lane over REF_TOL the first choice that differs: substep, quantity,
-element, and how far the float64 run's deciding value stood from its
-threshold in units of EPS32 * scale, with the lane's error scaled by its
-own largest |value| beside it.  It then counts the first
+every lane over REF_TOL its verdict and what decided it
+(`chip_smoke.lane_reason`): the first choice that differs (acc stage,
+quantity, element, and how far the float64 run's deciding value stood
+from its threshold in units of EPS32 * scale) or, where every choice
+matched, the largest distance its solves stopped at from the float64
+optimum's cost, with the lane's error scaled by its own largest |value|
+beside it; and the quantiles of every lane's solve-stop distance.  It then counts the first
 differences of all lanes by quantity with their distances' quantiles,
 the gate's verdicts (`chip_smoke.lane_verdicts`), and what
 the gate (`chip_smoke.gate_failures`) would fail on these lanes.
+
+With `--dump` it also writes, for each task, the float32 integration
+states (`forward.state_items`) and controls of the lanes over REF_TOL on
+the kernels' route to chiprun_out/reference_lanes_TASK.npz, for
+`tools/reference_step_cpu.py --states` to replay on the CPU.
 
 Prints the card's name and power limit first.
 """
@@ -41,6 +57,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -48,6 +65,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke as cs  # noqa: E402
 from dm_control_tpu_torch import suite  # noqa: E402
 from dm_control_tpu_torch._src import efc  # noqa: E402
+from dm_control_tpu_torch._src import forward  # noqa: E402
 from dm_control_tpu_torch.ops import linalg_kernel as lk  # noqa: E402
 from dm_control_tpu_torch.parallel import BatchedEnv  # noqa: E402
 
@@ -58,8 +76,12 @@ def main():
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   parser.add_argument('--sizes', default='9,27,56')
   parser.add_argument('--lanes', type=int, default=1024)
+  parser.add_argument('--tasks', default=','.join(
+      ('walker-walk', 'finger-spin') + cs.SLICE_TASKS))
+  parser.add_argument('--dump', action='store_true')
   args = parser.parse_args()
   sizes = [int(s) for s in args.sizes.split(',')]
+  wanted = args.tasks.split(',')
   B = args.lanes
   if B < cs.REF_LANES:
     sys.exit(f'--lanes must be at least chip_smoke.py\'s {cs.REF_LANES}')
@@ -69,29 +91,41 @@ def main():
       ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
       capture_output=True, text=True, check=True).stdout.strip())
   dev = torch.device('cuda')
-  gen = torch.Generator(device=dev)
-  gen.manual_seed(0)
-  ref_gen = torch.Generator(device=dev)
-  ref_gen.manual_seed(cs.REF_SEED)
-  for n in sizes:
-    torch.randn((BATCH, n, n), generator=gen, device=dev)
-    torch.randn((BATCH, n), generator=gen, device=dev)
-  task = suite.build_task('walker', 'walk')
-  env = BatchedEnv(task, BATCH)
-  state, _ = env.rollout_fn(40)(env.reset(), gen)
-  f_task = suite.build_task('finger', 'spin')
-  _, f_d = cs.finger_solver_inputs(f_task.model, efc.layout(f_task.model),
-                                   BATCH, gen, dev)
-  tasks = (('walker-walk', task, state.data, env.n_sub_steps),
-           ('finger-spin', f_task, f_d, f_task.n_sub_steps()))
-  # chip_smoke.py's lanes first, drawn as it draws them; the lanes past
-  # them from a generator of their own
-  ctrls = [cs.reference_controls(gen, ref_gen, t.model.nu, cs.REF_LANES, dev)
-           for _, t, _, _ in tasks]
+  tasks = []
+  if {'walker-walk', 'finger-spin'} & set(wanted):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    ref_gen = torch.Generator(device=dev)
+    ref_gen.manual_seed(cs.REF_SEED)
+    for n in sizes:
+      torch.randn((BATCH, n, n), generator=gen, device=dev)
+      torch.randn((BATCH, n), generator=gen, device=dev)
+    task = suite.build_task('walker', 'walk')
+    env = BatchedEnv(task, BATCH)
+    state, _ = env.rollout_fn(40)(env.reset(), gen)
+    f_task = suite.build_task('finger', 'spin')
+    _, f_d = cs.finger_solver_inputs(f_task.model, efc.layout(f_task.model),
+                                     BATCH, gen, dev)
+    # chip_smoke.py's lanes first, drawn as it draws them
+    for name, t, data in (('walker-walk', task, state.data),
+                          ('finger-spin', f_task, f_d)):
+      ctrl = cs.reference_controls(gen, ref_gen, t.model.nu, cs.REF_LANES,
+                                   dev)
+      if name in wanted:
+        tasks.append((name, t, data, t.n_sub_steps(), ctrl))
+  for i_task, name in enumerate(cs.SLICE_TASKS):
+    if name in wanted:
+      t = suite.build_task(*name.split('-'))
+      state, _, _, _ = cs.slice_run(BatchedEnv(t, BATCH), i_task,
+                                    cs.SLICE_RUNS - 1, dev)
+      tasks.append((name, t, state.data, t.n_sub_steps(),
+                    cs.slice_controls(i_task, t.model.nu, cs.REF_LANES,
+                                      dev)))
+  # the lanes past chip_smoke.py's from a generator of their own
   extra_gen = torch.Generator(device=dev)
   extra_gen.manual_seed(cs.REF_SEED + 1)
   steps = []
-  for (name, t, data, n_sub), ctrl in zip(tasks, ctrls):
+  for name, t, data, n_sub, ctrl in tasks:
     extra = torch.rand((B - cs.REF_LANES, t.model.nu), generator=extra_gen,
                        device=dev) * 2 - 1
     cpu = suite.build_task(*name.split('-'), device='cpu').model
@@ -100,6 +134,7 @@ def main():
   lanes = slice(0, B)
   print(f'# draws before the rollout: n = {sizes}; lanes {B}; band '
         f'{cs.BAND:g} x EPS32 x scale')
+
   for name, m, m_cpu, data, n_sub, ctrl in steps:
     t0 = time.perf_counter()
     ref = cs.one_step(m_cpu, data, lanes, ctrl, n_sub, torch.float64, 'cpu',
@@ -111,11 +146,28 @@ def main():
       with cs.plain_k1(lk) if route == 'plain' else contextlib.nullcontext():
         out = cs.one_step(m, data, lanes, ctrl, n_sub, torch.float32, dev,
                           record=True)
-      gated[route] = report(f'{name}, K1 {route}', out, ref,
-                            sum(lk.LAUNCHES.values()))
+      gated[route], err = report(f'{name}, K1 {route}', out, ref,
+                                 sum(lk.LAUNCHES.values()))
+      if route == 'kernels':
+        over = torch.nonzero(err > cs.REF_TOL).flatten()
     failures = cs.gate_failures(gated['kernels'], gated['plain'])
     print(f'{name}: the gate on these {B} lanes: '
           f'{"; ".join(failures) or "passes"}', flush=True)
+    if args.dump and len(over):
+      dump(name, data, ctrl, over.to(dev))
+
+
+def dump(name, data, ctrl, idx):
+  """Write lanes `idx` of `data` (their state) and `ctrl` for
+  tools/reference_step_cpu.py --states."""
+  out = {f: x[idx].cpu().numpy()
+         for f, x in forward.state_items(forward.state_of(data))}
+  out['ctrl'] = ctrl[idx].cpu().numpy()
+  out['lane'] = idx.cpu().numpy()
+  os.makedirs('chiprun_out', exist_ok=True)
+  np.savez(f'chiprun_out/reference_lanes_{name}.npz', **out)
+  print(f'# {name}: lanes {out["lane"].tolist()} written to '
+        f'chiprun_out/reference_lanes_{name}.npz', flush=True)
 
 
 def report(what, out, ref, launches):
@@ -130,7 +182,9 @@ def report(what, out, ref, launches):
           f'{int((err > cs.REF_TOL).sum())}; K1 launches {launches}',
           flush=True)
   err = torch.maximum(errs['qpos'], errs['qvel'])
-  first = cs.first_differences(out['branches'], ref['branches'])
+  first = cs.first_differences(out['branches'], ref['branches'],
+                               err.shape[0])
+  stops = cs.stop_distances(out['branches'])
   matched = torch.tensor([f is None for f in first])
   print(f'{what}: lanes whose choices all matched {int(matched.sum())} of '
         f'{len(first)}, their largest error '
@@ -138,13 +192,17 @@ def report(what, out, ref, launches):
   lane_err = torch.maximum(*(
       cs.lane_scaled_err(out[f].cpu().double(), ref[f]).amax(dim=1)
       for f in ('qpos', 'qvel')))
+  verdicts = cs.lane_verdicts(err, first, cs.BAND, stops)
   for lane in torch.nonzero(err > cs.REF_TOL).flatten().tolist():
-    f = first[lane]
-    where = ('every choice matched' if f is None else
-             f'first difference at substep {f[0]}: {f[1]} element {f[2]}, '
-             f'float64 value {f[3]:.3g} x EPS32 x scale from its threshold')
     print(f'{what}: lane {lane} error {err[lane].item():.2e} (lane-scaled '
-          f'{lane_err[lane].item():.2e}): {where}')
+          f'{lane_err[lane].item():.2e}) {verdicts[lane]}: '
+          f'{cs.lane_reason(first[lane], stops[lane])}')
+  if stops.isfinite().any():
+    qs = torch.quantile(stops, torch.tensor([0.5, 0.9, 0.99, 1.0],
+                                            dtype=torch.float64)).tolist()
+    print(f'{what}: solve stop of every lane (x EPS32 x scale, largest over '
+          f'its acc stages): median {qs[0]:.3g} p90 {qs[1]:.3g} p99 '
+          f'{qs[2]:.3g} max {qs[3]:.3g}')
   by_q = {}
   for f in first:
     if f is not None:
@@ -156,12 +214,11 @@ def report(what, out, ref, launches):
     print(f'{what}: first differences in {q}: {len(dists)} lanes; distance '
           f'(x EPS32 x scale) min {qs[0]:.3g} median {qs[1]:.3g} p90 '
           f'{qs[2]:.3g} max {qs[3]:.3g}')
-  verdicts = cs.lane_verdicts(err, first, cs.BAND)
   print(f'{what}: verdicts: '
         + ', '.join(f'{v} {verdicts.count(v)}'
                     for v in ('held', 'excused', 'failed')),
         flush=True)
-  return verdicts
+  return verdicts, err
 
 
 if __name__ == '__main__':

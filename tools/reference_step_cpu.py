@@ -1,17 +1,21 @@
 """The port's float32 control step against the JAX package's, on the CPU,
 over more lanes than tests/test_torch_reference_step.py holds.
 
-    python3 tools/reference_step_cpu.py [--lanes 1024] [--tasks walker-walk,finger-spin]
+    python3 tools/reference_step_cpu.py [--lanes 1024]
+        [--tasks walker-walk,finger-spin,cheetah-run,hopper-hop]
 
 Run from the root of a checkout (CPU only; JAX with float64 enabled, as the
 test suite runs it).  For each task it draws `--lanes` states as the test
 draws its 16 (`run_steps`: numpy, seed 5; at 16 lanes they are the test's)
 and runs one control step through the port at float32 and at
 float64 and through the JAX package at float32 (XLA core), each recording
-its discrete choices (`chip_smoke.branches`).  It prints, for each float32
-run against the port's float64, the reference gate's verdicts
-(`chip_smoke.lane_verdicts`) and the lanes over REF_TOL whose choices all
-matched; then the port against the JAX package on the lanes where the two
+its discrete choices and, at float32, where each Newton solve stopped
+(`chip_smoke.branches`; the test's tasks, all Euler).  It prints, for
+each float32 run against the port's float64, the reference gate's
+verdicts (`chip_smoke.lane_verdicts`, with `chip_smoke.stop_distances`),
+every lane over REF_TOL with its verdict and what decided it
+(`chip_smoke.lane_reason`), and the quantiles of every lane's solve-stop
+distance; then the port against the JAX package on the lanes where the two
 made the same choices (quantiles, lanes above 1e-3 and REF_TOL, largest).
 
 Then, for every lane over REF_TOL with matched choices in the port's run,
@@ -23,6 +27,15 @@ optimum of those inputs).  It prints each float32 solve's distance from
 that optimum and from the other (scaled by max(1, |optimum|)), their
 iteration counts, and the cost at the optimum with its float32 spacing:
 a float32 solve stops where a step's cost change is below that spacing.
+
+With `--states FILE` (lanes written on the card by
+`tools/k1_reference_step.py --dump`; one task in `--tasks`) it replays
+instead one control step of those lanes from their card states (their
+qacc_warmstart included) through the port at float32 and at float64 and
+through the JAX package at float32, and prints for each lane and run its
+error against the port's float64, the gate's verdict with what decided
+it, and at every acc stage the largest lane-scaled difference of its
+qacc from float64's.
 """
 
 import argparse
@@ -49,6 +62,7 @@ from dm_control_tpu._src import efc as jefc  # noqa: E402
 from dm_control_tpu._src import solver as jsolver  # noqa: E402
 from dm_control_tpu_torch import suite  # noqa: E402
 from dm_control_tpu_torch._src import efc  # noqa: E402
+from dm_control_tpu_torch._src import forward  # noqa: E402
 from dm_control_tpu_torch._src import solver  # noqa: E402
 from dm_control_tpu_torch.ops import newton_kernel as nk  # noqa: E402
 
@@ -124,11 +138,71 @@ def stalls(what, pm, d, ctrl, n_sub, lanes):
           f'{cs.EPS32 * abs(c64[i].item()):.3g}', flush=True)
 
 
+def stage_qaccs(pm, d, ctrl, n_sub, dtype):
+  """qacc of every acc stage of the port's control step of d's lanes."""
+  seen = []
+  with cs.recording(lambda before, after: seen.append(after.qacc.double())):
+    cs.one_step(pm, d, slice(0, ctrl.shape[0]), ctrl, n_sub, dtype, 'cpu')
+  return seen
+
+
+def replay(what, path):
+  """One control step of the lanes in `path` (module docstring)."""
+  domain, task_name = what.split('-')
+  task = suite.build_task(domain, task_name, device='cpu')
+  pm, n_sub = task.model, task.n_sub_steps()
+  jm = jsuite.build_task(domain, task_name).model
+  z = np.load(path)
+  ctrl = torch.tensor(z['ctrl'], dtype=torch.float64)
+  n = ctrl.shape[0]
+  st = {k: torch.tensor(z[k]) for k in z.files if k not in ('ctrl', 'lane')}
+  cast = lambda x: x.double() if x.is_floating_point() else x
+  d = forward.make_data(pm, n, torch.float64, 'cpu').replace(
+      model_var={k.split('.', 1)[1]: cast(x) for k, x in st.items()
+                 if k.startswith('model_var.')},
+      **{k: cast(x) for k, x in st.items() if '.' not in k})
+  runs = {str(dt).split('.')[1]: cs.one_step(
+      pm, d, slice(0, n), ctrl, n_sub, dt, 'cpu', record=True)
+      for dt in (torch.float32, torch.float64)}
+  qaccs = {str(dt).split('.')[1]: stage_qaccs(pm, d, ctrl, n_sub, dt)
+           for dt in (torch.float32, torch.float64)}
+  jq, jv, (warm, after) = ref_step._jax_step(
+      jm, n_sub, z['qpos'], z['qvel'], z['ctrl'], warm=z['qacc_warmstart'])
+  runs['jax float32'] = {
+      'qpos': torch.tensor(np.asarray(jq, np.float64)),
+      'qvel': torch.tensor(np.asarray(jv, np.float64)),
+      'branches': ref_step._jax_branches(pm, warm, after, n_sub)}
+  qaccs['jax float32'] = [torch.tensor(np.asarray(after.qacc, np.float64)[:, s])
+                          for s in range(n_sub)]
+  ref = runs['float64']
+  for name in ('float32', 'jax float32'):
+    err = ref_step._lane_err(runs[name], ref)
+    first = cs.first_differences(runs[name]['branches'], ref['branches'], n)
+    stops = cs.stop_distances(runs[name]['branches'])
+    verdicts = cs.lane_verdicts(err, first, cs.BAND, stops)
+    for i in range(n):
+      off = [cs.lane_scaled_err(q[i:i + 1], r[i:i + 1]).max().item()
+             for q, r in zip(qaccs[name], qaccs['float64'])]
+      stop = [cs.stop_distances([b])[i].item()
+              for b in runs[name]['branches']]
+      print(f'{what}: lane {z["lane"][i]}, '
+            f'{name} vs the port\'s float64: error {err[i].item():.3g} '
+            f'{verdicts[i]}: {cs.lane_reason(first[i], stops[i])}; by acc '
+            f'stage, qacc off float64\'s (lane-scaled) '
+            + ', '.join(f'{x:.3g}' for x in off) + '; solve stop (x EPS32 x '
+            'scale) ' + ', '.join(f'{x:.3g}' for x in stop), flush=True)
+
+
 def main():
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   parser.add_argument('--lanes', type=int, default=1024)
-  parser.add_argument('--tasks', default='walker-walk,finger-spin')
+  parser.add_argument('--tasks',
+                      default='walker-walk,finger-spin,cheetah-run,hopper-hop')
+  parser.add_argument('--states', default='')
   args = parser.parse_args()
+  if args.states:
+    replay(args.tasks, args.states)
+    return
   for what in args.tasks.split(','):
     runs, pm, d, ctrl = ref_step.run_steps(what, args.lanes)
     ref = runs['float64']
@@ -136,7 +210,8 @@ def main():
     for name in ('float32', 'jax float32'):
       err = ref_step._lane_err(runs[name], ref)
       first = cs.first_differences(runs[name]['branches'], ref['branches'])
-      verdicts = cs.lane_verdicts(err, first, cs.BAND)
+      stops = cs.stop_distances(runs[name]['branches'])
+      verdicts = cs.lane_verdicts(err, first, cs.BAND, stops)
       misses = [i for i, (e, f) in enumerate(zip(err.tolist(), first))
                 if e > cs.REF_TOL and f is None]
       if name == 'float32':
@@ -146,7 +221,11 @@ def main():
             + ', '.join(f'{v} {verdicts.count(v)}'
                         for v in ('held', 'excused', 'failed'))
             + f'; over {cs.REF_TOL:g} with every choice matched: '
-            f'{[(i, round(err[i].item(), 5)) for i in misses]}', flush=True)
+            f'{[(i, round(err[i].item(), 5)) for i in misses]}; solve stop '
+            f'(x EPS32 x scale) {quantiles(stops)}', flush=True)
+      for i in torch.nonzero(err > cs.REF_TOL).flatten().tolist():
+        print(f'  {name}: lane {i} error {err[i].item():.3g} {verdicts[i]}: '
+              f'{cs.lane_reason(first[i], stops[i])}', flush=True)
     port, jax32 = runs['float32'], runs['jax float32']
     same = torch.tensor([f is None for f in cs.first_differences(
         port['branches'], jax32['branches'])])

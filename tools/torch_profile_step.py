@@ -2,7 +2,7 @@
 
 Run on a machine with one CUDA device, from the root of a checkout:
 
-    python3 tools/torch_profile_step.py [--task walker-walk|finger-spin]
+    python3 tools/torch_profile_step.py [--task walker-walk|finger-spin|cheetah-run|...]
 
 Builds the task (walker-walk by default) at batch 4096 (bench.py's batch)
 on the card, warms it up, then runs the same window of 3 control steps
@@ -40,7 +40,10 @@ from dm_control_tpu_torch.parallel import BatchedEnv  # noqa: E402
 
 BATCH = 4096
 STEPS = 3
-TASKS = {'walker-walk': ('walker', 'walk'), 'finger-spin': ('finger', 'spin')}
+TASKS = {what: tuple(what.split('-')) for what in (
+    'walker-walk', 'finger-spin', 'cheetah-run', 'hopper-hop',
+    'pendulum-swingup', 'reacher-easy', 'cartpole-swingup',
+    'acrobot-swingup', 'finger-turn_easy')}
 
 
 def main():
