@@ -14,8 +14,9 @@ any failure exits non-zero and no phase catches its own failure:
   2. kernels: holds each kernel against its plain PyTorch version on the
      card at float32: K1a/b/c (batched Cholesky factor, fused solve,
      substitution) at finger's (4096, 3, 3), walker's (4096, 9, 9), at
-     n = 27, 56, 96 (MAX_N) and at the slice's n = 1 (pendulum), 2
-     (reacher, cartpole, acrobot) and 7 (hopper), bound 1e-4 scaled by
+     n = 27, 56, 96 (MAX_N) and at the slices' n = 1 (pendulum), 2
+     (reacher, cartpole, acrobot, point_mass), 7 (hopper), 4
+     (ball_in_cup), 8 (swimmer6) and 13 (fish), bound 1e-4 scaled by
      max(1, |ref|); for each
      also the launch configuration (lanes per environment), the first
      4093 lanes alone and a second launch giving the full batch's bits,
@@ -35,14 +36,18 @@ any failure exits non-zero and no phase catches its own failure:
      both, the launch configuration (one warp per environment), and the
      first 4093 lanes alone (no multiple of the warps per block) and a
      second launch must give the full batch's bits; K2 likewise on
-     cheetah's first impacts (nefc 222, nv 9) and on carts at cartpole's
-     slider limit (nefc 1, nv 2);
+     cheetah's first impacts (nefc 222, nv 9), on carts at cartpole's
+     slider limit (nefc 1, nv 2), on point masses at a wall (nefc 2, nv
+     2), on ball_in_cup's balls in the cup, on the floor or at the end of
+     the string (nefc 65, nv 4) and on swimmers at a joint limit (nefc 5,
+     nv 8);
   3. reference: one control step of REF_LANES = 256 walker-walk lanes,
      and of 256 finger-spin lanes in contact, on the card at float32
      against the port's float64 CPU path (plain versions) from the same
      state, every run recording its discrete choices at every acc stage
      (contact activity and normals, limit activity, the solve's warmstart
-     choice and its rows' and cones' zones): each lane within REF_TOL =
+     choice and its rows' and cones' zones, and tendon limits where the
+     model has them): each lane within REF_TOL =
      1e-2 (max scaled error of qpos and qvel) is held; one over it is
      excused where its first differing choice stood within BAND * EPS32 *
      scale of its threshold in the float64 run, or, with every choice
@@ -69,25 +74,32 @@ any failure exits non-zero and no phase catches its own failure:
      add `kernel_ms` (CUDA events around 50 back-to-back launches of the
      ctypes entry on pre-made buffers, no wrapper work between them),
      `device_ms` and `kernels_per_call` (the CUDA kernels of one wrapper
-     call and their device time, torch.profiler; each must launch exactly
-     one), and the launch configuration; then walker's K1 time per
+     call and their device time, from one torch.profiler session over
+     every such call; each must launch exactly one), and the launch
+     configuration; then walker's K1 time per
      control step, 11 K1a + 10 K1b + 10 K1c.  K1 rows also carry the
-     slice's n = 1, 2 and 7 on pendulum's, reacher's and hopper's initial
-     states (`pendulum`, `reacher`, `hopper`), and the K2 row cheetah's
-     and cartpole's first impacts (`cheetah`, `cartpole`), each with the
+     slices' n = 1, 2, 7, 4, 8 and 13 on pendulum's, reacher's, hopper's,
+     ball_in_cup's, swimmer6's and fish's initial states (`pendulum`,
+     `reacher`, `hopper`, `ball_in_cup`, `swimmer`, `fish`), and the K2
+     row the first impacts or limits of cheetah, cartpole, point_mass,
+     ball_in_cup and swimmer6 (keyed by domain, with K2's device time
+     under torch.profiler, one CUDA kernel per call), each with the
      launches of its task's run in phase 6;
   6. slice (after phase 5, whose profiler sessions lost every event when
-     they ran after it): BatchedEnv(task, 4096) of each of cheetah-run,
-     hopper-hop, pendulum-swingup, reacher-easy, cartpole-swingup,
-     acrobot-swingup (both RK4) and finger-turn_easy, SLICE_RUNS runs of
-     reset and 50
+     they ran after it): BatchedEnv(task, 4096) of each of SLICE_TASKS
+     (cheetah-run, hopper-hop, pendulum-swingup, reacher-easy,
+     cartpole-swingup, acrobot-swingup (both RK4), finger-turn_easy,
+     point_mass-easy, ball_in_cup-catch, swimmer-swimmer6 and fish-swim),
+     SLICE_RUNS runs of reset and 50
      control steps: states (model_var included) finite, rewards in [0, 1],
      every kernel's launch count exactly `expected_launches` per control
      step; then phase 3's gate on 256 lanes of each task's final states;
-     then reacher-easy, finger-turn_easy and cheetah-run with an episode
-     limit that ends every lane's episode: reacher's lanes hold the target
-     geom_pos their fresh init drew, finger-turn's and cheetah's their
-     reset pool entry (finger-turn's target site_pos included).
+     then reacher-easy, finger-turn_easy, cheetah-run, ball_in_cup-catch,
+     swimmer-swimmer6 and fish-swim with an episode limit that ends every
+     lane's episode: reacher's, swimmer's and fish's lanes hold the target
+     geom_pos their fresh init drew, finger-turn's, cheetah's and
+     ball_in_cup's their reset pool entry (finger-turn's target site_pos
+     included).
 
 Output: the card's name and power limit (nvidia-smi), env-steps/s of
 walker-walk@4096, finger-spin@4096 and each slice task@4096 (each the
@@ -112,24 +124,24 @@ CONTROL_STEPS = 50
 # outside the tensor cores
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
-# launches of one forward() (an auto-reset of done lanes of walker or
-# reacher: K1a in step1, K1c and K2 in the acc stage)
-PER_RESET = {'cholesky_batched': 1, 'cho_solve_batched': 1,
-             'chol_solve_batched': 0, 'newton_solve_batched': 1,
-             'newton_solve_ell': 0}
 FINGER_RUNS = 3
 WALKER_RUNS = 3
-# the tasks of the sixth slice, each driven through one BatchedEnv of BATCH
-# lanes (phase slice) and gated against the float64 CPU path (phase
-# reference, on the rollout's final states)
+# the tasks of the sixth and seventh slices, each driven through one
+# BatchedEnv of BATCH lanes (phase slice) and gated against the float64 CPU
+# path (phase reference, on the rollout's final states); a task's seeds
+# follow from its index, so new tasks are appended
 SLICE_TASKS = ('cheetah-run', 'hopper-hop', 'pendulum-swingup',
                'reacher-easy', 'cartpole-swingup', 'acrobot-swingup',
-               'finger-turn_easy')
+               'finger-turn_easy', 'point_mass-easy', 'ball_in_cup-catch',
+               'swimmer-swimmer6', 'fish-swim')
 SLICE_RUNS = 3
 # seeds of the slice's own generators (kernel draws, K2 inputs, the
 # reference controls of each task), so that every earlier phase keeps its
 # draws
 SLICE_SEED = 10
+# the seed of the seventh slice's kernel-phase generator (its K1 sizes and
+# K2 inputs), so that the draws of every earlier generator stay as they were
+SLICE7_SEED = 20
 REPLACES = {
     'cholesky_batched': 'dm_control_tpu/ops/linalg_kernel.py:118',
     'chol_solve_batched': 'dm_control_tpu/ops/linalg_kernel.py:142',
@@ -177,6 +189,19 @@ def expected_launches(task):
           'newton_solve_ell': solves if ell else 0}
 
 
+def reset_launches(task):
+  """Each kernel's launches in one `forward.forward` of `task` (an
+  auto-reset of done lanes by a fresh init: K1a in step1, K1c and K2, or
+  K2-ell, in the acc stage where the model has constraint rows)."""
+  from dm_control_tpu_torch._src import efc
+  lay = efc.layout(task.model)
+  ell = bool(lay.ell_groups)
+  return {'cholesky_batched': 1, 'cho_solve_batched': 1,
+          'chol_solve_batched': 0,
+          'newton_solve_batched': int(bool(lay.nefc) and not ell),
+          'newton_solve_ell': int(bool(lay.nefc) and ell)}
+
+
 def scaled_err(x, ref):
   return (x - ref).abs() / ref.abs().clamp(min=1.0)
 
@@ -205,21 +230,40 @@ def cuda_ms(fn, reps):
   return start.elapsed_time(end) / reps
 
 
-def device_kernels(fn, reps):
-  """(CUDA kernels per call, their device ms per call) of fn() over reps
-  calls under torch.profiler."""
+def device_kernels(jobs):
+  """{key: (CUDA kernels per call, their device ms per call)} of `jobs`,
+  {key: (fn, reps)}, in one torch.profiler session: each fn() called once
+  unprofiled, then reps times in the session, the stream synchronised after
+  each job.  The session's CUDA kernels, in the order they started, are
+  split job by job at one kernel per call; each job's must share one name.
+  Fails where the session holds another count than one kernel per call.
+  (One session for the whole timing phase: on this card a session that
+  followed many others has recorded no kernel at all.)"""
   import torch
   from torch.profiler import ProfilerActivity, profile
-  fn()
+  for fn, _ in jobs.values():
+    fn()
   torch.cuda.synchronize()
   with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-    for _ in range(reps):
-      fn()
-    torch.cuda.synchronize()
-  kernels = [e for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
-  return (len(kernels) / reps,
-          sum(e.device_time for e in kernels) / reps / 1e3)
+    for fn, reps in jobs.values():
+      for _ in range(reps):
+        fn()
+      torch.cuda.synchronize()
+  kernels = sorted((e for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA),
+                   key=lambda e: e.time_range.start)
+  calls = sum(reps for _, reps in jobs.values())
+  assert len(kernels) == calls, (
+      f'{len(kernels)} CUDA kernels for {calls} wrapper calls: not one each')
+  out, start = {}, 0
+  for key, (_, reps) in jobs.items():
+    mine = kernels[start:start + reps]
+    start += reps
+    names = {e.name for e in mine}
+    assert len(names) == 1, f'{key}: one call launched {names}'
+    out[key] = (len(mine) / reps,
+                sum(e.device_time for e in mine) / reps / 1e3)
+  return out
 
 
 def bound_ms(nbytes, flops):
@@ -423,7 +467,8 @@ REF_SEED = 2                # the reference generator's seed
 # pipeline order: collision, limits, then the solve's warmstart choice and
 # the zones of its rows and cones at the solution
 QUANTITIES = ('contact', 'contact core', 'contact normal', 'limit',
-              'warmstart', 'row zone', 'cone top', 'cone bottom')
+              'tendon limit', 'warmstart', 'row zone', 'cone top',
+              'cone bottom')
 # two runs' normals of one contact differ where they are further apart
 NORMAL_ANGLE = 0.1
 # the separation below which math.normalize clamps (its eps): a pair whose
@@ -501,6 +546,8 @@ def branches(m, lay, before, after):
                of the cores, same scale
     limit      dist - margin < 0 per joint limit; scale max(1, |dist| +
                |range|)
+    tendon limit  dist - margin < 0 per tendon limit (a string going
+               taut), the nearer side's; scale max(1, |dist| + |range|)
     warmstart  cost(warm) - cost(qacc_smooth) < 0 (the solve's start);
                scale the costs' first-order rounding: their quadratic
                terms, and each row's |force| times its jar's scale
@@ -536,14 +583,19 @@ def branches(m, lay, before, after):
     normal = torch.where((v < 0)[..., None], con.frame[..., 0, :],
                          float('nan'))
     out['contact normal'] = (normal, sep, scale)
-  lo = len(lay.fric_dof)
-  hi = lo + len(lay.lim_jnt)
-  if hi > lo:
-    pos = d.efc_pos[:, lo:hi]
-    v = pos - d.efc_margin[:, lo:hi]
-    rng = torch.as_tensor(np.abs(m.jnt_range[lay.lim_jnt]).max(-1),
-                          dtype=v.dtype, device=v.device)
-    out['limit'] = (v < 0, v, (pos.abs() + rng).clamp(min=1.0))
+  # the limit rows follow the friction-loss rows: joints, balls, tendons
+  lo_jnt = len(lay.fric_dof) + len(lay.fric_ten)
+  lo_ten = lo_jnt + len(lay.lim_jnt) + len(lay.lim_ball)
+  for q, lo, ids, ranges in (
+      ('limit', lo_jnt, lay.lim_jnt, m.jnt_range),
+      ('tendon limit', lo_ten, lay.lim_ten, m.tendon_range)):
+    hi = lo + len(ids)
+    if hi > lo:
+      pos = d.efc_pos[:, lo:hi]
+      v = pos - d.efc_margin[:, lo:hi]
+      rng = torch.as_tensor(np.abs(ranges[ids]).max(-1), dtype=v.dtype,
+                            device=v.device)
+      out[q] = (v < 0, v, (pos.abs() + rng).clamp(min=1.0))
   if lay.nefc == 0:
     return out
   J, aref, D, fl = d.efc_J, d.efc_aref, d.efc_D, d.efc_frictionloss
@@ -636,12 +688,13 @@ def first_differences(test, ref, lanes=None):
   return first
 
 
-def stop_distances(test):
+def stop_distances(test, lanes=None):
   """Each lane's largest `solve stop` over the acc stages of run `test`
-  (its list of `branches`), in EPS32 x scale; inf where a stage recorded
-  none (no solve, or a float64 run)."""
+  (its list of `branches`, of `lanes` lanes, by default read off the
+  records), in EPS32 x scale; inf where a stage recorded none (no solve,
+  or a float64 run)."""
   import torch
-  B = next((v[1].shape[0] for b in test for v in b.values()), 0)
+  B = lanes or next((v[1].shape[0] for b in test for v in b.values()), 0)
   worst = torch.zeros(B, dtype=torch.float64)
   for b in test:
     if 'solve stop' not in b:
@@ -757,7 +810,7 @@ def reference_gate(what, m, m_cpu, data, ctrl, n_sub, lk):
     err = torch.maximum(errs['qpos'], errs['qvel'])
     first = first_differences(out['branches'], ref['branches'],
                               ctrl.shape[0])
-    stops = stop_distances(out['branches'])
+    stops = stop_distances(out['branches'], ctrl.shape[0])
     verdicts = lane_verdicts(err, first, BAND, stops)
     gated[route] = verdicts
     counts[route] = {v: verdicts.count(v)
@@ -837,11 +890,15 @@ def slice_controls(i_task, nu, lanes, dev):
 
 
 def impact_states(what, m, B, gen, dev):
-  """B states of `what` (cheetah-run or cartpole-swingup) at their first
-  impacts, float32 on dev, drawn from `gen`: cheetahs low enough that
-  their feet or legs touch the floor, near upright, with random joint
-  velocities; carts at the slider's limit (within 2 cm either side of it)
-  moving into it, poles at any angle.  Controls uniform."""
+  """B states of `what` at their first impacts (or limits), float32 on
+  dev, drawn from `gen`: cheetahs low enough that their feet or legs touch
+  the floor, near upright, with random joint velocities; carts at the
+  slider's limit (within 2 cm either side of it) moving into it, poles at
+  any angle; point masses at a wall (within 1 cm either side) moving into
+  it; ball_in_cup's balls by turns in the cup, below it with the string
+  about taut, and on the floor under a lowered cup; swimmers with their
+  first joint at its limit (within 0.01 either side) moving into it, the
+  rest of the chain anywhere in range, slow.  Controls uniform."""
   import math as pymath
   import torch
   from dm_control_tpu_torch._src import forward
@@ -858,12 +915,37 @@ def impact_states(what, m, B, gen, dev):
     qpos[:, adr('rootz')] = u(-0.3, -0.05)
     qpos[:, adr('rooty')] = u(-0.5, 0.5)
     qvel = torch.randn((B, m.nv), **kw)
-  else:
+  elif what == 'cartpole-swingup':
     side = torch.where(torch.rand(B, **kw) < 0.5, -1.0, 1.0)
     qpos[:, adr('slider')] = side * u(1.78, 1.82)
     qpos[:, adr('hinge_1')] = u(-pymath.pi, pymath.pi)
     qvel = torch.randn((B, m.nv), **kw)
     qvel[:, 0] = side * u(0.0, 3.0)
+  elif what == 'point_mass-easy':
+    side = torch.where(torch.rand(B, **kw) < 0.5, -1.0, 1.0)
+    qpos[:, adr('root_x')] = side * u(0.28, 0.30)
+    qpos[:, adr('root_y')] = u(-0.29, 0.29)
+    qvel = 0.5 * torch.randn((B, m.nv), **kw)
+    qvel[:, 0] = side * u(0.0, 1.0)
+  elif what == 'ball_in_cup-catch':
+    kind = torch.arange(B, device=dev) % 3
+    cup_x, cup_z = u(-0.05, 0.05), u(-0.05, 0.05)
+    cup_z = torch.where(kind == 2, -0.45, cup_z)
+    qpos[:, adr('cup_x')], qpos[:, adr('cup_z')] = cup_x, cup_z
+    qpos[:, adr('ball_x')] = cup_x + u(-0.03, 0.03)
+    qpos[:, adr('ball_z')] = torch.where(
+        kind == 0, cup_z + 0.2675,
+        torch.where(kind == 1, u(-0.015, 0.0), -0.176))
+    qvel = 0.3 * torch.randn((B, m.nv), **kw)
+  else:
+    for j in range(m.njnt):
+      lo, hi = m.jnt_range[j] if m.jnt_limited[j] else (-pymath.pi, pymath.pi)
+      qpos[:, int(m.jnt_qposadr[j])] = u(float(lo), float(hi))
+    side = torch.where(torch.rand(B, **kw) < 0.5, -1.0, 1.0)
+    limit = float(m.jnt_range[m.name2id('joint', 'joint_0'), 1])
+    qpos[:, adr('joint_0')] = side * (limit + u(-0.01, 0.01))
+    qvel = 0.3 * torch.randn((B, m.nv), **kw)
+    qvel[:, int(m.jnt_dofadr[m.name2id('joint', 'joint_0')])] = side
   ctrl = u(-1.0, 1.0, B, m.nu)
   return d.replace(qpos=qpos, qvel=qvel, ctrl=ctrl)
 
@@ -994,9 +1076,14 @@ def main() -> int:
   # acrobot's 2, hopper's 7) from the slice's generator
   s_gen = torch.Generator(device=dev)
   s_gen.manual_seed(SLICE_SEED)
+  # the seventh slice's sizes (ball_in_cup's n = 4, swimmer6's 8, fish's
+  # 13) and K2 inputs from a generator of their own
+  s7_gen = torch.Generator(device=dev)
+  s7_gen.manual_seed(SLICE7_SEED)
   k1_err = {}
   for n, g in ((9, gen), (27, gen), (56, gen), (3, k1_gen),
-               (lk.MAX_N, k1_gen), (1, s_gen), (2, s_gen), (7, s_gen)):
+               (lk.MAX_N, k1_gen), (1, s_gen), (2, s_gen), (7, s_gen),
+               (4, s7_gen), (8, s7_gen), (13, s7_gen)):
     A = spd(n, g)
     b = torch.randn((BATCH, n), generator=g, device=dev)
     L_ref = lk.cholesky_plain(A)
@@ -1026,6 +1113,7 @@ def main() -> int:
   k2_args, k2_kw, iters, k2_err, d = k2_task_check(nk, 'walker-walk', m,
                                                    lay, state.data)
   per_step = expected_launches(task)
+  per_reset = reset_launches(task)
 
   # K2-ell on finger-spin inputs rich in contacts, same bounds (ell_gates).
   f_task = suite.build_task('finger', 'spin')      # CUDA by default
@@ -1109,16 +1197,19 @@ def main() -> int:
   ell_gates('K2-ell one iteration, one line-search step, alpha off 1,',
             *(x[off] for x in one[1]))
 
-  # K2 at the slice's new layouts: cheetah's (6 limits, 54 pyramidal
-  # contacts) and cartpole's (one slider-limit row) first impacts
+  # K2 at the slices' new layouts: cheetah's (6 limits, 54 pyramidal
+  # contacts) and cartpole's (one slider-limit row) first impacts; then
+  # point_mass's (2 wall limits), ball_in_cup's (the string's limit row
+  # and 16 pyramidal contacts) and swimmer6's (5 joint limits, very soft)
   slice_tasks = {what: suite.build_task(*what.split('-'))
                  for what in SLICE_TASKS}
   k2_slice = {}
-  for what in ('cheetah-run', 'cartpole-swingup'):
+  for what, g in (('cheetah-run', s_gen), ('cartpole-swingup', s_gen),
+                  ('point_mass-easy', s7_gen), ('ball_in_cup-catch', s7_gen),
+                  ('swimmer-swimmer6', s7_gen)):
     tm = slice_tasks[what].model
     k2_slice[what] = k2_task_check(
-        nk, what, tm, efc.layout(tm),
-        impact_states(what, tm, BATCH, s_gen, dev))
+        nk, what, tm, efc.layout(tm), impact_states(what, tm, BATCH, g, dev))
 
   # -- 3. against the float64 CPU path -----------------------------------------
   # REF_LANES lanes of walker's state after the 40-step rollout, and of the
@@ -1160,7 +1251,7 @@ def main() -> int:
     assert tuple(rewards.shape) == (CONTROL_STEPS, BATCH)
     assert bool(((rewards >= 0) & (rewards <= 1)).all()), 'reward outside [0,1]'
     for k, n in launches.items():
-      want = per_step[k] * CONTROL_STEPS + PER_RESET[k] * resets
+      want = per_step[k] * CONTROL_STEPS + per_reset[k] * resets
       assert n == want, f'{k}: {n} launches, expected {want}'
   log(f'# walker-walk@{BATCH} env-steps/s: '
       f'{sorted(w_sps)[len(w_sps) // 2]:.1f} (median of {WALKER_RUNS} runs: '
@@ -1232,9 +1323,14 @@ def main() -> int:
   stream = torch.cuda.current_stream().cuda_stream
   rows = []
 
-  def k1_rows(A, b, counts):
-    """K1a/b/c timings on one task's (B, n, n) qM and (B, n) vector; the
-    `kernel_ms` entries run the ctypes entries on pre-made buffers."""
+  # wrapper calls whose CUDA kernels and device time one torch.profiler
+  # session measures (`device_kernels`), and the rows that take them
+  profiled, profiled_rows = {}, {}
+
+  def k1_rows(tag, A, b, counts):
+    """K1a/b/c timings on task `tag`'s (B, n, n) qM and (B, n) vector; the
+    `kernel_ms` entries run the ctypes entries on pre-made buffers.  Their
+    device time is measured later, with every other profiled call."""
     B, n, _ = A.shape
     cfg = lk.launch_config(n)
     L = lk.cholesky_batched(A)
@@ -1264,43 +1360,33 @@ def main() -> int:
     out = {}
     for k, (fn, plain, library, entry, nbytes, flops) in calls.items():
       build.check(entry(), k)
-      kernels, device_ms = device_kernels(fn, 20)
-      assert kernels == 1, f'{k} n={n}: {kernels} CUDA kernels per call'
       b_ms, b_by = bound_ms(nbytes, flops)
       out[k] = dict(
           launches=counts[k], max_abs_err=k1_err[k, n], ms=cuda_ms(fn, 50),
           plain_ms=cuda_ms(plain, 5), bound_ms=b_ms, bound_by=b_by,
           library_ms=cuda_ms(library, 50), kernel_ms=cuda_ms(entry, 50),
-          device_ms=device_ms, kernels_per_call=kernels, shape=[B, n, n],
-          envs=cfg[0], threads=cfg[1], smem_bytes=cfg[2])
-      log(f'# phase timing: {k} n={n}: {out[k]}')
+          shape=[B, n, n], envs=cfg[0], threads=cfg[1], smem_bytes=cfg[2])
+      key = f'{k} n={n} ({tag})'
+      profiled[key] = (fn, 20)
+      profiled_rows[key] = out[k]
     return out
 
-  walker_k1 = k1_rows(d.qM.contiguous(), d.qfrc_smooth.contiguous(),
-                      launches)
-  finger_k1 = k1_rows(f_d.qM.contiguous(), f_d.qfrc_smooth.contiguous(),
-                      f_launches)
-  # the slice's K1 sizes on its tasks' initial states: pendulum's n = 1,
-  # reacher's 2 and hopper's 7 (their launches, those of the task's run in
-  # phase slice, are filled in after it: this phase runs first, while
-  # torch.profiler still sees every kernel of a session)
+  walker_k1 = k1_rows('walker-walk', d.qM.contiguous(),
+                      d.qfrc_smooth.contiguous(), launches)
+  finger_k1 = k1_rows('finger-spin', f_d.qM.contiguous(),
+                      f_d.qfrc_smooth.contiguous(), f_launches)
+  # the slices' K1 sizes on their tasks' initial states: pendulum's n = 1,
+  # reacher's 2, hopper's 7, ball_in_cup's 4, swimmer6's 8 and fish's 13
+  # (their launches, those of the task's run in phase slice, are filled in
+  # after it: this phase runs first, while torch.profiler still sees every
+  # kernel of a session)
   slice_k1 = {}
-  for what in ('pendulum-swingup', 'reacher-easy', 'hopper-hop'):
+  for what in ('pendulum-swingup', 'reacher-easy', 'hopper-hop',
+               'ball_in_cup-catch', 'swimmer-swimmer6', 'fish-swim'):
     s_d = BatchedEnv(slice_tasks[what], BATCH).reset(seed=0).data
-    slice_k1[what] = k1_rows(s_d.qM.contiguous(),
+    slice_k1[what] = k1_rows(what, s_d.qM.contiguous(),
                              s_d.qfrc_smooth.contiguous(),
                              dict.fromkeys(per_step))
-  for k in ('cholesky_batched', 'chol_solve_batched', 'cho_solve_batched'):
-    rows.append(dict(name=k, route='cuda', source=SOURCES[k],
-                     replaces=REPLACES[k], **walker_k1[k],
-                     finger=finger_k1[k],
-                     **{t.split('-')[0]: r[k] for t, r in slice_k1.items()}))
-  k1_step = {what: sum(per_step[k] * walker_k1[k][what]
-                       for k in walker_k1)
-             for what in ('ms', 'kernel_ms', 'device_ms')}
-  log(f'# phase timing: walker K1 per control step (11 K1a + 10 K1b + 10 '
-      f'K1c): wrapper {k1_step["ms"]:.6g} ms, ctypes launches '
-      f'{k1_step["kernel_ms"]:.6g} ms, device {k1_step["device_ms"]:.6g} ms')
 
   def row(k, fn, plain, library, nbytes, flops, err, reps=50, plain_reps=5,
           **extra):
@@ -1316,8 +1402,9 @@ def main() -> int:
         f'({b_by}), plain {rows[-1]["plain_ms"]:.6g} ms, library '
         f'{rows[-1]["library_ms"]} ms; {extra or ""}')
 
-  # K2 at the slice's layouts (cheetah's and cartpole's first impacts),
-  # with the launches of that task's rollout run
+  # K2 at the slices' layouts (the first impacts or limits of cheetah,
+  # cartpole, point_mass, ball_in_cup and swimmer6), with the launches of
+  # that task's rollout run
   k2_sub = {}
   for what, (s_args, s_kw, s_iters, s_err, _) in k2_slice.items():
     s_m = slice_tasks[what].model
@@ -1325,16 +1412,33 @@ def main() -> int:
     b_ms, b_by = bound_ms(
         k2_bytes(BATCH, s_lay.nefc, s_m.nv),
         newton_flops(s_lay.nefc, s_m.nv, solver.LS_ITERATIONS, s_iters))
+    solve = (lambda s_args=s_args, s_lay=s_lay, s_kw=s_kw:
+             nk.newton_solve_batched(*s_args, lay=s_lay, **s_kw))
     k2_sub[what.split('-')[0]] = dict(
-        launches=None, max_abs_err=s_err,
-        ms=cuda_ms(lambda: nk.newton_solve_batched(*s_args, lay=s_lay,
-                                                   **s_kw), 10),
+        launches=None, max_abs_err=s_err, ms=cuda_ms(solve, 10),
         plain_ms=cuda_ms(lambda: nk.newton_solve_plain(
             *s_args, types=s_lay.types, **s_kw), 2),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         max_iters=int(s_iters.max()), shape=[BATCH, s_lay.nefc, s_m.nv])
-    log(f'# phase timing: newton_solve_batched on {what}: '
-        f'{k2_sub[what.split("-")[0]]}')
+    key = f'newton_solve_batched on {what}'
+    profiled[key] = (solve, 5)
+    profiled_rows[key] = k2_sub[what.split('-')[0]]
+
+  # every profiled call's CUDA kernels (one per call) and device time
+  for key, (kernels, device_ms) in device_kernels(profiled).items():
+    profiled_rows[key].update(device_ms=device_ms, kernels_per_call=kernels)
+    log(f'# phase timing: {key}: {profiled_rows[key]}')
+  for k in ('cholesky_batched', 'chol_solve_batched', 'cho_solve_batched'):
+    rows.append(dict(name=k, route='cuda', source=SOURCES[k],
+                     replaces=REPLACES[k], **walker_k1[k],
+                     finger=finger_k1[k],
+                     **{t.split('-')[0]: r[k] for t, r in slice_k1.items()}))
+  k1_step = {what: sum(per_step[k] * walker_k1[k][what]
+                       for k in walker_k1)
+             for what in ('ms', 'kernel_ms', 'device_ms')}
+  log(f'# phase timing: walker K1 per control step (11 K1a + 10 K1b + 10 '
+      f'K1c): wrapper {k1_step["ms"]:.6g} ms, ctypes launches '
+      f'{k1_step["kernel_ms"]:.6g} ms, device {k1_step["device_ms"]:.6g} ms')
 
   nv, nefc = m.nv, lay.nefc
   row('newton_solve_batched',
@@ -1354,7 +1458,7 @@ def main() -> int:
                    cones=cones.to(ell_iters.device)), ell_err,
       reps=10, plain_reps=2, max_iters=int(ell_iters.max()))
 
-  # -- 6. the slice: seven more tasks, reference gates, resets ---------------
+  # -- 6. the slices: eleven more tasks, reference gates, resets -------------
   # Each task: SLICE_RUNS runs of reset and CONTROL_STEPS control steps of
   # BATCH lanes, states finite, rewards in [0, 1], every kernel launched
   # exactly `expected_launches` times per control step (no episode ends);
@@ -1400,13 +1504,14 @@ def main() -> int:
                    s_task.n_sub_steps(), lk)
     log(f'# phase reference: {what} {time.perf_counter() - t0:.1f} s')
 
-  # Episode limits that end every lane's episode: reacher's fresh lanes
-  # hold the target geom_pos that init_states drew for them (the same
-  # generator state drawn again); finger-turn's and cheetah's lanes hold
-  # their reset pool entry, its model_var (finger-turn's target site_pos)
-  # included, and init_states is not called.
+  # Episode limits that end every lane's episode: reacher's, swimmer's and
+  # fish's fresh lanes hold the target geom_pos that init_states drew for
+  # them (the same generator state drawn again); finger-turn's, cheetah's
+  # and ball_in_cup's lanes hold their reset pool entry, its model_var
+  # (finger-turn's target site_pos) included, and init_states is not called.
   for what, limit_steps in (('reacher-easy', 2), ('finger-turn_easy', 3),
-                            ('cheetah-run', 2)):
+                            ('cheetah-run', 2), ('ball_in_cup-catch', 2),
+                            ('swimmer-swimmer6', 2), ('fish-swim', 2)):
     s_task = slice_tasks[what]
     r_env = BatchedEnv(s_task, BATCH, time_limit=limit_steps * (
         s_task.model.opt.timestep * s_task.n_sub_steps()))
@@ -1442,7 +1547,8 @@ def main() -> int:
                            dict(forward.state_items(fresh))[f]), (
             f'{what}: {f} is not its fresh draw')
       ref_mv = fresh['model_var']
-      want = {k: v + PER_RESET[k] for k, v in want.items()}
+      want = {k: v + n for (k, v), n in zip(
+          want.items(), reset_launches(s_task).values())}
     for k, n in got.items():
       assert n == want[k], f'{what} reset step {k}: {n} launches, want {want[k]}'
     for k, v in st['model_var'].items():

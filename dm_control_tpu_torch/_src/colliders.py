@@ -1,8 +1,9 @@
 """Vectorized narrowphase colliders (torch).
 
-The port of the parts of `dm_control_tpu/_src/colliders.py` the walker
-and finger paths reach: contact-parameter mixing, the contact frame, the
-plane-capsule, plane-cylinder, capsule-capsule, capsule-cylinder and
+The port of the parts of `dm_control_tpu/_src/colliders.py` the ported
+tasks reach: contact-parameter mixing, the contact frame, the
+plane-sphere, plane-capsule, plane-cylinder, sphere-capsule (with
+sphere-sphere as its helper), capsule-capsule, capsule-cylinder and
 cylinder-cylinder colliders (with sphere-cylinder as their helper) and the
 `collide_all` dispatch.  A collider returns either one normal or a whole
 frame per contact; `collide_all` builds the frame from a normal.  Every
@@ -61,6 +62,37 @@ def make_frame(normal: torch.Tensor) -> torch.Tensor:
   t2 = math.normalize(math.cross(n, seed))
   t1 = math.cross(t2, n)
   return torch.stack([n, t1, t2], dim=-2)
+
+
+def _plane_sphere(p_pos, p_mat, p_size, s_pos, s_mat, s_size):
+  """One contact at the sphere's point nearest the plane."""
+  n = p_mat[..., :, 2]
+  h = (n * (s_pos - p_pos)).sum(-1)
+  r = s_size[..., 0]
+  dist = h - r
+  pos = s_pos - n * (r + dist / 2)[..., None]
+  return dist[..., None], pos[..., None, :], n[..., None, :]
+
+
+def _sphere_sphere(pos1, mat1, size1, pos2, mat2, size2):
+  """One contact on the line between the centers."""
+  r1, r2 = size1[..., 0], size2[..., 0]
+  vec = pos2 - pos1
+  n = math.normalize(vec)
+  dist = math.norm_safe(vec) - r1 - r2
+  pos = pos1 + n * (r1 + dist / 2)[..., None]
+  return dist[..., None], pos[..., None, :], n[..., None, :]
+
+
+def _sphere_capsule(s_pos, s_mat, s_size, c_pos, c_mat, c_size):
+  """Sphere vs the sphere of the capsule's radius at the axis point
+  nearest the sphere's center."""
+  axis = c_mat[..., :, 2]
+  hl = c_size[..., 1:2]
+  closest = math.closest_segment_point(c_pos - hl * axis, c_pos + hl * axis,
+                                       s_pos)
+  return _sphere_sphere(s_pos, s_mat, s_size, closest, c_mat,
+                        c_size.expand(s_size.shape))
 
 
 def _plane_capsule(p_pos, p_mat, p_size, c_pos, c_mat, c_size):
@@ -254,8 +286,10 @@ def _cylinder_cylinder(pos1, mat1, size1, pos2, mat2, size2):
 
 
 _COLLIDERS = {
+    (GeomType.PLANE, GeomType.SPHERE): _plane_sphere,
     (GeomType.PLANE, GeomType.CAPSULE): _plane_capsule,
     (GeomType.PLANE, GeomType.CYLINDER): _plane_cylinder,
+    (GeomType.SPHERE, GeomType.CAPSULE): _sphere_capsule,
     (GeomType.CAPSULE, GeomType.CAPSULE): _capsule_capsule,
     (GeomType.CAPSULE, GeomType.CYLINDER): _capsule_cylinder,
     (GeomType.CYLINDER, GeomType.CYLINDER): _cylinder_cylinder,

@@ -1,12 +1,14 @@
-"""Constraint assembly: dof friction loss, joint limits, contacts -> efc rows.
+"""Constraint assembly: friction loss, joint and tendon limits, contacts ->
+efc rows.
 
 The port of `dm_control_tpu/_src/constraint.py`, batch-first.  The row
 layout is the static one of `efc.layout`; every row family is one batched
 computation.  The soft-constraint parameterization (solref/solimp ->
 stiffness, damping, impedance, regularizer) is the JAX package's.
+Tendons give friction-loss and limit rows along their Jacobians.
 Contacts give condim-1 normal rows, pyramid edges, or elliptic normal and
-friction rows.  Equality rows, tendon friction loss and tendon and
-ball-joint limits are not ported yet and raise.
+friction rows.  Equality rows and ball-joint limits are not ported yet
+and raise.
 """
 
 from __future__ import annotations
@@ -113,10 +115,8 @@ def make_constraint(m: Model, d: Data) -> Data:
   ref = d.qpos
   if m.neq and not m.opt.disableflags & DisableBit.EQUALITY:
     raise NotImplementedError('equality rows are not ported yet')
-  if lay.fric_ten.size:
-    raise NotImplementedError('tendon friction-loss rows are not ported yet')
-  if lay.lim_ball.size or lay.lim_ten.size:
-    raise NotImplementedError('ball/tendon limit rows are not ported yet')
+  if lay.lim_ball.size:
+    raise NotImplementedError('ball joint limit rows are not ported yet')
   blocks = _Blocks(m, d)
 
   # --- dof friction loss (zero distance: no spring term, always active) -------
@@ -128,6 +128,17 @@ def make_constraint(m: Model, d: Data) -> Data:
                mirror(m, ref, m.dof_solimp[idx]),
                mirror(m, ref, m.dof_invweight0[idx]), zero == 0,
                frictionloss=mirror(m, ref, m.dof_frictionloss[idx]))
+
+  # --- tendon friction loss (as the dof's, along the tendon's Jacobian) -------
+  if lay.fric_ten.size:
+    idx = mirror(m, ref, lay.fric_ten)
+    zero = ref.new_zeros(lay.fric_ten.size)
+    blocks.add(d.ten_J[:, idx], zero, zero,
+               mirror(m, ref, m.tendon_solref_fri[lay.fric_ten]),
+               mirror(m, ref, m.tendon_solimp_fri[lay.fric_ten]),
+               mirror(m, ref, m.tendon_invweight0[lay.fric_ten]), zero == 0,
+               frictionloss=mirror(m, ref,
+                                   m.tendon_frictionloss[lay.fric_ten]))
 
   # --- joint limits (slide/hinge, vectorized) --------------------------------
   if lay.lim_jnt.size:
@@ -143,6 +154,20 @@ def make_constraint(m: Model, d: Data) -> Data:
     blocks.add(J, dist, margin, mirror(m, ref, m.jnt_solref[jid]),
                mirror(m, ref, m.jnt_solimp[jid]),
                mirror(m, ref, m.dof_invweight0[dadr]), dist < margin)
+
+  # --- tendon limits: the nearer side, J along the tendon towards it -----------
+  if lay.lim_ten.size:
+    tid = lay.lim_ten
+    length = d.ten_length[:, mirror(m, ref, tid)]
+    dist_lo = length - mirror(m, ref, m.tendon_range[tid, 0])
+    dist_hi = mirror(m, ref, m.tendon_range[tid, 1]) - length
+    dist = torch.minimum(dist_lo, dist_hi)
+    sign = torch.where(dist_lo < dist_hi, 1.0, -1.0)
+    J = d.ten_J[:, mirror(m, ref, tid)] * sign[..., None]
+    margin = mirror(m, ref, m.tendon_margin[tid])
+    blocks.add(J, dist, margin, mirror(m, ref, m.tendon_solref_lim[tid]),
+               mirror(m, ref, m.tendon_solimp_lim[tid]),
+               mirror(m, ref, m.tendon_invweight0[tid]), dist < margin)
 
   # --- contacts -----------------------------------------------------------------
   if lay.contact is not None and lay.contact.ncon:

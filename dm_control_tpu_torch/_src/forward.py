@@ -106,8 +106,9 @@ def _body_jacs(m: Model, d: Data):
 
 
 def passive(m: Model, d: Data) -> Data:
-  """Joint springs and dampers.  Fluid forces, gravity compensation and
-  tendon/ball/free springs are not ported yet and raise."""
+  """Joint and tendon springs and dampers, and fluid forces (the
+  inertia-box model).  Gravity compensation and ball/free joint springs
+  are not ported yet and raise."""
   ref = d.qpos
   B = ref.shape[0]
   z = ref.new_zeros((B, m.nv))
@@ -116,12 +117,8 @@ def passive(m: Model, d: Data) -> Data:
     return d.replace(qfrc_spring=z, qfrc_damper=z, qfrc_passive=z,
                      qfrc_gravcomp=z, qfrc_fluid=z)
   tr = tree.get(m)
-  if m.opt.viscosity > 0 or m.opt.density > 0:
-    raise NotImplementedError('fluid forces are not ported yet')
   if m.body_gravcomp is not None and np.any(m.body_gravcomp > 0):
     raise NotImplementedError('gravity compensation is not ported yet')
-  if m.ntendon:
-    raise NotImplementedError('tendons are not ported yet')
 
   qfrc_spring = z
   if not m.opt.disableflags & DisableBit.SPRING:
@@ -136,14 +133,99 @@ def passive(m: Model, d: Data) -> Data:
       qfrc_spring = z.clone()
       qfrc_spring[:, mirror(m, ref, m.jnt_dofadr[hs])] += (
           -k * (d.qpos[:, qadr] - qpos_spring[..., qadr]))
+    # tendon springs with a deadband [lo, hi]; an unset lengthspring (< 0)
+    # is the tendon's length at qpos0
+    tsel = (np.flatnonzero(m.tendon_stiffness > 0) if m.ntendon
+            else np.zeros(0, np.int64))
+    if len(tsel):
+      lo = m.tendon_lengthspring[tsel, 0].copy()
+      hi = m.tendon_lengthspring[tsel, 1].copy()
+      unset = lo < 0
+      l0 = np.asarray(m.tendon_length0)[tsel]
+      lo[unset] = l0[unset]
+      hi[unset] = l0[unset]
+      lo, hi = mirror(m, ref, lo), mirror(m, ref, hi)
+      length = d.ten_length[:, mirror(m, ref, tsel)]
+      disp = torch.where(length > hi, hi - length,
+                         torch.where(length < lo, lo - length, 0.0))
+      qfrc_spring = qfrc_spring + torch.einsum(
+          'Btv,Bt->Bv', d.ten_J[:, mirror(m, ref, tsel)],
+          mirror(m, ref, m.tendon_stiffness[tsel]) * disp)
 
   qfrc_damper = z
   if not m.opt.disableflags & DisableBit.DAMPER:
     qfrc_damper = -mirror(m, ref, m.dof_damping) * d.qvel
+    tsel = (np.flatnonzero(m.tendon_damping > 0) if m.ntendon
+            else np.zeros(0, np.int64))
+    if len(tsel):
+      t = mirror(m, ref, tsel)
+      qfrc_damper = qfrc_damper - torch.einsum(
+          'Btv,Bt->Bv', d.ten_J[:, t],
+          mirror(m, ref, m.tendon_damping[tsel]) * d.ten_velocity[:, t])
 
   qfrc_passive = qfrc_spring + qfrc_damper
+  qfrc_fluid = z
+  if m.opt.viscosity > 0 or m.opt.density > 0:
+    qfrc_fluid = _inertia_box_fluid(m, d)
+    qfrc_passive = qfrc_passive + qfrc_fluid
   return d.replace(qfrc_spring=qfrc_spring, qfrc_damper=qfrc_damper,
-                   qfrc_gravcomp=z, qfrc_fluid=z, qfrc_passive=qfrc_passive)
+                   qfrc_gravcomp=z, qfrc_fluid=qfrc_fluid,
+                   qfrc_passive=qfrc_passive)
+
+
+def _fluid_boxes(m: Model):
+  """(box half-sizes (nbody, 3), 1 for bodies the fluid acts on): the
+  box of each body's principal inertia, its sides clamped at sqrt(1e-12
+  x 3 / 2m); the world and massless bodies take none."""
+  mass = np.asarray(m.body_mass)
+  inert = np.asarray(m.body_inertia)
+  safe_mass = np.maximum(mass, 1e-12)
+  box = np.sqrt(np.maximum(1e-12, np.stack([
+      inert[:, 1] + inert[:, 2] - inert[:, 0],
+      inert[:, 0] + inert[:, 2] - inert[:, 1],
+      inert[:, 0] + inert[:, 1] - inert[:, 2]], axis=1))
+      * 3.0 / (2.0 * safe_mass[:, None]))
+  return box, ((mass > 0) & (np.arange(m.nbody) > 0)).astype(np.float64)
+
+
+def _inertia_box_fluid(m: Model, d: Data) -> torch.Tensor:
+  """(B, nv) viscous and quadratic-drag fluid forces of the equivalent
+  inertia-box model, batched over bodies: each body's com velocity in its
+  inertial frame, less the wind, gives a linear (3 pi mu diam v, and 0.5
+  rho area |v| v) and an angular drag, rotated back to the world and
+  applied at xipos."""
+  ref = d.qpos
+  viscosity = float(m.opt.viscosity)
+  density = float(m.opt.density)
+  box_np, has_mass = _fluid_boxes(m)
+  box = mirror(m, ref, box_np)
+  offset = d.xipos - d.subtree_com[:, mirror(m, ref, m.body_rootid)]
+  rot = d.ximat.transpose(-1, -2)
+  lvel6 = math.transform_motion(d.cvel, offset, rot)         # (B, nbody, 6)
+  ang, lin = lvel6[..., :3], lvel6[..., 3:]
+  lin = lin - torch.einsum('Bbij,j->Bbi', rot,
+                           mirror(m, ref, np.asarray(m.opt.wind, np.float64)))
+  frc = torch.zeros_like(lin)
+  trq = torch.zeros_like(ang)
+  if viscosity > 0:
+    diam = box.sum(-1) * 2.0 / 3.0
+    frc = frc - 3.0 * np.pi * viscosity * diam[:, None] * lin
+    trq = trq - np.pi * viscosity * (diam ** 3)[:, None] * ang
+  if density > 0:
+    area = 4.0 * torch.stack([box[:, 1] * box[:, 2], box[:, 0] * box[:, 2],
+                              box[:, 0] * box[:, 1]], dim=1)
+    frc = frc - 0.5 * density * area * lin.abs() * lin
+    b4 = box ** 4
+    coef = torch.stack([box[:, 0] * (b4[:, 1] + b4[:, 2]),
+                        box[:, 1] * (b4[:, 0] + b4[:, 2]),
+                        box[:, 2] * (b4[:, 0] + b4[:, 1])], dim=1)
+    trq = trq - 0.5 * density * coef * ang.abs() * ang
+  on = mirror(m, ref, has_mass)[:, None]
+  frc_w = math.rot3(d.ximat, frc) * on
+  trq_w = math.rot3(d.ximat, trq) * on
+  jacp, jacr = _body_jacs(m, d)
+  return (torch.einsum('Bbvx,Bbx->Bv', jacp, frc_w)
+          + torch.einsum('Bbvx,Bbx->Bv', jacr, trq_w))
 
 
 # ---------------------------------------------------------------------------

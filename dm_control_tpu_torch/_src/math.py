@@ -183,6 +183,19 @@ def inert_mul(cin: torch.Tensor, vec: torch.Tensor) -> torch.Tensor:
   return torch.cat([trq, lin], dim=-1)
 
 
+def transform_motion(vec: torch.Tensor, offset: torch.Tensor,
+                     rot: torch.Tensor | None = None) -> torch.Tensor:
+  """A motion vector [ang; lin] moved to a frame origin `offset` away
+  (new origin - old, world frame): lin' = lin - offset x ang; with `rot`,
+  then rotated into that frame (rot @ ang, rot @ lin)."""
+  ang, lin = vec[..., :3], vec[..., 3:]
+  lin = lin - cross(offset, ang)
+  if rot is not None:
+    ang = rot3(rot, ang)
+    lin = rot3(rot, lin)
+  return torch.cat([ang, lin], dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # Segments.
 # ---------------------------------------------------------------------------

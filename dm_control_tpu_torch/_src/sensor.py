@@ -1,8 +1,9 @@
 """Sensors: fill Data.sensordata (reference stages mj_sensorPos/Vel/Acc).
 
 The port of `dm_control_tpu/_src/sensor.py` for the sensor types the
-walker and finger paths read: `subtreelinvel`, `jointpos`, `jointvel`,
-`framepos` (of a body, xbody, geom or site) and `touch`.  Each is one
+ported tasks read: `subtreelinvel`, `jointpos`, `jointvel`, `framepos`,
+`framexaxis` and `frameyaxis` (of a body, xbody, geom or site),
+`velocimeter` and `gyro` (of a site) and `touch`.  Each is one
 batched computation over the leading batch axis.  The stage split is the
 JAX package's: rows outside the requested stage keep their previous
 values.  Every other sensor type raises NotImplementedError.
@@ -47,7 +48,15 @@ def sensors(m: Model, d: Data, stages: str = 'all') -> Data:
     elif stype == SensorType.JOINTVEL:
       val = d.qvel[:, int(m.jnt_dofadr[objid])]
     elif stype == SensorType.FRAMEPOS:
-      val = _object_pos(d, int(m.sensor_objtype[s]), objid)
+      val = _object_frame(d, int(m.sensor_objtype[s]), objid)[0]
+    elif stype in (SensorType.FRAMEXAXIS, SensorType.FRAMEYAXIS):
+      # a column of the object's world-from-local rotation
+      col = 0 if stype == SensorType.FRAMEXAXIS else 1
+      val = _object_frame(d, int(m.sensor_objtype[s]), objid)[1][..., col]
+    elif stype in (SensorType.VELOCIMETER, SensorType.GYRO):
+      # the site's [ang; lin] velocity in its own frame
+      vel = _site_velocity(m, d, objid)
+      val = vel[:, 3:] if stype == SensorType.VELOCIMETER else vel[:, :3]
     elif stype == SensorType.SUBTREELINVEL:
       if linvel is None:
         linvel = _subtree_linvel(m, d)
@@ -67,18 +76,29 @@ def sensors(m: Model, d: Data, stages: str = 'all') -> Data:
   return d.replace(sensordata=out)
 
 
-def _object_pos(d: Data, objtype: int, objid: int) -> torch.Tensor:
-  """(B, 3) world position of a sensor's frame object."""
+def _object_frame(d: Data, objtype: int, objid: int):
+  """((B, 3) world position, (B, 3, 3) world-from-local rotation) of a
+  sensor's frame object."""
   ot = ObjType(objtype)
   if ot == ObjType.BODY:
-    return d.xipos[:, objid]
+    return d.xipos[:, objid], d.ximat[:, objid]
   if ot == ObjType.XBODY:
-    return d.xpos[:, objid]
+    return d.xpos[:, objid], d.xmat[:, objid]
   if ot == ObjType.GEOM:
-    return d.geom_xpos[:, objid]
+    return d.geom_xpos[:, objid], d.geom_xmat[:, objid]
   if ot == ObjType.SITE:
-    return d.site_xpos[:, objid]
+    return d.site_xpos[:, objid], d.site_xmat[:, objid]
   raise NotImplementedError(f'frame sensor objtype {ot.name}')
+
+
+def _site_velocity(m: Model, d: Data, siteid: int) -> torch.Tensor:
+  """(B, 6) [ang; lin] velocity of a site's origin in the site's frame:
+  its body's cvel moved from the tree root's subtree com to the site and
+  rotated by the site's xmat transposed."""
+  bodyid = int(m.site_bodyid[siteid])
+  com = d.subtree_com[:, int(m.body_rootid[bodyid])]
+  return math.transform_motion(d.cvel[:, bodyid], d.site_xpos[:, siteid] - com,
+                               d.site_xmat[:, siteid].transpose(-1, -2))
 
 
 def _subtree_linvel(m: Model, d: Data) -> torch.Tensor:

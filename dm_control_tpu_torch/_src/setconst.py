@@ -17,7 +17,8 @@ from dm_control_tpu_torch._src.types import JointType, Model
 
 
 def set_const(m: Model) -> Model:
-  """Fill dof/body invweight0, actuator_acc0/length0, stat_meaninertia."""
+  """Fill dof/body/tendon invweight0, actuator_acc0/length0,
+  tendon_length0 and stat_meaninertia."""
   if m.nv == 0:
     return m
   d = fwd.make_data(m, 1, torch.float64, 'cpu')
@@ -50,6 +51,10 @@ def set_const(m: Model) -> Model:
     biw.append([float(at), float(ar)])
   m.body_invweight0 = np.asarray(biw, np.float64)
   m.tendon_length0 = d.ten_length[0].numpy().astype(np.float64)
+  if m.ntendon:
+    # the tendon limit and friction-loss rows' regularizer reads it
+    m.tendon_invweight0 = torch.einsum(
+        'tv,vw,tw->t', d.ten_J[0], minv, d.ten_J[0]).numpy()
   m.actuator_length0 = d.actuator_length[0].numpy().astype(np.float64)
   if m.nu:
     acc = d.actuator_moment[0] @ minv

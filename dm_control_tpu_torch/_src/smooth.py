@@ -282,11 +282,97 @@ def rne(m: Model, d: Data) -> Data:
 # ---------------------------------------------------------------------------
 
 
+def _tendon_wraps(m: Model) -> dict:
+  """Static wrap tables of the model's tendons, cached on the Model.
+
+  A tendon whose wraps are all joints is fixed: entry f adds wrap_prm[wid]
+  x qpos of joint `jid` to tendon `tid`.  Any other is a spatial site
+  chain: segment s runs from site s1 to site s2 of tendon `tid`.  The
+  one-hot matrices sum entries and segments into their tendons (and
+  dofs) in a fixed order."""
+  cached = m.__dict__.get('_tendon_wraps')
+  if cached is not None:
+    return cached
+  fw_tid, fw_wid, sp_tid, sp_s1, sp_s2 = [], [], [], [], []
+  for t in range(m.ntendon):
+    adr, num = int(m.tendon_adr[t]), int(m.tendon_num[t])
+    if all(int(w) == 0 for w in m.wrap_type[adr:adr + num]):
+      fw_tid += [t] * num
+      fw_wid += list(range(adr, adr + num))
+    else:
+      if any(int(w) != 1 for w in m.wrap_type[adr:adr + num]):
+        raise NotImplementedError(
+            'spatial tendons with wrapping geoms or pulleys are not ported')
+      for w in range(adr, adr + num - 1):
+        sp_tid.append(t)
+        sp_s1.append(int(m.wrap_objid[w]))
+        sp_s2.append(int(m.wrap_objid[w + 1]))
+  out = {}
+  if fw_tid:
+    jid = m.wrap_objid[fw_wid]
+    to_dof = np.zeros((len(fw_tid), m.ntendon * m.nv))
+    to_dof[np.arange(len(fw_tid)),
+           np.asarray(fw_tid) * m.nv + m.jnt_dofadr[jid]] = 1.0
+    out['fixed'] = dict(wid=np.asarray(fw_wid), qadr=m.jnt_qposadr[jid],
+                        to_ten=np.eye(m.ntendon)[fw_tid], to_dof=to_dof)
+  if sp_tid:
+    b1, b2 = m.site_bodyid[sp_s1], m.site_bodyid[sp_s2]
+    out['spatial'] = dict(
+        s1=np.asarray(sp_s1), s2=np.asarray(sp_s2),
+        to_ten=np.eye(m.ntendon)[sp_tid],
+        root1=m.body_rootid[b1], root2=m.body_rootid[b2],
+        mask1=m.body_dof_mask[b1], mask2=m.body_dof_mask[b2])
+  m.__dict__['_tendon_wraps'] = out
+  return out
+
+
 def tendon(m: Model, d: Data) -> Data:
-  """Tendon lengths/Jacobians.  Only the tendon-free path is ported."""
+  """Tendon lengths (B, ntendon), Jacobians (B, ntendon, nv) and
+  velocities (reference stage: mj_tendon): fixed tendons as one sum over
+  their joint entries, with `wrap_prm` read through `mparam` (a per-lane
+  override in model_var), and spatial site-chain tendons as one batched
+  segment computation, each segment's Jacobian the difference of its two
+  end points' translational Jacobians along its direction."""
   if m.ntendon == 0:
     return d
-  raise NotImplementedError('tendons are not ported yet')
+  ref = d.qpos
+  B = ref.shape[0]
+  tw = _tendon_wraps(m)
+  ten_length = ref.new_zeros((B, m.ntendon))
+  ten_j = ref.new_zeros((B, m.ntendon, m.nv))
+  if 'fixed' in tw:
+    fx = tw['fixed']
+    coef = mparam(m, d, 'wrap_prm')[..., mirror(m, ref, fx['wid'])]
+    contrib = coef * d.qpos[:, mirror(m, ref, fx['qadr'])]
+    ten_length = ten_length + contrib @ mirror(m, ref, fx['to_ten'])
+    ten_j = ten_j + (coef @ mirror(m, ref, fx['to_dof'])).reshape(
+        -1, m.ntendon, m.nv)
+  if 'spatial' in tw:
+    sp = tw['spatial']
+    p1 = d.site_xpos[:, mirror(m, ref, sp['s1'])]          # (B, S, 3)
+    p2 = d.site_xpos[:, mirror(m, ref, sp['s2'])]
+    diff = p2 - p1
+    seg_len = math.norm_safe(diff)
+    dir_ = diff / torch.clamp(seg_len, min=1e-12)[..., None]
+    to_ten = mirror(m, ref, sp['to_ten'])
+    ten_length = ten_length + seg_len @ to_ten
+
+    def point_jacs(pts, root, mask):
+      offset = pts - d.subtree_com[:, mirror(m, ref, root)]
+      jp = d.cdof[:, None, :, 3:] + math.cross(d.cdof[:, None, :, :3],
+                                              offset[:, :, None, :])
+      return jp * mirror(m, ref, mask)[..., None]     # (B, S, nv, 3)
+
+    j1 = point_jacs(p1, sp['root1'], sp['mask1'])
+    j2 = point_jacs(p2, sp['root2'], sp['mask2'])
+    contrib = torch.einsum('Bsvx,Bsx->Bsv', j2 - j1, dir_)
+    ten_j = ten_j + torch.einsum('Bsv,st->Btv', contrib, to_ten)
+  if m.nv:
+    ten_velocity = torch.einsum('Btv,Bv->Bt', ten_j, d.qvel)
+  else:
+    ten_velocity = ref.new_zeros((B, m.ntendon))
+  return d.replace(ten_length=ten_length, ten_J=ten_j,
+                   ten_velocity=ten_velocity)
 
 
 def jac(m: Model, d: Data, point: torch.Tensor,
@@ -305,25 +391,40 @@ def jac(m: Model, d: Data, point: torch.Tensor,
 
 
 def transmission(m: Model, d: Data) -> Data:
-  """Actuator lengths/moments for joint transmissions."""
+  """Actuator lengths/moments for joint and tendon transmissions: a
+  joint's is its qpos and unit dof times the gear, a tendon's its length
+  and Jacobian times the gear."""
   ref = d.qpos
   B = ref.shape[0]
   if m.nu == 0:
     return d.replace(actuator_length=ref.new_zeros((B, 0)),
                      actuator_moment=ref.new_zeros((B, 0, m.nv)))
   trn = np.asarray(m.actuator_trntype)
-  known = np.isin(trn, [int(TrnType.JOINT), int(TrnType.JOINTINPARENT)])
-  if not known.all():
+  is_jnt = np.isin(trn, [int(TrnType.JOINT), int(TrnType.JOINTINPARENT)])
+  is_ten = trn == int(TrnType.TENDON)
+  if not (is_jnt | is_ten).all():
     raise NotImplementedError(
-        f'transmission {TrnType(int(trn[~known][0]))} is not ported yet')
-  jt = m.jnt_type[m.actuator_trnid[:, 0]]
-  hs = np.isin(jt, [int(JointType.SLIDE), int(JointType.HINGE)])
-  if not hs.all():
+        f'transmission {TrnType(int(trn[~(is_jnt | is_ten)][0]))} is not '
+        f'ported yet')
+  jsel, tsel = np.flatnonzero(is_jnt), np.flatnonzero(is_ten)
+  jj = m.actuator_trnid[jsel, 0]
+  if not np.isin(m.jnt_type[jj], [int(JointType.SLIDE),
+                                  int(JointType.HINGE)]).all():
     raise NotImplementedError('ball/free joint transmissions are not ported')
-  jj = m.actuator_trnid[:, 0]
   gear = m.actuator_gear[:, 0]
-  lengths = d.qpos[:, mirror(m, ref, m.jnt_qposadr[jj])] * mirror(m, ref, gear)
+  # joint actuators: the moment is constant, the length a gather
+  qadr = np.zeros(m.nu, np.int64)
+  qadr[jsel] = m.jnt_qposadr[jj]
   moment = np.zeros((m.nu, m.nv))
-  moment[np.arange(m.nu), m.jnt_dofadr[jj]] = gear
+  moment[jsel, m.jnt_dofadr[jj]] = gear[jsel]
+  lengths = (d.qpos[:, mirror(m, ref, qadr)]
+             * mirror(m, ref, np.where(is_jnt, gear, 0.0)))
   moments = mirror(m, ref, moment).expand(B, m.nu, m.nv)
+  if len(tsel):
+    # tendon actuators: one-hot (nu, ntendon) selection times the gear
+    sel = np.zeros((m.nu, m.ntendon))
+    sel[tsel, m.actuator_trnid[tsel, 0]] = gear[tsel]
+    sel = mirror(m, ref, sel)
+    lengths = lengths + d.ten_length @ sel.T
+    moments = moments + torch.einsum('ut,Btv->Buv', sel, d.ten_J)
   return d.replace(actuator_length=lengths, actuator_moment=moments)

@@ -4,7 +4,9 @@ States cross between the port and anything else (the JAX package in the
 tests, checkpoints, a learner) as a flat dict of numpy arrays keyed by
 field name, with the Contact fields under 'contact.<name>' and the
 per-lane model overrides (`Data.model_var`, e.g. reacher's target
-`geom_pos`) under 'model_var.<name>'.  Every array carries the batch on
+`geom_pos` or point_mass-hard's tendon coefficients `wrap_prm`) under
+'model_var.<name>'.  The tendon fields (`ten_length`, `ten_velocity`,
+`ten_J`) cross like every other field.  Every array carries the batch on
 its leading axis.  Floating fields take the dtype asked for; integer and
 boolean fields keep their own.
 """

@@ -3,8 +3,9 @@
 Ported so far: walker (stand, walk, run), finger (spin, turn_easy,
 turn_hard), cheetah (run), hopper (stand, hop), pendulum (swingup),
 reacher (easy, hard), cartpole (balance, balance_sparse, swingup,
-swingup_sparse, two_poles, three_poles) and acrobot (swingup,
-swingup_sparse); the other domains raise.
+swingup_sparse, two_poles, three_poles), acrobot (swingup,
+swingup_sparse), point_mass (easy, hard), ball_in_cup (catch), swimmer
+(swimmer6, swimmer15) and fish (upright, swim); the other domains raise.
 """
 
 from __future__ import annotations
@@ -15,7 +16,8 @@ from dm_control_tpu_torch._src.types import resolve_device
 from dm_control_tpu_torch.rl import control
 
 DOMAINS = ('walker', 'finger', 'cheetah', 'hopper', 'pendulum', 'reacher',
-           'cartpole', 'acrobot')
+           'cartpole', 'acrobot', 'point_mass', 'ball_in_cup', 'swimmer',
+           'fish')
 
 
 def build_task(domain_name: str, task_name: str,

@@ -1,13 +1,15 @@
 """The port's new narrowphase colliders against the JAX package's.
 
 Each collider of the finger path (plane-cylinder, capsule-capsule,
-sphere-cylinder, capsule-cylinder, cylinder-cylinder) runs on the same
-seeded numpy poses (64 per case, float64) in both packages: generic
-overlapping poses, grazing ones (the surfaces about touching), nearly
-parallel axes, and for the cylinders poses that put the contact on a rim,
-on a cap or deep inside.  dist, pos and the normal agree to 1e-9 (the two
-evaluate the same closed forms; they differ only in rounding).  Then
-finger's `collide_all` is held to the JAX package's at seeded states.
+sphere-cylinder, capsule-cylinder, cylinder-cylinder) and of ball_in_cup's
+(plane-sphere, sphere-capsule) runs on the same seeded numpy poses (64
+per case, float64) in both packages: generic overlapping poses, grazing
+ones (the surfaces about touching), nearly parallel axes, for the
+cylinders poses that put the contact on a rim, on a cap or deep inside,
+and a sphere beyond a capsule's end.  dist, pos and the normal agree to
+1e-9 (the two evaluate the same closed forms; they differ only in
+rounding).  Then finger's and ball_in_cup's `collide_all` are held to the
+JAX package's at seeded states.
 """
 
 import numpy as np
@@ -72,6 +74,33 @@ def _poses(kind, case, rng):
     pos2 = pos1 + rng.uniform(-0.2, 0.2, (B, 3))
     pos2 += n * (rng.uniform(lo, hi, B) - (n * (pos2 - pos1)).sum(1))[:, None]
     return pos1, mat1, size1, pos2, mat2, size2
+  if kind == 'plane_sphere':
+    size1 = np.tile([1.0, 1.0, 0.1], (B, 1))
+    size2 = np.stack([rng.uniform(0.01, 0.05, B), np.zeros(B),
+                      np.zeros(B)], -1)
+    n = mat1[:, :, 2]
+    # height of the sphere's centre over the plane: deep, or about r
+    lo, hi = (-0.05, 0.1) if case == 'generic' else (-0.005, 0.005)
+    h = rng.uniform(lo, hi, B) + (size2[:, 0] if case == 'grazing' else 0.0)
+    pos2 = pos1 + rng.uniform(-0.2, 0.2, (B, 3))
+    pos2 += n * (h - (n * (pos2 - pos1)).sum(1))[:, None]
+    return pos1, mat1, size1, pos2, _rot(rng, B), size2
+  if kind == 'sphere_capsule':
+    size1 = np.stack([rng.uniform(0.01, 0.05, B), np.zeros(B),
+                      np.zeros(B)], -1)
+    mat2 = _rot(rng, B)
+    pos2 = rng.uniform(-0.1, 0.1, (B, 3))
+    axis, hl = mat2[:, :, 2], size2[:, 1:2]
+    gap = (size1[:, 0] + size2[:, 0] + rng.uniform(-0.005, 0.005, B))[:, None]
+    if case == 'grazing':  # beside the axis, about touching
+      u = np.cross(axis, rng.randn(B, 3))
+      u /= np.linalg.norm(u, axis=1, keepdims=True)
+      pos1 = pos2 + axis * hl * rng.uniform(-1, 1, (B, 1)) + u * gap
+    elif case == 'end':    # beyond an end of the axis, about touching
+      pos1 = pos2 + axis * (hl + gap) * rng.choice([-1.0, 1.0], (B, 1))
+    else:
+      pos1 = pos2 + rng.uniform(-0.15, 0.15, (B, 3))
+    return pos1, mat1, size1, pos2, mat2, size2
   if case == 'near_parallel':
     mat2 = mat1 @ _rot(rng, B, tilt=1e-3)
   else:
@@ -128,6 +157,9 @@ CASES = {
     'capsule_cylinder': ('generic', 'grazing', 'near_parallel', 'cap'),
     'cylinder_cylinder': ('generic', 'grazing', 'near_parallel', 'rim',
                           'cap'),
+    # ball_in_cup's ball against the floor and the cup
+    'plane_sphere': ('generic', 'grazing'),
+    'sphere_capsule': ('generic', 'grazing', 'end'),
 }
 PARAMS = [(k, c) for k, cases in CASES.items() for c in cases]
 
@@ -223,3 +255,53 @@ def test_finger_collide_all_matches_jax():
     assert err <= TOL, f'{f}: {err:.2e}'
   print()
   assert near[:12].sum() >= 12
+
+
+def test_ball_in_cup_collide_all_matches_jax():
+  """ball_in_cup's 11 candidate pairs in 3 groups (the ball on the floor,
+  the cup on the floor, the ball on the cup) at seeded states: the ball
+  in the cup, on the floor, or free.  Every contact field agrees within
+  TOL, and each group touches on some lane."""
+  jm = jengine.load_model(jcommon.model_path('ball_in_cup.xml'))
+  rng = np.random.RandomState(5)
+  n = 24
+  # (cup_x, cup_z, ball_x, ball_z) per lane: a third each in the cup, on
+  # the floor under a lowered cup, and anywhere near the cup
+  qpos = np.zeros((n, jm.nq))
+  third = n // 3
+  qpos[:third, 2] = rng.uniform(-0.06, 0.06, third)
+  qpos[:third, 3] = rng.uniform(0.25, 0.28, third)
+  qpos[third:2 * third, 1] = rng.uniform(-0.6, -0.45, third)
+  qpos[third:2 * third, 2] = rng.uniform(-0.1, 0.1, third)
+  qpos[third:2 * third, 3] = rng.uniform(-0.18, -0.17, third)
+  qpos[2 * third:] = rng.uniform([-.1, -.1, -.2, .1], [.1, .1, .2, .4],
+                                 (n - 2 * third, 4))
+
+  def collide(q):
+    d = jforward.make_data(jm).replace(qpos=q)
+    return jcollision.collide(jm, jsmooth.kinematics(jm, d)).contact
+
+  con = jax.jit(jax.vmap(collide))(jnp.asarray(qpos))
+  pm = engine.load_model(common.model_path('ball_in_cup.xml'), device='cpu')
+  d = forward.make_data(pm, n, torch.float64, 'cpu')
+  d = collision.collide(pm, smooth.kinematics(
+      pm, d.replace(qpos=torch.tensor(qpos))))
+  groups = collision.groups(pm)
+  assert [(g.t1.name, g.t2.name, g.K) for g in groups] == [
+      ('PLANE', 'SPHERE', 1), ('PLANE', 'CAPSULE', 5),
+      ('SPHERE', 'CAPSULE', 5)]
+  print('ball_in_cup collide_all: max err', end='')
+  for f in ('dist', 'pos', 'frame', 'includemargin', 'friction', 'solref',
+            'solimp', 'geom1', 'geom2', 'body1', 'body2', 'dim'):
+    ref = np.asarray(getattr(con, f))
+    out = getattr(d.contact, f).numpy()
+    assert out.shape == ref.shape, f
+    err = _scaled(out, ref)
+    print(f' {f} {err:.1e}', end='')
+    assert err <= TOL, f'{f}: {err:.2e}'
+  print()
+  on = (d.contact.dist < d.contact.includemargin).numpy()
+  start = 0
+  for g in groups:
+    assert on[:, start:start + g.ncon].any(), (g.t1.name, g.t2.name)
+    start += g.ncon

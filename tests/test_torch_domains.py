@@ -1,10 +1,14 @@
-"""The port's cheetah, hopper, pendulum, reacher, cartpole, acrobot and
-finger-turn against the JAX package's, float64 on the CPU.
+"""The port's cheetah, hopper, pendulum, reacher, cartpole, acrobot,
+finger-turn, point_mass, ball_in_cup, swimmer and fish against the JAX
+package's, float64 on the CPU.
 
 For each task numpy draws 8 lanes' joint positions and velocities (where
-the task would start out of contact, positions that touch; reacher's and
-finger-turn's per-lane targets, `model_var`, come from the JAX package's
-episode init), and the port takes the same states through the bridge.
+the task would start out of contact, positions that touch or press a
+limit; ball_in_cup's balls in the cup, on the floor or with the string
+about taut; fish's free root at random orientations; reacher's,
+finger-turn's, point_mass-hard's, swimmer's and fish-swim's per-lane
+`model_var` comes from the JAX package's episode init), and the port
+takes the same states through the bridge.
 The same numpy actions then drive the JAX package's `substeps` and the
 port's BatchedEnv for 5 control steps.  qpos, qvel, reward and
 every observation key agree to 1e-6 scaled by max(1, |ref|) at every
@@ -89,8 +93,40 @@ def _states(what, jtask, rng):
     qpos[half, jm.jnt_qposadr[j]] = np.where(
         side[half] > 0, jm.jnt_range[j, 1] - 0.01, jm.jnt_range[j, 0] + 0.01)
     qvel[half, jm.jnt_dofadr[j]] = 3.0 * side[half]
+  if what.startswith('point_mass'):
+    # half the masses at a wall, moving into it: its limit row
+    qpos[half, 0] = 0.28 * side[half]
+    qvel[half, 0] = 0.5 * side[half]
+  if what == 'ball_in_cup-catch':
+    # cups near their rest, balls alternately in the cup, below it with
+    # the string about taut, and on the floor under a lowered cup
+    qpos[:, :2] = rng.uniform(-0.05, 0.05, (BATCH, 2))
+    qpos[:, 2] = qpos[:, 0] + rng.uniform(-0.03, 0.03, BATCH)
+    kind = np.arange(BATCH) % 3
+    qpos[:, 3] = np.where(kind == 0, qpos[:, 1] + 0.2675,
+                          rng.uniform(-0.015, 0.0, BATCH))
+    qpos[kind == 2, 1] = -0.45
+    qpos[kind == 2, 3] = -0.176
+    qvel *= 0.3
+  if what == 'swimmer-swimmer6':
+    # half the first joints at their limit, moving into it; slow, as the
+    # light segments' quadratic drag makes explicit steps of fast ones
+    # diverge
+    j = jm.name2id('joint', 'joint_0')
+    qpos[half, jm.jnt_qposadr[j]] = np.where(
+        side[half] > 0, jm.jnt_range[j, 1] - 0.01, jm.jnt_range[j, 0] + 0.01)
+    qvel *= 0.3
+    qvel[half, jm.jnt_dofadr[j]] = side[half]
+  if what.startswith('fish'):
+    # the free root at random orientations and positions; slow, as the
+    # light fins' quadratic drag makes explicit steps of fast ones diverge
+    quat = rng.randn(BATCH, 4)
+    qpos[:, 3:7] = quat / np.linalg.norm(quat, axis=1, keepdims=True)
+    qpos[:, :3] = rng.uniform(-0.3, 0.3, (BATCH, 3))
+    qvel *= 0.1
   model_var = {}
-  if what.split('-')[0] in ('reacher', 'finger'):
+  if (what.split('-')[0] in ('reacher', 'finger', 'swimmer')
+      or what in ('point_mass-hard', 'fish-swim')):
     d0 = jforward.make_data(jm)
     init = _jax_batch(lambda k: jtask.init_episode(jm, d0, k))
     model_var = {k: np.asarray(x) for k, x in init(jax.random.split(
@@ -100,7 +136,8 @@ def _states(what, jtask, rng):
 
 CASES = ['cheetah-run', 'hopper-hop', 'pendulum-swingup', 'reacher-easy',
          'cartpole-swingup', 'cartpole-two_poles', 'acrobot-swingup',
-         'finger-turn_easy']
+         'finger-turn_easy', 'point_mass-easy', 'point_mass-hard',
+         'ball_in_cup-catch', 'swimmer-swimmer6', 'fish-swim']
 
 
 @pytest.mark.parametrize('what', CASES)
@@ -268,7 +305,10 @@ TASKS = [('cheetah', 'run'), ('hopper', 'stand'), ('hopper', 'hop'),
          ('cartpole', 'swingup'), ('cartpole', 'swingup_sparse'),
          ('cartpole', 'two_poles'), ('cartpole', 'three_poles'),
          ('acrobot', 'swingup'), ('acrobot', 'swingup_sparse'),
-         ('finger', 'turn_easy'), ('finger', 'turn_hard')]
+         ('finger', 'turn_easy'), ('finger', 'turn_hard'),
+         ('point_mass', 'easy'), ('point_mass', 'hard'),
+         ('ball_in_cup', 'catch'), ('swimmer', 'swimmer6'),
+         ('swimmer', 'swimmer15'), ('fish', 'upright'), ('fish', 'swim')]
 
 
 @pytest.mark.parametrize('domain,task_name', TASKS)

@@ -96,6 +96,56 @@ def _finger_states(jm, rng, n):
           rng.uniform(-1, 1, (n, jm.nu)))
 
 
+def _point_mass_states(jm, rng, n):
+  """n point masses, half of them at a wall moving into it."""
+  qpos = _draw_qpos(jm, n, rng)
+  qvel = 0.5 * rng.randn(n, jm.nv)
+  half = np.arange(n) < n // 2
+  side = np.where(np.arange(n) % 2, 1.0, -1.0)
+  qpos[half, 0] = 0.28 * side[half]
+  qvel[half, 0] = np.abs(qvel[half, 0]) * side[half]
+  return qpos, qvel, rng.uniform(-1, 1, (n, jm.nu))
+
+
+def _ball_in_cup_states(jm, rng, n):
+  """n cups near their rest, the balls alternately in the cup, below it
+  with the string about taut, and on the floor under a lowered cup."""
+  qpos = np.zeros((n, jm.nq))
+  qpos[:, :2] = rng.uniform(-0.05, 0.05, (n, 2))
+  qpos[:, 2] = qpos[:, 0] + rng.uniform(-0.03, 0.03, n)
+  kind = np.arange(n) % 3
+  qpos[:, 3] = np.where(kind == 0, qpos[:, 1] + 0.2675,
+                        rng.uniform(-0.015, 0.0, n))
+  qpos[kind == 2, 1] = -0.45
+  qpos[kind == 2, 3] = -0.176
+  return qpos, 0.3 * rng.randn(n, jm.nv), rng.uniform(-1, 1, (n, jm.nu))
+
+
+def _swimmer_states(jm, rng, n):
+  """n swimmers, half with their first joint at its limit, moving into
+  it; slow, as the light segments' quadratic drag makes explicit steps of
+  fast ones diverge."""
+  qpos = _draw_qpos(jm, n, rng)
+  qvel = 0.3 * rng.randn(n, jm.nv)
+  j = jm.name2id('joint', 'joint_0')
+  half = np.arange(n) < n // 2
+  side = np.where(np.arange(n) % 2, 1.0, -1.0)
+  qpos[half, jm.jnt_qposadr[j]] = np.where(
+      side[half] > 0, jm.jnt_range[j, 1] - 0.01, jm.jnt_range[j, 0] + 0.01)
+  qvel[half, jm.jnt_dofadr[j]] = side[half]
+  return qpos, qvel, rng.uniform(-1, 1, (n, jm.nu))
+
+
+def _fish_states(jm, rng, n):
+  """n fish at random orientations, fins and tail within 0.4 of rest,
+  slow."""
+  qpos = np.tile(jm.qpos0, (n, 1))
+  quat = rng.randn(n, 4)
+  qpos[:, 3:7] = quat / np.linalg.norm(quat, axis=1, keepdims=True)
+  qpos[:, 7:] = rng.uniform(-0.4, 0.4, (n, jm.nq - 7))
+  return qpos, 0.1 * rng.randn(n, jm.nv), rng.uniform(-1, 1, (n, jm.nu))
+
+
 def _jax_step(jm, n_sub, qpos, qvel, ctrl, warm=None):
   """The JAX package's control step at float32, in its substeps' stage
   order (step1, then per substep the acc stage, Euler, the divergence
@@ -181,8 +231,10 @@ def run_steps(what, n):
   task = suite.build_task(domain, task_name, device='cpu')
   jm, pm = jtask.model, task.model
   rng = np.random.RandomState(5)
-  draw = {'walker': _walker_states, 'finger': _finger_states}.get(
-      domain, _planar_states)
+  draw = {'walker': _walker_states, 'finger': _finger_states,
+          'point_mass': _point_mass_states,
+          'ball_in_cup': _ball_in_cup_states, 'swimmer': _swimmer_states,
+          'fish': _fish_states}.get(domain, _planar_states)
   qpos, qvel, ctrl = draw(jm, rng, n)
   n_sub = task.n_sub_steps()
   d = forward.make_data(pm, n, torch.float64, 'cpu').replace(
@@ -200,7 +252,10 @@ def run_steps(what, n):
 
 
 @pytest.fixture(scope='module', params=['walker-walk', 'finger-spin',
-                                        'cheetah-run', 'hopper-hop'])
+                                        'cheetah-run', 'hopper-hop',
+                                        'point_mass-easy',
+                                        'ball_in_cup-catch',
+                                        'swimmer-swimmer6', 'fish-swim'])
 def steps(request):
   """`run_steps` of BATCH lanes of each task."""
   return request.param, run_steps(request.param, BATCH)[0]
@@ -213,16 +268,19 @@ def test_port_float32_step_matches_jax_under_the_gate_rule(steps):
   holds the card's kernels to K1's plain versions.  The port's step
   against the JAX package's: on lanes whose choices differ, the gate's
   rule with the JAX run as the reference; on the others, the median
-  within JAX_MEDIAN and none above JAX_MAX.  The steps make contact and
-  reach every quantity the gate records."""
+  within JAX_MEDIAN and none above JAX_MAX.  The steps reach every
+  quantity the gate records for the model (contacts, on at least half the
+  lanes, joint and tendon limits, and the solve's)."""
   what, runs = steps
   ref = runs['float64']
   gated = {}
   for name in ('float32', 'jax float32'):
     err = _lane_err(runs[name], ref)
-    first = cs.first_differences(runs[name]['branches'], ref['branches'])
-    gated[name] = cs.lane_verdicts(err, first, cs.BAND,
-                                   cs.stop_distances(runs[name]['branches']))
+    first = cs.first_differences(runs[name]['branches'], ref['branches'],
+                                 BATCH)
+    gated[name] = cs.lane_verdicts(
+        err, first, cs.BAND, cs.stop_distances(runs[name]['branches'],
+                                               BATCH))
     print(f'{what}, {BATCH} lanes, {name} vs the port\'s float64: max '
           f'scaled err {err.max().item():.2e}; first differences '
           f'{[f for f in first if f is not None]}; verdicts '
@@ -230,7 +288,7 @@ def test_port_float32_step_matches_jax_under_the_gate_rule(steps):
   excused = {name: v.count('excused') for name, v in gated.items()}
   assert excused['float32'] <= 2 * excused['jax float32'] + 1, excused
   port, jax32 = runs['float32'], runs['jax float32']
-  first = cs.first_differences(port['branches'], jax32['branches'])
+  first = cs.first_differences(port['branches'], jax32['branches'], BATCH)
   same = torch.tensor([f is None for f in first])
   err = _lane_err(port, jax32)
   print(f'{what}: port vs JAX, both float32: lanes with the same choices '
@@ -242,10 +300,19 @@ def test_port_float32_step_matches_jax_under_the_gate_rule(steps):
   assert err[same].median().item() <= JAX_MEDIAN
   assert err[same].max().item() <= JAX_MAX
   first_sub = port['branches'][0]
-  touching = first_sub['contact'][0].any(dim=1)
-  assert touching.float().mean() >= 0.5, 'too few lanes in contact'
-  assert set(first_sub) >= {'contact', 'contact normal', 'limit',
-                            'warmstart', 'row zone', 'solve stop'}
+  lay = efc.layout(suite.build_task(*what.split('-'), device='cpu').model)
+  want = set()
+  if lay.contact is not None and lay.contact.ncon:
+    touching = first_sub['contact'][0].any(dim=1)
+    assert touching.float().mean() >= 0.5, 'too few lanes in contact'
+    want |= {'contact', 'contact normal'}
+  if len(lay.lim_jnt):
+    want.add('limit')
+  if len(lay.lim_ten):
+    want.add('tendon limit')
+  if lay.nefc:
+    want |= {'warmstart', 'row zone', 'solve stop'}
+  assert set(first_sub) >= want
 
 
 def _records(contact_port, contact_ref, value_ref):
@@ -366,3 +433,35 @@ def test_solve_stop_off_the_optimum_fails_the_lane():
       'excused'}
   verdicts = cs.lane_verdicts(err, first, cs.BAND, stops['pushed'])
   assert all(v == 'failed' for v, r in zip(verdicts, rows.tolist()) if r)
+
+
+def test_gate_excuses_a_string_flip_only_inside_the_band():
+  """ball_in_cup's string: lane 0 slack by 3e-6 (inside BAND x EPS32 x
+  scale of the limit), lane 1 by 1e-4 (outside it), in the port's float64
+  step, which records the tendon limit's activity and its distance to
+  the margin at every acc stage.  A run whose first stage has the string
+  taut on both lanes, 2.5e-2 off, differs first there: lane 0 is excused,
+  lane 1 fails."""
+  task = suite.build_task('ball_in_cup', 'catch', device='cpu')
+  pm = task.model
+  qpos = np.zeros((2, pm.nq))
+  # the string runs from the ball (at 0.2 + ball_z) to the cup's site at
+  # 0.492: 0.3 long less the slack
+  qpos[:, 3] = 0.292 - 0.3 + np.array([3e-6, 1e-4])
+  d = forward.make_data(pm, 2, torch.float64, 'cpu').replace(
+      qpos=torch.tensor(qpos))
+  ref = cs.one_step(pm, d, slice(0, 2), torch.zeros(2, pm.nu),
+                    task.n_sub_steps(), torch.float64, 'cpu', record=True)
+  assert all('tendon limit' in b for b in ref['branches'])
+  state, value, scale = ref['branches'][0]['tendon limit']
+  assert not state.any()
+  assert value[:, 0].tolist() == pytest.approx([3e-6, 1e-4], rel=1e-6)
+  flipped = [dict(b) for b in ref['branches']]
+  flipped[0]['tendon limit'] = (~state, value, scale)
+  first = cs.first_differences(flipped, ref['branches'], 2)
+  assert [f[:3] for f in first] == [(0, 'tendon limit', 0)] * 2
+  print(f'ball_in_cup string flip: distances {[f[3] for f in first]} x '
+        f'EPS32 x scale, band {cs.BAND}')
+  verdicts = cs.lane_verdicts(torch.tensor([2.5e-2, 2.5e-2]), first,
+                              cs.BAND)
+  assert verdicts == ['excused', 'failed']

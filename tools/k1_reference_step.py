@@ -12,13 +12,15 @@ walker-walk@4096 rollout, the finger-spin solver inputs in contact, then
 the reference steps' controls of chip_smoke.py's REF_LANES lanes of each
 task, drawn as it draws them (`chip_smoke.reference_controls`: the first
 64 from that generator, the rest from the reference generator, seeded 2),
-and those of the lanes past them from a third generator (seeded 3).  The
-slice's tasks (`chip_smoke.SLICE_TASKS`: cheetah-run, hopper-hop,
-pendulum-swingup, reacher-easy, cartpole-swingup, acrobot-swingup,
-finger-turn_easy) start, as in chip_smoke.py's phase slice, from the
-final states of its last rollout run of each (`chip_smoke.slice_run`),
-with its reference controls first (`chip_smoke.slice_controls`) and those
-of the lanes past them from the third generator.  On the states so made
+and those of the lanes past them from a generator of the task's own
+(`extra_controls`).  The slice's tasks (`chip_smoke.SLICE_TASKS`:
+cheetah-run, hopper-hop, pendulum-swingup, reacher-easy,
+cartpole-swingup, acrobot-swingup, finger-turn_easy, point_mass-easy,
+ball_in_cup-catch, swimmer-swimmer6, fish-swim) start, as in
+chip_smoke.py's phase slice, from the final states of its last rollout
+run of each (`chip_smoke.slice_run`), with its reference controls first
+(`chip_smoke.slice_controls`) and those of the lanes past them from the
+task's own generator.  On the states so made
 it runs one control step of each task's lanes on the card at float32
 (`chip_smoke.one_step`) twice: through the K1 kernels (route `kernels`),
 and with K1's wrappers sent to their plain versions on the card (route
@@ -121,13 +123,9 @@ def main():
       tasks.append((name, t, state.data, t.n_sub_steps(),
                     cs.slice_controls(i_task, t.model.nu, cs.REF_LANES,
                                       dev)))
-  # the lanes past chip_smoke.py's from a generator of their own
-  extra_gen = torch.Generator(device=dev)
-  extra_gen.manual_seed(cs.REF_SEED + 1)
   steps = []
   for name, t, data, n_sub, ctrl in tasks:
-    extra = torch.rand((B - cs.REF_LANES, t.model.nu), generator=extra_gen,
-                       device=dev) * 2 - 1
+    extra = extra_controls(name, t.model.nu, B - cs.REF_LANES, dev)
     cpu = suite.build_task(*name.split('-'), device='cpu').model
     steps.append((name, t.model, cpu, data, n_sub,
                   torch.cat([ctrl, extra])))
@@ -157,6 +155,17 @@ def main():
       dump(name, data, ctrl, over.to(dev))
 
 
+def extra_controls(name, nu, n, dev):
+  """The controls of task `name`'s lanes past chip_smoke.py's REF_LANES,
+  uniform in [-1, 1], from a generator of the task's own (seeded REF_SEED
+  + 1 + 100 x its index in walker-walk, finger-spin and SLICE_TASKS), so
+  that they do not depend on which other tasks `--tasks` names."""
+  order = ['walker-walk', 'finger-spin'] + list(cs.SLICE_TASKS)
+  gen = torch.Generator(device=dev)
+  gen.manual_seed(cs.REF_SEED + 1 + 100 * order.index(name))
+  return torch.rand((n, nu), generator=gen, device=dev) * 2 - 1
+
+
 def dump(name, data, ctrl, idx):
   """Write lanes `idx` of `data` (their state) and `ctrl` for
   tools/reference_step_cpu.py --states."""
@@ -184,7 +193,7 @@ def report(what, out, ref, launches):
   err = torch.maximum(errs['qpos'], errs['qvel'])
   first = cs.first_differences(out['branches'], ref['branches'],
                                err.shape[0])
-  stops = cs.stop_distances(out['branches'])
+  stops = cs.stop_distances(out['branches'], err.shape[0])
   matched = torch.tensor([f is None for f in first])
   print(f'{what}: lanes whose choices all matched {int(matched.sum())} of '
         f'{len(first)}, their largest error '

@@ -43,7 +43,8 @@ STEPS = 3
 TASKS = {what: tuple(what.split('-')) for what in (
     'walker-walk', 'finger-spin', 'cheetah-run', 'hopper-hop',
     'pendulum-swingup', 'reacher-easy', 'cartpole-swingup',
-    'acrobot-swingup', 'finger-turn_easy')}
+    'acrobot-swingup', 'finger-turn_easy', 'point_mass-easy',
+    'ball_in_cup-catch', 'swimmer-swimmer6', 'fish-swim')}
 
 
 def main():
