@@ -39,8 +39,16 @@ any failure exits non-zero and no phase catches its own failure:
      cheetah's first impacts (nefc 222, nv 9), on carts at cartpole's
      slider limit (nefc 1, nv 2), on point masses at a wall (nefc 2, nv
      2), on ball_in_cup's balls in the cup, on the floor or at the end of
-     the string (nefc 65, nv 4) and on swimmers at a joint limit (nefc 5,
-     nv 8);
+     the string (nefc 65, nv 4), on swimmers at a joint limit (nefc 5,
+     nv 8), on humanoids lying on the floor (nefc 136, nv 27) and on
+     quadrupeds standing or fallen (nefc 230, nv 22), every top-K group
+     of humanoid and quadruped's floor group selecting a live pair on
+     some lane (`topk_live`); for those two also the top-K broadphase
+     (`broadphase_bits`): the selection and every contact field it
+     gathers for the first 4093 lanes alone, and for a second call, equal
+     the full batch's bit for bit; and K1 at humanoid's n = 27 and
+     quadruped's n = 22 on their initial states (drawn collision-free and
+     settled), with the same bound and bit checks;
   3. reference: one control step of REF_LANES = 256 walker-walk lanes,
      and of 256 finger-spin lanes in contact, on the card at float32
      against the port's float64 CPU path (plain versions) from the same
@@ -79,27 +87,31 @@ any failure exits non-zero and no phase catches its own failure:
      configuration; then walker's K1 time per
      control step, 11 K1a + 10 K1b + 10 K1c.  K1 rows also carry the
      slices' n = 1, 2, 7, 4, 8 and 13 on pendulum's, reacher's, hopper's,
-     ball_in_cup's, swimmer6's and fish's initial states (`pendulum`,
-     `reacher`, `hopper`, `ball_in_cup`, `swimmer`, `fish`), and the K2
-     row the first impacts or limits of cheetah, cartpole, point_mass,
-     ball_in_cup and swimmer6 (keyed by domain, with K2's device time
-     under torch.profiler, one CUDA kernel per call), each with the
-     launches of its task's run in phase 6;
+     ball_in_cup's, swimmer6's, fish's, humanoid's (27) and quadruped's
+     (22) initial states (`pendulum`, `reacher`, `hopper`, `ball_in_cup`,
+     `swimmer`, `fish`, `humanoid`, `quadruped`), and the K2 row the
+     first impacts or limits of cheetah, cartpole, point_mass,
+     ball_in_cup, swimmer6, humanoid and quadruped (keyed by domain, with
+     K2's device time under torch.profiler, one CUDA kernel per call),
+     each with the launches of its task's run in phase 6;
   6. slice (after phase 5, whose profiler sessions lost every event when
      they ran after it): BatchedEnv(task, 4096) of each of SLICE_TASKS
      (cheetah-run, hopper-hop, pendulum-swingup, reacher-easy,
      cartpole-swingup, acrobot-swingup (both RK4), finger-turn_easy,
-     point_mass-easy, ball_in_cup-catch, swimmer-swimmer6 and fish-swim),
-     SLICE_RUNS runs of reset and 50
-     control steps: states (model_var included) finite, rewards in [0, 1],
-     every kernel's launch count exactly `expected_launches` per control
-     step; then phase 3's gate on 256 lanes of each task's final states;
-     then reacher-easy, finger-turn_easy, cheetah-run, ball_in_cup-catch,
-     swimmer-swimmer6 and fish-swim with an episode limit that ends every
-     lane's episode: reacher's, swimmer's and fish's lanes hold the target
-     geom_pos their fresh init drew, finger-turn's, cheetah's and
-     ball_in_cup's their reset pool entry (finger-turn's target site_pos
-     included).
+     point_mass-easy, ball_in_cup-catch, swimmer-swimmer6, fish-swim,
+     humanoid-run and quadruped-walk), SLICE_RUNS runs of reset and 50
+     control steps: states (model_var and act included) finite, rewards
+     in [0, 1], every kernel's launch count exactly `expected_launches`
+     per control step; then phase 3's gate on 256 lanes of each task's
+     final states (act compared too where the model has activations, and
+     under the top-K broadphase the contacts keyed by pair, with the
+     selection itself recorded: `branches`); then reacher-easy,
+     finger-turn_easy, cheetah-run, ball_in_cup-catch, swimmer-swimmer6,
+     fish-swim, humanoid-run and quadruped-walk with an episode limit that
+     ends every lane's episode: reacher's, swimmer's and fish's lanes hold
+     the target geom_pos their fresh init drew, finger-turn's, cheetah's,
+     ball_in_cup's, humanoid's and quadruped's their reset pool entry
+     (finger-turn's target site_pos and quadruped's act included).
 
 Output: the card's name and power limit (nvidia-smi), env-steps/s of
 walker-walk@4096, finger-spin@4096 and each slice task@4096 (each the
@@ -126,14 +138,15 @@ PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 FINGER_RUNS = 3
 WALKER_RUNS = 3
-# the tasks of the sixth and seventh slices, each driven through one
+# the tasks of the sixth, seventh and eighth slices, each driven through one
 # BatchedEnv of BATCH lanes (phase slice) and gated against the float64 CPU
 # path (phase reference, on the rollout's final states); a task's seeds
 # follow from its index, so new tasks are appended
 SLICE_TASKS = ('cheetah-run', 'hopper-hop', 'pendulum-swingup',
                'reacher-easy', 'cartpole-swingup', 'acrobot-swingup',
                'finger-turn_easy', 'point_mass-easy', 'ball_in_cup-catch',
-               'swimmer-swimmer6', 'fish-swim')
+               'swimmer-swimmer6', 'fish-swim', 'humanoid-run',
+               'quadruped-walk')
 SLICE_RUNS = 3
 # seeds of the slice's own generators (kernel draws, K2 inputs, the
 # reference controls of each task), so that every earlier phase keeps its
@@ -142,6 +155,12 @@ SLICE_SEED = 10
 # the seed of the seventh slice's kernel-phase generator (its K1 sizes and
 # K2 inputs), so that the draws of every earlier generator stay as they were
 SLICE7_SEED = 20
+# the seed of the eighth slice's kernel-phase generator (humanoid's and
+# quadruped's K2 inputs)
+SLICE8_SEED = 30
+# the eighth slice's tasks, whose initial states also give K1's n = 27
+# and 22 and whose first impacts give K2's largest layouts
+SLICE8_TASKS = ('humanoid-run', 'quadruped-walk')
 REPLACES = {
     'cholesky_batched': 'dm_control_tpu/ops/linalg_kernel.py:118',
     'chol_solve_batched': 'dm_control_tpu/ops/linalg_kernel.py:142',
@@ -321,7 +340,8 @@ def k2_check(what, x, ref, gate, bounds=None):
 
 def ell_gates(what, x_k, x_p, x_64):
   """K2's bounds on the kernel's x_k against the plain float32 solve x_p
-  and the plain float64 one x_64.  Where plain float32 itself misses a
+  and the plain float64 one x_64 (K2-ell's solves, and K1's modes on
+  real mass matrices).  Where plain float32 itself misses a
   bound against float64, the kernel is held to no more than 2x plain
   float32's own error on that statistic."""
   k2_check(f'{what} kernel vs plain float32', x_k, x_p, gate=True)
@@ -422,10 +442,10 @@ def recording(record):
 
 
 def one_step(m, data, lanes, ctrl, n_sub, dtype, dev, record=False):
-  """qpos and qvel after one control step (n_sub substeps) of `data`'s
-  `lanes` under `ctrl`, run by the port's model m at dtype on dev; with
-  `record`, also the discrete choices of every acc stage (`branches`, on the
-  CPU) under 'branches'."""
+  """qpos, qvel and (where the model has activations) act after one
+  control step (n_sub substeps) of `data`'s `lanes` under `ctrl`, run by
+  the port's model m at dtype on dev; with `record`, also the discrete
+  choices of every acc stage (`branches`, on the CPU) under 'branches'."""
   from dm_control_tpu_torch._src import efc
   from dm_control_tpu_torch._src import forward
   small = forward.map_state(
@@ -439,10 +459,16 @@ def one_step(m, data, lanes, ctrl, n_sub, dtype, dev, record=False):
        for q, v in branches(m, lay, before, after).items()})
   with recording(keep) if record else contextlib.nullcontext():
     d = forward.substeps(m, d.replace(ctrl=ctrl.to(dev, dtype)), n_sub)
-  out = {'qpos': d.qpos, 'qvel': d.qvel}
+  out = {f: getattr(d, f) for f in state_fields(m)}
   if record:
     out['branches'] = seen
   return out
+
+
+def state_fields(m):
+  """The state the reference gate compares: qpos, qvel, and act where the
+  model has activations."""
+  return ('qpos', 'qvel') + (('act',) if m.na else ())
 
 
 # -- the reference-step gate ---------------------------------------------------
@@ -464,9 +490,10 @@ EPS32 = 2.0 ** -23          # float32 spacing at 1 (torch.finfo().eps)
 BAND = 64
 REF_LANES = 256             # lanes of each task the gate holds
 REF_SEED = 2                # the reference generator's seed
-# pipeline order: collision, limits, then the solve's warmstart choice and
-# the zones of its rows and cones at the solution
-QUANTITIES = ('contact', 'contact core', 'contact normal', 'limit',
+# pipeline order: the top-K selection, collision, limits, then the solve's
+# warmstart choice and the zones of its rows and cones at the solution
+QUANTITIES = ('selection', 'contact', 'contact core', 'contact normal',
+              'limit',
               'tendon limit', 'warmstart', 'row zone', 'cone top',
               'cone bottom')
 # two runs' normals of one contact differ where they are further apart
@@ -527,6 +554,110 @@ def solve_stop(m, lay, d):
   return None, (c32 - c64)[:, None], (s32 + s64)[:, None]
 
 
+def selected_pairs(m, con, g, slot):
+  """(B, K) the pair index in dynamic group `g` (whose contacts start at
+  `slot`) of each pair the lanes' contacts hold, in their order."""
+  import numpy as np
+  import torch
+  lut = np.full(m.ngeom * m.ngeom, -1)
+  lut[g.g1 * m.ngeom + g.g2] = np.arange(g.npairs)
+  first = slice(slot, slot + g.ncon, g.ncon_per_pair)
+  pair = torch.as_tensor(lut, device=con.dist.device)[
+      con.geom1[:, first].long() * m.ngeom + con.geom2[:, first].long()]
+  assert bool((pair >= 0).all()), 'a contact of no candidate pair'
+  return pair
+
+
+def contact_keys(m, con):
+  """(keys (B, ncon), number of keys): each contact slot's place among
+  every candidate contact of the model, pair by pair.  A static group's
+  slots keep their places; a dynamic (top-K) group's slot i * k + j, which
+  holds the pair its lane selected i-th, takes that pair's place (pair
+  index * k + j), so that two runs' contacts of one pair meet whatever
+  order their selections took.  Keys are None where the model has no
+  dynamic group: then slots are keys."""
+  import torch
+  from dm_control_tpu_torch._src import collision
+  groups = collision.groups(m)
+  if not any(g.dynamic for g in groups):
+    return None, con.dist.shape[1]
+  B, dev = con.dist.shape[0], con.dist.device
+  keys, slot, key = [], 0, 0
+  for g in groups:
+    k = g.ncon_per_pair
+    if g.dynamic:
+      pair = selected_pairs(m, con, g, slot)
+      keys.append(key + (pair[..., None] * k + torch.arange(k, device=dev)
+                         ).reshape(B, -1))
+    else:
+      keys.append(torch.arange(key, key + g.ncon, device=dev).expand(B, -1))
+    slot += g.ncon
+    key += g.npairs * k
+  return torch.cat(keys, dim=1), key
+
+
+def row_keys(m, lay, ckeys):
+  """(keys (B, nefc), number of keys) of the efc rows from the contacts'
+  `contact_keys`: the rows before the contacts keep their places, a
+  contact's rows follow its key (its group's rows per contact each)."""
+  import numpy as np
+  import torch
+  from dm_control_tpu_torch._src import collision
+  n_nc, c = lay.n_noncontact, lay.contact
+  per_con = np.diff(np.append(c.row_start, lay.nefc))
+  B, dev = ckeys.shape[0], ckeys.device
+  keys = [torch.arange(n_nc, device=dev).expand(B, -1)]
+  slot, key, rkey = 0, 0, n_nc
+  for g in collision.groups(m):
+    r = int(per_con[slot])
+    assert (per_con[slot:slot + g.ncon] == r).all()
+    local = ckeys[:, slot:slot + g.ncon] - key
+    keys.append((rkey + local[..., None] * r
+                 + torch.arange(r, device=dev)).reshape(B, -1))
+    slot += g.ncon
+    key += g.npairs * g.ncon_per_pair
+    rkey += g.npairs * g.ncon_per_pair * r
+  return torch.cat(keys, dim=1), rkey
+
+
+def by_key(x, keys, n, fill):
+  """x (B, slots, ...) placed at `keys` (B, slots) of a (B, n, ...)
+  tensor of `fill`; x itself where keys is None."""
+  import torch
+  if keys is None:
+    return x
+  out = torch.full((x.shape[0], n) + x.shape[2:], fill, dtype=x.dtype,
+                   device=x.device)
+  return out.scatter_(1, keys.reshape(keys.shape + (1,) * (x.dim() - 2))
+                      .expand_as(x), x)
+
+
+def selection(m, d):
+  """The 'selection' quantity of `branches` over the dynamic groups: each
+  candidate pair's selected state (read off d's contacts), the group's
+  score gap between its K-th and (K+1)-th candidate (recomputed from d's
+  geom poses at d's dtype), scale max(1, |contact position|) of the
+  group's contacts."""
+  import torch
+  from dm_control_tpu_torch._src import colliders
+  from dm_control_tpu_torch._src import collision
+  con = d.contact
+  parts, slot = [], 0
+  for g in collision.groups(m):
+    if g.dynamic:
+      _, score = colliders.broadphase_select(m, d, g)
+      ranked = torch.sort(score, dim=1, stable=True).values
+      gap = (ranked[:, g.K] - ranked[:, g.K - 1])[:, None]
+      chosen = torch.zeros(score.shape, dtype=torch.bool,
+                           device=score.device)
+      chosen.scatter_(1, selected_pairs(m, con, g, slot), True)
+      scale = con.pos[:, slot:slot + g.ncon].abs().amax(dim=(1, 2)).clamp(
+          min=1.0)[:, None]
+      parts.append((chosen, gap.expand_as(score), scale.expand_as(score)))
+    slot += g.ncon
+  return tuple(torch.cat(x, dim=1) for x in zip(*parts))
+
+
 def branches(m, lay, before, after):
   """The discrete choices one physics step's acc stage made, lane by lane.
 
@@ -536,6 +667,10 @@ def branches(m, lay, before, after):
   (< 0 or <= 0; for normals the direction itself), computed at the run's
   dtype, and scale the size of the terms value is computed from, so that
   value's rounding is ~ eps * scale:
+    selection  per candidate pair of each dynamic (top-K) group, whether
+               the lane selected it (`selection`): decided by the gap
+               between the group's K-th and (K+1)-th score; scale max(1,
+               |contact position|) of the group's contacts
     contact    dist - margin < 0 per candidate contact (constraint.py);
                scale max(1, |contact position|)
     contact core  the separation of the two geoms' cores, dist + their
@@ -560,7 +695,12 @@ def branches(m, lay, before, after):
                residuals; scale the same sums for n and t
   and, for a float32 run with constraint rows, 'solve stop' (`solve_stop`:
   no choice, so no state; `first_differences` does not read it,
-  `stop_distances` does).
+  `stop_distances` does).  Where the model has dynamic groups, the
+  contact quantities and the row zones are keyed by pair (`contact_keys`,
+  `row_keys`), not by slot: a reorder inside the selected set is no
+  choice and records nothing, and a pair left unselected records no
+  contact (its value inf, its normal NaN).  Elliptic cones of dynamic
+  groups are not keyed: no model has them.
   """
   import numpy as np
   import torch
@@ -569,22 +709,33 @@ def branches(m, lay, before, after):
   from dm_control_tpu_torch.ops import newton_kernel as nk
   d = after
   out = {}
+  ckeys = rkeys = None
   if lay.contact is not None and lay.contact.ncon:
     con = d.contact
+    ckeys, n = contact_keys(m, con)
+    key = lambda x, fill: by_key(x, ckeys, n, fill)
     v = con.dist - con.includemargin
-    scale = con.pos.abs().amax(-1).clamp(min=1.0)
-    out['contact'] = (v < 0, v, scale)
+    scale = key(con.pos.abs().amax(-1).clamp(min=1.0), 1.0)
+    if ckeys is not None:
+      assert not lay.ell_groups, 'elliptic cones of a top-K group'
+      out['selection'] = selection(m, d)
+      rkeys, n_rows = row_keys(m, lay, ckeys)
+    out['contact'] = (key(v < 0, False), key(v, float('inf')), scale)
     radius = torch.as_tensor(m.geom_size[:, 0], dtype=v.dtype,
                              device=v.device)
     radius = torch.where(torch.as_tensor(m.geom_type == 0, device=v.device),
                          0.0, radius)                      # planes
     sep = con.dist + radius[con.geom1.long()] + radius[con.geom2.long()]
-    out['contact core'] = (sep < CORE_EPS, sep - CORE_EPS, scale)
+    out['contact core'] = (key(sep < CORE_EPS, False),
+                           key(sep - CORE_EPS, float('inf')), scale)
     normal = torch.where((v < 0)[..., None], con.frame[..., 0, :],
                          float('nan'))
-    out['contact normal'] = (normal, sep, scale)
-  # the limit rows follow the friction-loss rows: joints, balls, tendons
-  lo_jnt = len(lay.fric_dof) + len(lay.fric_ten)
+    out['contact normal'] = (key(normal, float('nan')),
+                             key(sep, float('inf')), scale)
+  # the equality rows come first, then the friction-loss rows; the limit
+  # rows follow them: joints, balls, tendons
+  n_eq = int((lay.types == efc.EQUALITY).sum())
+  lo_jnt = n_eq + len(lay.fric_dof) + len(lay.fric_ten)
   lo_ten = lo_jnt + len(lay.lim_jnt) + len(lay.lim_ball)
   for q, lo, ids, ranges in (
       ('limit', lo_jnt, lay.lim_jnt, m.jnt_range),
@@ -637,10 +788,15 @@ def branches(m, lay, before, after):
   jscale = jar_scale(x) + mv(J.abs(), x_res)
   inf = torch.full_like(jar, float('inf'))
   v_fr = D * jar.abs() - fl
-  out['row zone'] = (
-      on & ((is_one & (jar < 0)) | (is_fr & (v_fr <= 0))),
-      torch.where(is_one, jar, torch.where(is_fr, v_fr, inf)),
-      torch.where(is_one, jscale, torch.where(is_fr, D * jscale + fl, inf)))
+  zone = (on & ((is_one & (jar < 0)) | (is_fr & (v_fr <= 0))),
+          torch.where(is_one, jar, torch.where(is_fr, v_fr, inf)),
+          torch.where(is_one, jscale, torch.where(is_fr, D * jscale + fl,
+                                                  inf)))
+  if rkeys is not None:
+    zone = (by_key(zone[0], rkeys, n_rows, False),
+            by_key(zone[1], rkeys, n_rows, float('inf')),
+            by_key(zone[2], rkeys, n_rows, float('inf')))
+  out['row zone'] = zone
   tops, bottoms = [], []
   for rows, mu, s in groups:
     y = jar[:, rows] * s
@@ -793,7 +949,7 @@ def reference_gate(what, m, m_cpu, data, ctrl, n_sub, lk):
   CPU path (m_cpu), every run recording its discrete choices (`branches`);
   each lane's verdict (`lane_verdicts`), and the kernels' run held to the
   plain run's (`gate_failures`).  Returns the kernels' run's largest
-  errors {qpos, qvel}."""
+  errors {qpos, qvel[, act]}."""
   import torch
   lanes = slice(0, ctrl.shape[0])
   ref = one_step(m_cpu, data, lanes, ctrl, n_sub, torch.float64, 'cpu',
@@ -806,8 +962,8 @@ def reference_gate(what, m, m_cpu, data, ctrl, n_sub, lk):
   counts, largest, gated = {}, {}, {}
   for route, out in runs.items():
     errs = {f: scaled_err(out[f].cpu().double(), ref[f]).amax(dim=1)
-            for f in ('qpos', 'qvel')}
-    err = torch.maximum(errs['qpos'], errs['qvel'])
+            for f in state_fields(m)}
+    err = torch.stack(list(errs.values())).amax(dim=0)
     first = first_differences(out['branches'], ref['branches'],
                               ctrl.shape[0])
     stops = stop_distances(out['branches'], ctrl.shape[0])
@@ -818,8 +974,9 @@ def reference_gate(what, m, m_cpu, data, ctrl, n_sub, lk):
     matched = torch.tensor([f is None for f in first])
     largest[route] = {f: e.max().item() for f, e in errs.items()}
     log(f'# phase reference: {what}, K1 {route}, {len(first)} lanes, float32 '
-        f'card vs float64 CPU: max scaled err qpos {largest[route]["qpos"]:.2e}'
-        f' qvel {largest[route]["qvel"]:.2e}; lanes whose choices all '
+        f'card vs float64 CPU: max scaled err '
+        + ' '.join(f'{f} {e:.2e}' for f, e in largest[route].items())
+        + f'; lanes whose choices all '
         f'matched {int(matched.sum())}, their largest error '
         f'{err[matched].max().item() if matched.any() else 0:.2e}; '
         f'{counts[route]}')
@@ -898,7 +1055,10 @@ def impact_states(what, m, B, gen, dev):
   it; ball_in_cup's balls by turns in the cup, below it with the string
   about taut, and on the floor under a lowered cup; swimmers with their
   first joint at its limit (within 0.01 either side) moving into it, the
-  rest of the chain anywhere in range, slow.  Controls uniform."""
+  rest of the chain anywhere in range, slow; humanoids lying on the floor
+  (the root 0.1 to 0.4 up) and quadrupeds standing or fallen (0.15 to
+  0.6), at random orientations, every hinge anywhere in range, slow.
+  Controls uniform."""
   import math as pymath
   import torch
   from dm_control_tpu_torch._src import forward
@@ -937,6 +1097,14 @@ def impact_states(what, m, B, gen, dev):
         kind == 0, cup_z + 0.2675,
         torch.where(kind == 1, u(-0.015, 0.0), -0.176))
     qvel = 0.3 * torch.randn((B, m.nv), **kw)
+  elif what in SLICE8_TASKS:
+    for j in range(1, m.njnt):
+      qpos[:, int(m.jnt_qposadr[j])] = u(*(float(v) for v in m.jnt_range[j]))
+    quat = torch.randn((B, 4), **kw)
+    qpos[:, 3:7] = quat / quat.norm(dim=1, keepdim=True)
+    qpos[:, :2] = 0.0
+    qpos[:, 2] = (u(0.1, 0.4) if what == 'humanoid-run' else u(0.15, 0.6))
+    qvel = 0.3 * torch.randn((B, m.nv), **kw)
   else:
     for j in range(m.njnt):
       lo, hi = m.jnt_range[j] if m.jnt_limited[j] else (-pymath.pi, pymath.pi)
@@ -965,6 +1133,7 @@ def k2_task_check(nk, what, m, lay, d):
   they measure float32, not the kernel.  Returns (args, kw, iterations,
   max |kernel - plain|, the forward Data)."""
   import torch
+  from dm_control_tpu_torch._src import efc
   from dm_control_tpu_torch._src import forward
   from dm_control_tpu_torch._src import solver
   d = forward.step1(m, d, skipsensor=True)
@@ -982,7 +1151,10 @@ def k2_task_check(nk, what, m, lay, d):
   x_64, _ = nk.newton_solve_plain(
       *[a.double() for a in args], types=lay.types,
       **dict(kw, tol=solver.effective_tol(m.opt.tolerance, torch.float64)))
-  first = len(lay.fric_dof) + len(lay.lim_jnt)
+  # the rows after the equalities (always active), friction losses and
+  # joint limits
+  first = (int((lay.types == efc.EQUALITY).sum()) + len(lay.fric_dof)
+           + len(lay.lim_jnt))
   touch = d.efc_active[:, first:] if lay.nefc > first else d.efc_active
   active = int(touch.any(dim=1).sum())
   log(f'# phase kernels: newton_solve_batched on {what} B={B} '
@@ -1000,6 +1172,51 @@ def k2_task_check(nk, what, m, lay, d):
   newton_bits(nk, f'newton_solve_batched on {what}', args, lay, kw,
               (x_k, f_k, iters))
   return args, kw, iters, (x_k - x_p).abs().max().item(), d
+
+
+def topk_live(what, m, d):
+  """Print, for each dynamic (top-K) group, the share of lanes on which it
+  selected a live pair (an active contact) in d; humanoid's every group
+  and quadruped's floor group must on some lane."""
+  from dm_control_tpu_torch._src import collision
+  con = d.contact
+  on = con.dist < con.includemargin
+  slot, shares = 0, {}
+  for g in collision.groups(m):
+    if g.dynamic:
+      share = on[:, slot:slot + g.ncon].any(dim=1).double().mean().item()
+      shares[f'{g.t1.name}-{g.t2.name}'] = share
+      if what == 'humanoid-run' or g.t1 == 0:
+        assert share > 0, f'{what}: no live pair in {g.t1.name}-{g.t2.name}'
+    slot += g.ncon
+  log(f'# phase kernels: {what}: lanes whose top-K groups select a live '
+      f'pair {shares}')
+
+
+def broadphase_bits(what, m, d):
+  """The top-K selection and every contact field it gathers, for the
+  first B - 3 lanes alone (kinematics included) and for a second call,
+  must equal the full batch's bit for bit."""
+  import torch
+  from dm_control_tpu_torch._src import collision
+  from dm_control_tpu_torch._src import smooth
+  n = d.qpos.shape[0] - 3
+
+  def contacts(dd):
+    return collision.collide(m, smooth.kinematics(m, dd)).contact
+
+  full, again = contacts(d), contacts(d)
+  part = contacts(d.replace(**{f: getattr(d, f)[:n] for f in (
+      'qpos', 'qvel', 'ctrl')}))
+  for f in ('dist', 'pos', 'frame', 'includemargin', 'friction', 'solref',
+            'solimp', 'geom1', 'geom2', 'body1', 'body2', 'dim'):
+    x = getattr(full, f)
+    assert torch.equal(x, getattr(again, f)), f'{what}: two calls differ in {f}'
+    assert torch.equal(x[:n], getattr(part, f)), (
+        f'{what}: {n} lanes alone differ in {f}')
+  log(f'# phase kernels: {what} broadphase: the first {n} lanes alone and '
+      f'a second call give the full batch\'s selection and contacts bit for '
+      f'bit')
 
 
 def k2_bytes(B, nefc, nv):
@@ -1080,6 +1297,9 @@ def main() -> int:
   # 13) and K2 inputs from a generator of their own
   s7_gen = torch.Generator(device=dev)
   s7_gen.manual_seed(SLICE7_SEED)
+  # the eighth slice's K2 inputs from a generator of their own
+  s8_gen = torch.Generator(device=dev)
+  s8_gen.manual_seed(SLICE8_SEED)
   k1_err = {}
   for n, g in ((9, gen), (27, gen), (56, gen), (3, k1_gen),
                (lk.MAX_N, k1_gen), (1, s_gen), (2, s_gen), (7, s_gen),
@@ -1206,10 +1426,50 @@ def main() -> int:
   k2_slice = {}
   for what, g in (('cheetah-run', s_gen), ('cartpole-swingup', s_gen),
                   ('point_mass-easy', s7_gen), ('ball_in_cup-catch', s7_gen),
-                  ('swimmer-swimmer6', s7_gen)):
+                  ('swimmer-swimmer6', s7_gen), ('humanoid-run', s8_gen),
+                  ('quadruped-walk', s8_gen)):
     tm = slice_tasks[what].model
+    impacts = impact_states(what, tm, BATCH, g, dev)
+    if what in SLICE8_TASKS:
+      broadphase_bits(what, tm, impacts)
     k2_slice[what] = k2_task_check(
-        nk, what, tm, efc.layout(tm), impact_states(what, tm, BATCH, g, dev))
+        nk, what, tm, efc.layout(tm), impacts)
+    if what in SLICE8_TASKS:
+      topk_live(what, tm, k2_slice[what][4])
+
+  # K1 at humanoid's n = 27 and quadruped's 22 on their initial states
+  # (reset through the tasks' collision-free draws and settling).  Their
+  # mass matrices are far worse conditioned than the random draws above
+  # (a float32 solve of humanoid's moves ~1e-3 of x with the order of its
+  # sums), so each mode is held as K2 is (`ell_gates`): K2's bounds on the
+  # lane-scaled error against the plain float32 version and against the
+  # float64 one, the latter at no more than twice plain float32's own
+  # error where plain float32 misses them; these are the errors their
+  # timing rows report
+  s8_init = {what: BatchedEnv(slice_tasks[what], BATCH).reset(seed=0).data
+             for what in SLICE8_TASKS}
+  for what, s_d in s8_init.items():
+    A, b = s_d.qM.contiguous(), s_d.qfrc_smooth.contiguous()
+    n = A.shape[1]
+    L_ref = lk.cholesky_plain(A)
+    A64, b64, L64 = A.double(), b.double(), L_ref.double()
+    triples = {
+        'cholesky_batched': (lk.cholesky_batched(A), L_ref,
+                             lk.cholesky_plain(A64)),
+        'chol_solve_batched': (lk.chol_solve_batched(A, b),
+                               lk.chol_solve_plain(A, b),
+                               lk.chol_solve_plain(A64, b64)),
+        'cho_solve_batched': (lk.cho_solve_batched(L_ref, b),
+                              lk.cho_solve_plain(L_ref, b),
+                              lk.cho_solve_plain(L64, b64)),
+    }
+    for k, (x, ref, x_64) in triples.items():
+      k1_err[k, n] = (x - ref).abs().max().item()
+      ell_gates(f'{k} n={n} on {what}\'s initial states', x.flatten(1),
+                ref.flatten(1), x_64.flatten(1))
+    k1_bits(lk, A, b, triples['cholesky_batched'][0],
+            triples['chol_solve_batched'][0],
+            lk.cho_solve_batched(triples['cholesky_batched'][0], b))
 
   # -- 3. against the float64 CPU path -----------------------------------------
   # REF_LANES lanes of walker's state after the 40-step rollout, and of the
@@ -1382,8 +1642,10 @@ def main() -> int:
   # kernel of a session)
   slice_k1 = {}
   for what in ('pendulum-swingup', 'reacher-easy', 'hopper-hop',
-               'ball_in_cup-catch', 'swimmer-swimmer6', 'fish-swim'):
-    s_d = BatchedEnv(slice_tasks[what], BATCH).reset(seed=0).data
+               'ball_in_cup-catch', 'swimmer-swimmer6', 'fish-swim',
+               'humanoid-run', 'quadruped-walk'):
+    s_d = s8_init[what] if what in s8_init else BatchedEnv(slice_tasks[what],
+                                          BATCH).reset(seed=0).data
     slice_k1[what] = k1_rows(what, s_d.qM.contiguous(),
                              s_d.qfrc_smooth.contiguous(),
                              dict.fromkeys(per_step))
@@ -1511,7 +1773,8 @@ def main() -> int:
   # (finger-turn's target site_pos) included, and init_states is not called.
   for what, limit_steps in (('reacher-easy', 2), ('finger-turn_easy', 3),
                             ('cheetah-run', 2), ('ball_in_cup-catch', 2),
-                            ('swimmer-swimmer6', 2), ('fish-swim', 2)):
+                            ('swimmer-swimmer6', 2), ('fish-swim', 2),
+                            ('humanoid-run', 2), ('quadruped-walk', 2)):
     s_task = slice_tasks[what]
     r_env = BatchedEnv(s_task, BATCH, time_limit=limit_steps * (
         s_task.model.opt.timestep * s_task.n_sub_steps()))

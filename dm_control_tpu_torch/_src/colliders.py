@@ -2,9 +2,10 @@
 
 The port of the parts of `dm_control_tpu/_src/colliders.py` the ported
 tasks reach: contact-parameter mixing, the contact frame, the
-plane-sphere, plane-capsule, plane-cylinder, sphere-capsule (with
-sphere-sphere as its helper), capsule-capsule, capsule-cylinder and
-cylinder-cylinder colliders (with sphere-cylinder as their helper) and the
+plane-sphere, plane-capsule, plane-ellipsoid, plane-cylinder,
+sphere-sphere, sphere-capsule, sphere-ellipsoid, sphere-cylinder,
+capsule-capsule, capsule-ellipsoid, capsule-cylinder and
+cylinder-cylinder colliders, the top-K broadphase score and the
 `collide_all` dispatch.  A collider returns either one normal or a whole
 frame per contact; `collide_all` builds the frame from a normal.  Every
 other geom-type pair raises NotImplementedError naming the pair.
@@ -95,6 +96,34 @@ def _sphere_capsule(s_pos, s_mat, s_size, c_pos, c_mat, c_size):
                         c_size.expand(s_size.shape))
 
 
+def _sphere_ellipsoid(s_pos, s_mat, s_size, e_pos, e_mat, e_size):
+  """Sphere vs ellipsoid through the radial projection of the sphere's
+  center onto the surface (exact for spheres)."""
+  r_s = s_size[..., 0]
+  local = torch.einsum('...ij,...i->...j', e_mat, s_pos - e_pos)
+  u = local / e_size
+  un = math.norm_safe(u)
+  surf_l = e_size * (u / torch.clamp(un, min=1e-12)[..., None])
+  # the gradient of the implicit function: the outward normal
+  n_l = math.normalize(surf_l / (e_size * e_size))
+  d_out = math.norm_safe(local - surf_l)
+  dist = torch.where(un < 1.0, -d_out, d_out) - r_s
+  n = torch.einsum('...ij,...j->...i', e_mat, -n_l)  # sphere -> ellipsoid
+  surf = e_pos + torch.einsum('...ij,...j->...i', e_mat, surf_l)
+  pos = (surf + s_pos + n * r_s[..., None]) / 2
+  return dist[..., None], pos[..., None, :], n[..., None, :]
+
+
+def _capsule_ellipsoid(c_pos, c_mat, c_size, e_pos, e_mat, e_size):
+  """Sphere-ellipsoid at the capsule's axis point nearest the
+  ellipsoid's center."""
+  axis = c_mat[..., :, 2]
+  hl = c_size[..., 1:2]
+  closest = math.closest_segment_point(c_pos - hl * axis, c_pos + hl * axis,
+                                       e_pos)
+  return _sphere_ellipsoid(closest, c_mat, c_size, e_pos, e_mat, e_size)
+
+
 def _plane_capsule(p_pos, p_mat, p_size, c_pos, c_mat, c_size):
   """Two contacts, one at each capsule end; frame t1 along the projected
   capsule axis (the generic frame when the axis is near the normal)."""
@@ -116,6 +145,18 @@ def _plane_capsule(p_pos, p_mat, p_size, c_pos, c_mat, c_size):
     poss.append(end - n * (r + dist / 2)[..., None])
   return (torch.stack(dists, -1), torch.stack(poss, -2),
           torch.stack([frame, frame], -3))
+
+
+def _plane_ellipsoid(p_pos, p_mat, p_size, e_pos, e_mat, e_size):
+  """One contact at the ellipsoid's support point along -normal."""
+  n = p_mat[..., :, 2]
+  nl = torch.einsum('...ij,...i->...j', e_mat, n)   # n in the ellipsoid frame
+  denom = math.norm_safe(nl * e_size)
+  sp_l = -(e_size * e_size * nl) / torch.clamp(denom, min=1e-12)[..., None]
+  sp = e_pos + torch.einsum('...ij,...j->...i', e_mat, sp_l)
+  dist = (n * (sp - p_pos)).sum(-1)
+  pos = sp - n * (dist / 2)[..., None]
+  return dist[..., None], pos[..., None, :], n[..., None, :]
 
 
 def _plane_cylinder(p_pos, p_mat, p_size, c_pos, c_mat, c_size):
@@ -288,16 +329,77 @@ def _cylinder_cylinder(pos1, mat1, size1, pos2, mat2, size2):
 _COLLIDERS = {
     (GeomType.PLANE, GeomType.SPHERE): _plane_sphere,
     (GeomType.PLANE, GeomType.CAPSULE): _plane_capsule,
+    (GeomType.PLANE, GeomType.ELLIPSOID): _plane_ellipsoid,
     (GeomType.PLANE, GeomType.CYLINDER): _plane_cylinder,
+    (GeomType.SPHERE, GeomType.SPHERE): _sphere_sphere,
     (GeomType.SPHERE, GeomType.CAPSULE): _sphere_capsule,
+    (GeomType.SPHERE, GeomType.ELLIPSOID): _sphere_ellipsoid,
+    (GeomType.SPHERE, GeomType.CYLINDER): _sphere_cylinder,
     (GeomType.CAPSULE, GeomType.CAPSULE): _capsule_capsule,
+    (GeomType.CAPSULE, GeomType.ELLIPSOID): _capsule_ellipsoid,
     (GeomType.CAPSULE, GeomType.CYLINDER): _capsule_cylinder,
     (GeomType.CYLINDER, GeomType.CYLINDER): _cylinder_cylinder,
 }
 
 
+def _broadphase_distance(m: Model, d: Data, grp) -> torch.Tensor:
+  """(B, npairs) distance of each candidate pair of a group: exact for
+  the plane, sphere and capsule pairs, of the bounding spheres (or a
+  plane's half-space) otherwise."""
+  ref = d.qpos
+  g1, g2 = mirror(m, ref, grp.g1), mirror(m, ref, grp.g2)
+  pos1, pos2 = d.geom_xpos[:, g1], d.geom_xpos[:, g2]
+  size1 = mirror(m, ref, m.geom_size[grp.g1])
+  size2 = mirror(m, ref, m.geom_size[grp.g2])
+
+  def seg(pos, mat, size):
+    axis = mat[..., :, 2]
+    hl = size[:, 1:2]
+    return pos - hl * axis, pos + hl * axis
+
+  t1, t2 = grp.t1, grp.t2
+  if t1 == GeomType.PLANE:
+    n = d.geom_xmat[:, g1][..., :, 2]
+    if t2 == GeomType.SPHERE:
+      return (n * (pos2 - pos1)).sum(-1) - size2[:, 0]
+    if t2 == GeomType.CAPSULE:
+      a, b = seg(pos2, d.geom_xmat[:, g2], size2)
+      ha = (n * (a - pos1)).sum(-1)
+      hb = (n * (b - pos1)).sum(-1)
+      return torch.minimum(ha, hb) - size2[:, 0]
+    return (n * (pos2 - pos1)).sum(-1) - mirror(m, ref,
+                                                m.geom_rbound[grp.g2])
+  if (t1, t2) == (GeomType.SPHERE, GeomType.SPHERE):
+    return math.norm_safe(pos2 - pos1) - size1[:, 0] - size2[:, 0]
+  if (t1, t2) == (GeomType.SPHERE, GeomType.CAPSULE):
+    a, b = seg(pos2, d.geom_xmat[:, g2], size2)
+    c = math.closest_segment_point(a, b, pos1)
+    return math.norm_safe(c - pos1) - size1[:, 0] - size2[:, 0]
+  if (t1, t2) == (GeomType.CAPSULE, GeomType.CAPSULE):
+    a1, b1 = seg(pos1, d.geom_xmat[:, g1], size1)
+    a2, b2 = seg(pos2, d.geom_xmat[:, g2], size2)
+    c1, c2 = math.closest_segment_to_segment_points(a1, b1, a2, b2)
+    return math.norm_safe(c2 - c1) - size1[:, 0] - size2[:, 0]
+  return (math.norm_safe(pos2 - pos1) - mirror(m, ref, m.geom_rbound[grp.g1])
+          - mirror(m, ref, m.geom_rbound[grp.g2]))
+
+
+def broadphase_select(m: Model, d: Data, grp):
+  """A dynamic group's top-K selection: ((B, K) pair indices, (B, npairs)
+  scores).  The score is the broadphase distance less (margin - gap); the
+  K smallest are taken in ascending order, the lower index first among
+  equal scores (a stable sort), which is `lax.top_k`'s order on the
+  negated score."""
+  score = _broadphase_distance(m, d, grp) - mirror(
+      m, d.qpos, grp.margin - grp.gap)
+  idx = torch.sort(score, dim=-1, stable=True).indices[:, :grp.K]
+  return idx, score
+
+
 def collide_all(m: Model, d: Data) -> Data:
-  """Narrowphase for every static group, concatenated in group order."""
+  """Narrowphase for every group, concatenated in group order: a static
+  group's pairs in its own order, a dynamic group's K selected pairs
+  (`broadphase_select`) in the selection's order, each lane's own."""
   from dm_control_tpu_torch._src import collision as coll
   ref = d.qpos
   B = ref.shape[0]
@@ -310,17 +412,6 @@ def collide_all(m: Model, d: Data) -> Data:
       raise NotImplementedError(
           f'collider for ({grp.t1.name}, {grp.t2.name}) is not ported yet')
     k, K = grp.ncon_per_pair, grp.K
-    g1 = mirror(m, ref, grp.g1)
-    g2 = mirror(m, ref, grp.g2)
-    size1 = mirror(m, ref, m.geom_size[grp.g1])
-    size2 = mirror(m, ref, m.geom_size[grp.g2])
-    dist, pos, normal_or_frame = fn(
-        d.geom_xpos[:, g1], d.geom_xmat[:, g1], size1,
-        d.geom_xpos[:, g2], d.geom_xmat[:, g2], size2)
-    if normal_or_frame.dim() == pos.dim() + 1:
-      frame = normal_or_frame
-    else:
-      frame = make_frame(normal_or_frame)
     n = K * k
 
     def rep(x):
@@ -331,17 +422,51 @@ def collide_all(m: Model, d: Data) -> Data:
         t = t.to(torch.int32)
       return t.expand((B,) + t.shape)
 
+    if not grp.dynamic:
+      g1 = mirror(m, ref, grp.g1)
+      g2 = mirror(m, ref, grp.g2)
+      pos1, mat1 = d.geom_xpos[:, g1], d.geom_xmat[:, g1]
+      pos2, mat2 = d.geom_xpos[:, g2], d.geom_xmat[:, g2]
+      size1 = mirror(m, ref, m.geom_size[grp.g1])
+      size2 = mirror(m, ref, m.geom_size[grp.g2])
+      per_pair = {'includemargin': rep(grp.margin - grp.gap),
+                  'solref': rep(grp.solref), 'solimp': rep(grp.solimp),
+                  'geom1': rep(grp.g1), 'geom2': rep(grp.g2),
+                  'body1': rep(m.geom_bodyid[grp.g1]),
+                  'body2': rep(m.geom_bodyid[grp.g2])}
+    else:
+      # every per-pair field read at each lane's selected indices
+      idx, _ = broadphase_select(m, d, grp)                  # (B, K)
+      g1 = mirror(m, ref, grp.g1)[idx]
+      g2 = mirror(m, ref, grp.g2)[idx]
+      take = lambda x, g: torch.take_along_dim(
+          x, g.reshape(g.shape + (1,) * (x.dim() - 2)), dim=1)
+      pos1, mat1 = take(d.geom_xpos, g1), take(d.geom_xmat, g1)
+      pos2, mat2 = take(d.geom_xpos, g2), take(d.geom_xmat, g2)
+      size = mirror(m, ref, m.geom_size)
+      size1, size2 = size[g1], size[g2]
+      body = mirror(m, ref, m.geom_bodyid)
+      per_k = lambda x: x.repeat_interleave(k, dim=1)
+      per_pair = {
+          'includemargin': per_k(mirror(m, ref, grp.margin - grp.gap)[idx]),
+          'solref': per_k(mirror(m, ref, grp.solref)[idx]),
+          'solimp': per_k(mirror(m, ref, grp.solimp)[idx]),
+          'geom1': per_k(g1.to(torch.int32)),
+          'geom2': per_k(g2.to(torch.int32)),
+          'body1': per_k(body[g1].to(torch.int32)),
+          'body2': per_k(body[g2].to(torch.int32))}
+    dist, pos, normal_or_frame = fn(pos1, mat1, size1, pos2, mat2, size2)
+    if normal_or_frame.dim() == pos.dim() + 1:
+      frame = normal_or_frame
+    else:
+      frame = make_frame(normal_or_frame)
+
     out['dist'].append(dist.reshape(B, n))
     out['pos'].append(pos.reshape(B, n, 3))
     out['frame'].append(frame.reshape(B, n, 3, 3))
-    out['includemargin'].append(rep(grp.margin - grp.gap))
     out['friction'].append(rep(np.broadcast_to(grp.friction, (K, 5))))
-    out['solref'].append(rep(grp.solref))
-    out['solimp'].append(rep(grp.solimp))
-    out['geom1'].append(rep(grp.g1))
-    out['geom2'].append(rep(grp.g2))
-    out['body1'].append(rep(m.geom_bodyid[grp.g1]))
-    out['body2'].append(rep(m.geom_bodyid[grp.g2]))
     out['dim'].append(rep(np.full(K, grp.condim)))
+    for key, x in per_pair.items():
+      out[key].append(x)
   contact = Contact(**{k: torch.cat(v, dim=1) for k, v in out.items()})
   return d.replace(contact=contact)

@@ -3,10 +3,11 @@
 The port of `dm_control_tpu/_src/collision.py`.  Candidate pairs are
 enumerated once per Model and grouped by (geom-type pair, condim,
 friction), so each group is one batched narrowphase call with static
-shapes.  The JAX package's top-K broadphase (groups larger than
-`Option.broadphase_threshold`, or plane groups under
-`broadphase_plane_cap`) is not ported yet: such a group raises when the
-layout is built.
+shapes.  A group larger than `Option.broadphase_threshold`, or a plane
+group larger than a positive `Option.broadphase_plane_cap`, is dynamic:
+each step a top-K broadphase (`colliders.collide_all`) selects, per
+lane, the K pairs of smallest broadphase score and only those run
+narrowphase, so the contact capacity and the efc layout stay static.
 """
 
 from __future__ import annotations
@@ -54,14 +55,15 @@ _PAIR_NCON = {
 class PairGroup:
   """One batched narrowphase group (uniform type pair/condim/friction)."""
 
-  def __init__(self, t1, t2, condim, friction, pairs, params):
+  def __init__(self, t1, t2, condim, friction, pairs, params, K):
     self.t1, self.t2 = t1, t2
     self.condim = condim
     self.friction = friction               # (5,) shared by the group
     self.g1 = np.asarray([p[0] for p in pairs], np.int32)
     self.g2 = np.asarray([p[1] for p in pairs], np.int32)
     self.npairs = len(pairs)
-    self.K = self.npairs                   # every pair runs narrowphase
+    self.K = K                             # pairs run through narrowphase
+    self.dynamic = K < self.npairs         # selected per lane and step
     self.ncon_per_pair = _PAIR_NCON[(t1, t2)]
     self.ncon = self.K * self.ncon_per_pair
     self.solref = np.asarray([p['solref'] for p in params])
@@ -86,6 +88,7 @@ def _build_groups(m: Model) -> List[PairGroup]:
   if m.opt.disableflags & (DisableBit.CONTACT | DisableBit.CONSTRAINT):
     return []
   threshold = int(m.opt.broadphase_threshold)
+  cap = int(m.opt.broadphase_cap)
   plane_cap = int(m.opt.broadphase_plane_cap)
 
   keyed = {}
@@ -105,18 +108,41 @@ def _build_groups(m: Model) -> List[PairGroup]:
   for (tp, condim, friction), entries in sorted(
       keyed.items(), key=lambda kv: (kv[0][0][0], kv[0][0][1], kv[0][1])):
     pairs = [e[0] for e in entries]
-    if len(pairs) > threshold or (
-        tp[0] == GeomType.PLANE and 0 < plane_cap < len(pairs)):
-      raise NotImplementedError(
-          f'top-K broadphase for {len(pairs)} {tp[0].name}-{tp[1].name} '
-          f'pairs is not ported yet')
+    if tp[0] == GeomType.PLANE and 0 < plane_cap < len(pairs):
+      # plane scores are the exact narrowphase distances: the selection is
+      # exact unless more than plane_cap pairs are within margin at once
+      K = plane_cap
+    else:
+      K = len(pairs) if len(pairs) <= threshold else min(len(pairs), cap)
     out.append(PairGroup(tp[0], tp[1], condim, np.asarray(friction), pairs,
-                         [e[1] for e in entries]))
+                         [e[1] for e in entries], K))
   return out
 
 
 def count_max_contacts(m: Model) -> int:
   return sum(g.ncon for g in groups(m))
+
+
+def contact_slots(m: Model, ga: int, gb: int) -> np.ndarray:
+  """Contact-buffer slots of geom pair (ga, gb), the same in every lane.
+
+  Only a pair of a static group has such slots: the pair's slots are
+  empty if it never collides, and a pair of a dynamic (top-K) group
+  raises, as its slots change from lane to lane and step to step."""
+  out = []
+  base = 0
+  want = {int(ga), int(gb)}
+  for grp in groups(m):
+    k = grp.ncon_per_pair
+    for i, (g1, g2) in enumerate(zip(grp.g1, grp.g2)):
+      if {int(g1), int(g2)} == want:
+        if grp.dynamic:
+          raise ValueError(
+              f'pair {sorted(want)} is selected by the top-K broadphase; its '
+              f'contact slots are not static')
+        out.extend(range(base + i * k, base + (i + 1) * k))
+    base += grp.ncon
+  return np.asarray(out, np.int32)
 
 
 def collide(m: Model, d: Data) -> Data:

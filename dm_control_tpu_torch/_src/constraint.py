@@ -1,14 +1,14 @@
-"""Constraint assembly: friction loss, joint and tendon limits, contacts ->
-efc rows.
+"""Constraint assembly: tendon equalities, friction loss, joint and tendon
+limits, contacts -> efc rows.
 
 The port of `dm_control_tpu/_src/constraint.py`, batch-first.  The row
 layout is the static one of `efc.layout`; every row family is one batched
 computation.  The soft-constraint parameterization (solref/solimp ->
 stiffness, damping, impedance, regularizer) is the JAX package's.
-Tendons give friction-loss and limit rows along their Jacobians.
-Contacts give condim-1 normal rows, pyramid edges, or elliptic normal and
-friction rows.  Equality rows and ball-joint limits are not ported yet
-and raise.
+Tendons give equality, friction-loss and limit rows along their
+Jacobians.  Contacts give condim-1 normal rows, pyramid edges, or
+elliptic normal and friction rows.  CONNECT, WELD and JOINT equalities
+and ball-joint limits are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -18,7 +18,8 @@ import torch
 
 from dm_control_tpu_torch._src import efc
 from dm_control_tpu_torch._src import math
-from dm_control_tpu_torch._src.types import Data, DisableBit, Model, mirror
+from dm_control_tpu_torch._src.types import (Data, DisableBit, EqType, Model,
+                                             mirror)
 
 # impedance endpoints are clamped into [mjMINIMP, mjMAXIMP] before
 # interpolating
@@ -113,11 +114,13 @@ def make_constraint(m: Model, d: Data) -> Data:
     return d
   lay = efc.layout(m)
   ref = d.qpos
-  if m.neq and not m.opt.disableflags & DisableBit.EQUALITY:
-    raise NotImplementedError('equality rows are not ported yet')
   if lay.lim_ball.size:
     raise NotImplementedError('ball joint limit rows are not ported yet')
   blocks = _Blocks(m, d)
+
+  # --- equality rows come first ---------------------------------------------
+  if m.neq and not m.opt.disableflags & DisableBit.EQUALITY:
+    _tendon_equality_rows(m, d, blocks)
 
   # --- dof friction loss (zero distance: no spring term, always active) -------
   if lay.fric_dof.size:
@@ -174,6 +177,44 @@ def make_constraint(m: Model, d: Data) -> Data:
     _contact_rows(m, d, lay, blocks)
 
   return blocks.finalize()
+
+
+def _tendon_equality_rows(m: Model, d: Data, blocks: _Blocks):
+  """One row per equality, in model order, all of type TENDON: tendon
+  t1's length off its qpos0 length, l1, less the polynomial (eq_data[:5])
+  in tendon t2's, l2 (its constant term alone where there is no t2);
+  J = J1 - poly'(l2) J2.  Any other equality type raises."""
+  for e in range(m.neq):
+    etype = EqType(int(m.eq_type[e]))
+    if etype != EqType.TENDON:
+      raise NotImplementedError(f'{etype.name} equality rows are not ported '
+                                f'yet')
+  ref = d.qpos
+  t1 = np.asarray(m.eq_obj1id, np.int64)
+  t2 = np.asarray(m.eq_obj2id, np.int64)
+  poly = mirror(m, ref, m.eq_data[:, :5])                      # (neq, 5)
+  length0 = np.asarray(m.tendon_length0)
+  l1 = d.ten_length[:, mirror(m, ref, t1)] - mirror(m, ref, length0[t1])
+  J = d.ten_J[:, mirror(m, ref, t1)]
+  pos = l1 - poly[:, 0]
+  invweight = np.asarray(m.tendon_invweight0)[t1]
+  two = t2 >= 0
+  if two.any():
+    t2s = np.maximum(t2, 0)
+    l2 = d.ten_length[:, mirror(m, ref, t2s)] - mirror(m, ref, length0[t2s])
+    powers = torch.stack([l2 ** i for i in range(5)], dim=-1)
+    dpoly = torch.stack([i * l2 ** (i - 1) if i else torch.zeros_like(l2)
+                         for i in range(5)], dim=-1)
+    on = mirror(m, ref, two)
+    pos = torch.where(on, l1 - (powers * poly).sum(-1), pos)
+    J = torch.where(on[:, None], J - ((dpoly * poly).sum(-1)[..., None]
+                                      * d.ten_J[:, mirror(m, ref, t2s)]), J)
+    invweight = invweight + np.where(
+        two, np.asarray(m.tendon_invweight0)[t2s], 0.0)
+  zero = ref.new_zeros(m.neq)
+  blocks.add(J, pos, zero, mirror(m, ref, m.eq_solref),
+             mirror(m, ref, m.eq_solimp), mirror(m, ref, invweight),
+             mirror(m, ref, m.eq_active0.astype(bool)))
 
 
 def contact_jacobians(m: Model, d: Data, lay: efc.Layout):

@@ -5,28 +5,36 @@ MJCF file with the port's numpy compiler, finalizes the derived constants
 in torch on the CPU, and records the device the Model's per-step arrays
 are mirrored to (`types.mirror`): CUDA unless the caller passes
 `device='cpu'`.  `model_from_root` does the same for an MJCF tree
-edited in code (cartpole's extra poles).
+edited in code (cartpole's extra poles, quadruped's arena).  Keyword
+arguments of either replace fields of the model's `Option` before its
+constants are derived (the top-K broadphase settings of humanoid and
+quadruped).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 from dm_control_tpu_torch._src import setconst
 from dm_control_tpu_torch._src.types import Model, resolve_device
 from dm_control_tpu_torch.mjcf import compiler as _compiler
 
 
-def load_model(path: str, device=None) -> Model:
-  """Compile an MJCF file and finalize derived constants."""
+def _finalize(m: Model, device, opt) -> Model:
   device = resolve_device(device)
-  m = setconst.set_const(_compiler.compile_path(path))
+  if opt:
+    m.opt = dataclasses.replace(m.opt, **opt)
+  m = setconst.set_const(m)
   m.device = device
   return m
 
 
-def model_from_root(root, device=None) -> Model:
+def load_model(path: str, device=None, **opt) -> Model:
+  """Compile an MJCF file and finalize derived constants."""
+  return _finalize(_compiler.compile_path(path), device, opt)
+
+
+def model_from_root(root, device=None, **opt) -> Model:
   """Compile an MJCF element tree (includes already expanded, e.g. by
   `suite.common.load_xml_root`) and finalize derived constants."""
-  device = resolve_device(device)
-  m = setconst.set_const(_compiler.MJCFCompiler(root).build())
-  m.device = device
-  return m
+  return _finalize(_compiler.MJCFCompiler(root).build(), device, opt)

@@ -234,7 +234,10 @@ def _inertia_box_fluid(m: Model, d: Data) -> torch.Tensor:
 
 
 def actuation(m: Model, d: Data) -> Data:
-  """Actuator forces for stateless FIXED/AFFINE actuators."""
+  """Actuator forces of FIXED/AFFINE gains and biases, and the activation
+  dynamics of stateful actuators: act_dot is ctrl (INTEGRATOR) or (ctrl -
+  act) / tau (FILTER, FILTEREXACT), and a stateful actuator's input is its
+  activation instead of its control."""
   ref = d.qpos
   B = ref.shape[0]
   if m.nu == 0 or (m.opt.disableflags & DisableBit.ACTUATION):
@@ -242,8 +245,11 @@ def actuation(m: Model, d: Data) -> Data:
                      actuator_force=ref.new_zeros((B, m.nu)),
                      act_dot=ref.new_zeros((B, m.na)))
   dyn = np.asarray(m.actuator_dyntype)
-  if m.na or not (dyn == int(DynType.NONE)).all():
-    raise NotImplementedError('actuator activation dynamics are not ported')
+  known = np.isin(dyn, [int(DynType.NONE), int(DynType.INTEGRATOR),
+                        int(DynType.FILTER), int(DynType.FILTEREXACT)])
+  if not known.all():
+    raise NotImplementedError(
+        f'dyntype {DynType(int(dyn[~known][0])).name} is not ported yet')
   gt = np.asarray(m.actuator_gaintype)
   bt = np.asarray(m.actuator_biastype)
   if not np.isin(gt, [int(GainType.FIXED), int(GainType.AFFINE)]).all():
@@ -259,6 +265,20 @@ def actuation(m: Model, d: Data) -> Data:
                        torch.minimum(torch.maximum(ctrl, lo), hi), ctrl)
 
   vel = torch.einsum('Buv,Bv->Bu', d.actuator_moment, d.qvel)
+  act_dot, inputs = ref.new_zeros((B, m.na)), ctrl
+  if m.na:
+    actadr = np.asarray(m.actuator_actadr)
+    sel = np.flatnonzero(dyn == int(DynType.INTEGRATOR))
+    if len(sel):
+      act_dot[:, mirror(m, ref, actadr[sel])] = ctrl[:, mirror(m, ref, sel)]
+    sel = np.flatnonzero((dyn == int(DynType.FILTER))
+                         | (dyn == int(DynType.FILTEREXACT)))
+    if len(sel):
+      a = mirror(m, ref, actadr[sel])
+      tau = mirror(m, ref, np.maximum(m.actuator_dynprm[sel, 0], 1e-12))
+      act_dot[:, a] = (ctrl[:, mirror(m, ref, sel)] - d.act[:, a]) / tau
+    inputs = torch.where(mirror(m, ref, dyn == int(DynType.NONE)), ctrl,
+                         d.act[:, mirror(m, ref, np.maximum(actadr, 0))])
   gp = mirror(m, ref, m.actuator_gainprm)
   bp = mirror(m, ref, m.actuator_biasprm)
   gain_affine = gp[:, 0] + gp[:, 1] * d.actuator_length + gp[:, 2] * vel
@@ -267,7 +287,7 @@ def actuation(m: Model, d: Data) -> Data:
   bias_affine = bp[:, 0] + bp[:, 1] * d.actuator_length + bp[:, 2] * vel
   bias = torch.where(mirror(m, ref, bt == int(BiasType.NONE)), 0.0,
                      bias_affine)
-  force = gain * ctrl + bias
+  force = gain * inputs + bias
   if m.actuator_forcelimited.any():
     lo = mirror(m, ref, m.actuator_forcerange[:, 0])
     hi = mirror(m, ref, m.actuator_forcerange[:, 1])
@@ -277,8 +297,7 @@ def actuation(m: Model, d: Data) -> Data:
   if m.njnt and m.jnt_actfrclimited.any():
     raise NotImplementedError('jnt_actfrcrange is not ported yet')
   return d.replace(actuator_velocity=vel, actuator_force=force,
-                   act_dot=ref.new_zeros((B, m.na)),
-                   qfrc_actuator=qfrc_actuator)
+                   act_dot=act_dot, qfrc_actuator=qfrc_actuator)
 
 
 # ---------------------------------------------------------------------------
@@ -415,14 +434,30 @@ def _integrate_pos(m: Model, qpos: torch.Tensor, qvel: torch.Tensor,
   return out
 
 
+def _act_range(m: Model):
+  """(lo, hi) (na,) of the activations, -inf/inf where unlimited; None
+  where no actuator limits its activation."""
+  if not m.na or not m.actuator_actlimited.any():
+    return None
+  lo, hi = np.full(m.na, -np.inf), np.full(m.na, np.inf)
+  for u in range(m.nu):
+    a = int(m.actuator_actadr[u])
+    if a >= 0 and m.actuator_actlimited[u]:
+      lo[a], hi[a] = m.actuator_actrange[u]
+  return lo, hi
+
+
 def _advance(m: Model, d: Data, qacc: torch.Tensor) -> Data:
-  """Shared integrator tail: advance qvel, qpos, time."""
-  if m.na:
-    raise NotImplementedError('activation states are not ported yet')
+  """Shared integrator tail: advance act (clipped to its range), qvel,
+  qpos, time."""
   h = float(m.opt.timestep)
+  act = d.act + h * d.act_dot
+  rng = _act_range(m)
+  if rng is not None:
+    act = torch.clamp(act, mirror(m, act, rng[0]), mirror(m, act, rng[1]))
   qvel = d.qvel + h * qacc
   qpos = _integrate_pos(m, d.qpos, qvel, h)
-  return d.replace(qpos=qpos, qvel=qvel, time=d.time + h)
+  return d.replace(qpos=qpos, qvel=qvel, act=act, time=d.time + h)
 
 
 def euler(m: Model, d: Data) -> Data:
@@ -448,29 +483,33 @@ _RK4_B = np.array([1.0 / 6, 1.0 / 3, 1.0 / 3, 1.0 / 6])
 
 
 def rk4(m: Model, d: Data) -> Data:
-  """Classic RK4 over (qpos, qvel) with the full pipeline per stage: d's
-  own qacc is the first stage's, three `_forward_core` runs give the
-  others (each one acc stage, so one K1c solve and one Newton solve)."""
-  if m.na:
-    raise NotImplementedError('activation states are not ported yet')
+  """Classic RK4 over (qpos, qvel, act) with the full pipeline per stage:
+  d's own qacc and act_dot are the first stage's, three `_forward_core`
+  runs give the others (each one acc stage, so one K1c solve and one
+  Newton solve)."""
   h = float(m.opt.timestep)
   d0 = d
   qvels = [d.qvel]
   qaccs = [d.qacc]
+  act_dots = [d.act_dot]
   for i in range(3):
     a = _RK4_A[i]
     dqvel = sum(float(a[j]) * qvels[j] for j in range(i + 1))
     dqacc = sum(float(a[j]) * qaccs[j] for j in range(i + 1))
+    dact = sum(float(a[j]) * act_dots[j] for j in range(i + 1))
     di = d0.replace(qpos=_integrate_pos(m, d0.qpos, dqvel, h),
-                    qvel=d0.qvel + h * dqacc)
+                    qvel=d0.qvel + h * dqacc, act=d0.act + h * dact)
     di = _forward_core(m, di)
     qvels.append(di.qvel)
     qaccs.append(di.qacc)
+    act_dots.append(di.act_dot)
   fvel = sum(float(_RK4_B[j]) * qvels[j] for j in range(4))
   facc = sum(float(_RK4_B[j]) * qaccs[j] for j in range(4))
+  fact = sum(float(_RK4_B[j]) * act_dots[j] for j in range(4))
   qpos = _integrate_pos(m, d0.qpos, fvel, h)
   qvel = d0.qvel + h * facc
-  return d0.replace(qpos=qpos, qvel=qvel, time=d0.time + h)
+  return d0.replace(qpos=qpos, qvel=qvel, act=d0.act + h * fact,
+                    time=d0.time + h)
 
 
 def _integrate(m: Model, d: Data) -> Data:

@@ -196,6 +196,13 @@ def transform_motion(vec: torch.Tensor, offset: torch.Tensor,
   return torch.cat([ang, lin], dim=-1)
 
 
+def transform_force(vec: torch.Tensor, offset: torch.Tensor) -> torch.Tensor:
+  """A force vector [trq; lin] moved to a frame origin `offset` away (new
+  origin - old, world frame): trq' = trq - offset x lin."""
+  trq, lin = vec[..., :3], vec[..., 3:]
+  return torch.cat([trq - cross(offset, lin), lin], dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # Segments.
 # ---------------------------------------------------------------------------

@@ -1,16 +1,19 @@
 """Sensors: fill Data.sensordata (reference stages mj_sensorPos/Vel/Acc).
 
 The port of `dm_control_tpu/_src/sensor.py` for the sensor types the
-ported tasks read: `subtreelinvel`, `jointpos`, `jointvel`, `framepos`,
-`framexaxis` and `frameyaxis` (of a body, xbody, geom or site),
-`velocimeter` and `gyro` (of a site) and `touch`.  Each is one
-batched computation over the leading batch axis.  The stage split is the
+ported tasks read: `subtreecom`, `subtreelinvel`, `jointpos`,
+`jointvel`, `framepos`, `framexaxis` and `frameyaxis` (of a body, xbody,
+geom or site), `velocimeter` and `gyro` (of a site), and in the acc
+stage `touch`, `accelerometer`, `force` and `torque` (of a site; the
+last three through `rne_postconstraint`).  Each is one batched
+computation over the leading batch axis.  The stage split is the
 JAX package's: rows outside the requested stage keep their previous
 values.  Every other sensor type raises NotImplementedError.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from dm_control_tpu_torch._src import efc
@@ -39,6 +42,10 @@ def sensors(m: Model, d: Data, stages: str = 'all') -> Data:
 
   out = d.sensordata.clone()
   linvel = forces = None
+  if any(SensorType(int(m.sensor_type[s])) in (
+      SensorType.ACCELEROMETER, SensorType.FORCE, SensorType.TORQUE)
+         for s in selected):
+    cacc, cfrc_int = rne_postconstraint(m, d)
   for s in selected:
     stype = SensorType(int(m.sensor_type[s]))
     objid = int(m.sensor_objid[s])
@@ -57,6 +64,18 @@ def sensors(m: Model, d: Data, stages: str = 'all') -> Data:
       # the site's [ang; lin] velocity in its own frame
       vel = _site_velocity(m, d, objid)
       val = vel[:, 3:] if stype == SensorType.VELOCIMETER else vel[:, :3]
+    elif stype == SensorType.ACCELEROMETER:
+      val = _site_accel(m, d, objid, cacc)[:, 3:]
+    elif stype in (SensorType.FORCE, SensorType.TORQUE):
+      # the wrench its body's parent transmits, at the site, in its frame
+      bodyid = int(m.site_bodyid[objid])
+      com = d.subtree_com[:, int(m.body_rootid[bodyid])]
+      wrench = math.transform_force(cfrc_int[:, bodyid],
+                                    d.site_xpos[:, objid] - com)
+      part = wrench[:, 3:] if stype == SensorType.FORCE else wrench[:, :3]
+      val = torch.einsum('Bij,Bi->Bj', d.site_xmat[:, objid], part)
+    elif stype == SensorType.SUBTREECOM:
+      val = d.subtree_com[:, objid]
     elif stype == SensorType.SUBTREELINVEL:
       if linvel is None:
         linvel = _subtree_linvel(m, d)
@@ -74,6 +93,68 @@ def sensors(m: Model, d: Data, stages: str = 'all') -> Data:
       val = torch.clamp(val, lo, cutoff)
     out[:, adr:adr + dim] = val.reshape(val.shape[0], dim)
   return d.replace(sensordata=out)
+
+
+def rne_postconstraint(m: Model, d: Data):
+  """((B, nbody, 6) cacc, (B, nbody, 6) cfrc_int) at the solved qacc, for
+  the acc-stage sensors (reference mj_rnePostConstraint).
+
+  cacc is each body's acceleration, gravity's included; cfrc_int[b] the
+  wrench body b's parent transmits to it, both in the com-centered
+  world-aligned frame of b's tree root.  The external forces are
+  xfrc_applied and the contact forces; a contact's bodies are its own
+  lane's (top-K selects them per lane), summed into the bodies through
+  (B, ncon, nbody) one-hot matrices in a fixed order."""
+  ref = d.qpos
+  B = ref.shape[0]
+  gravity = np.zeros(3) if m.opt.disableflags & DisableBit.GRAVITY else (
+      np.asarray(m.opt.gravity, np.float64))
+  base = mirror(m, ref, np.concatenate([np.zeros(3), -gravity]))
+  root_com = d.subtree_com[:, mirror(m, ref, m.body_rootid)]
+  cfrc_ext = ref.new_zeros((B, m.nbody, 6))
+  if m.nbody > 1:
+    # xfrc_applied is a wrench at xipos: moved to the root's com
+    frc, trq = d.xfrc_applied[..., :3], d.xfrc_applied[..., 3:]
+    cfrc_ext = torch.cat([trq + math.cross(d.xipos - root_com, frc), frc],
+                         dim=-1)
+  con = d.contact
+  if con.dist.shape[1]:
+    world_f = torch.einsum('Bcab,Bca->Bcb', con.frame,
+                           _contact_forces(m, d))
+    bodies = torch.arange(m.nbody, device=ref.device)
+    g_body = mirror(m, ref, m.geom_bodyid)
+    for sign, geom in ((1.0, con.geom2), (-1.0, con.geom1)):
+      sel = (g_body[geom.clamp(min=0).long()][..., None] == bodies).to(
+          ref.dtype)                                       # (B, ncon, nbody)
+      f = sign * world_f
+      wrench = torch.cat([math.cross(con.pos - sel @ root_com, f), f], dim=-1)
+      wrench = torch.where((geom >= 0)[..., None], wrench, 0.0)
+      cfrc_ext = cfrc_ext + sel.transpose(-1, -2) @ wrench
+  mask = mirror(m, ref, m.body_dof_mask)
+  cacc = base + (torch.einsum('bv,Bv,Bvx->Bbx', mask, d.qacc, d.cdof)
+                 + torch.einsum('bv,Bv,Bvx->Bbx', mask, d.qvel, d.cdof_dot))
+  cfrc_body = (math.inert_mul(d.cinert, cacc)
+               + math.motion_cross_force(d.cvel,
+                                         math.inert_mul(d.cinert, d.cvel))
+               - cfrc_ext)
+  cfrc_int = torch.einsum('bc,Bcx->Bbx',
+                          mirror(m, ref, tree.get(m).subtree_mask), cfrc_body)
+  return cacc, cfrc_int
+
+
+def _site_accel(m: Model, d: Data, siteid: int,
+                cacc: torch.Tensor) -> torch.Tensor:
+  """(B, 6) [ang; lin] acceleration of a site's origin in its frame, the
+  linear part with the centripetal term of the site's velocity."""
+  bodyid = int(m.site_bodyid[siteid])
+  offset = (d.site_xpos[:, siteid]
+            - d.subtree_com[:, int(m.body_rootid[bodyid])])
+  acc = math.transform_motion(cacc[:, bodyid], offset)
+  vel = math.transform_motion(d.cvel[:, bodyid], offset)
+  lin = acc[:, 3:] + math.cross(vel[:, :3], vel[:, 3:])
+  mat_t = d.site_xmat[:, siteid].transpose(-1, -2)
+  return torch.cat([math.rot3(mat_t, acc[:, :3]), math.rot3(mat_t, lin)],
+                   dim=-1)
 
 
 def _object_frame(d: Data, objtype: int, objid: int):

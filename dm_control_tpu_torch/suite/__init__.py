@@ -5,7 +5,8 @@ turn_hard), cheetah (run), hopper (stand, hop), pendulum (swingup),
 reacher (easy, hard), cartpole (balance, balance_sparse, swingup,
 swingup_sparse, two_poles, three_poles), acrobot (swingup,
 swingup_sparse), point_mass (easy, hard), ball_in_cup (catch), swimmer
-(swimmer6, swimmer15) and fish (upright, swim); the other domains raise.
+(swimmer6, swimmer15), fish (upright, swim), humanoid (stand, walk, run,
+run_pure_state) and quadruped (walk, run); the other domains raise.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ from dm_control_tpu_torch.rl import control
 
 DOMAINS = ('walker', 'finger', 'cheetah', 'hopper', 'pendulum', 'reacher',
            'cartpole', 'acrobot', 'point_mass', 'ball_in_cup', 'swimmer',
-           'fish')
+           'fish', 'humanoid', 'quadruped')
 
 
 def build_task(domain_name: str, task_name: str,

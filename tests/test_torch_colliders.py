@@ -1,12 +1,14 @@
 """The port's new narrowphase colliders against the JAX package's.
 
 Each collider of the finger path (plane-cylinder, capsule-capsule,
-sphere-cylinder, capsule-cylinder, cylinder-cylinder) and of ball_in_cup's
-(plane-sphere, sphere-capsule) runs on the same seeded numpy poses (64
-per case, float64) in both packages: generic overlapping poses, grazing
-ones (the surfaces about touching), nearly parallel axes, for the
-cylinders poses that put the contact on a rim, on a cap or deep inside,
-and a sphere beyond a capsule's end.  dist, pos and the normal agree to
+sphere-cylinder, capsule-cylinder, cylinder-cylinder), of ball_in_cup's
+(plane-sphere, sphere-capsule), of humanoid's (sphere-sphere) and of
+quadruped's (plane-ellipsoid, sphere-ellipsoid, capsule-ellipsoid) runs
+on the same seeded numpy poses (64 per case, float64) in both packages:
+generic overlapping poses, grazing ones (the surfaces about touching),
+nearly parallel axes, for the cylinders poses that put the contact on a
+rim, on a cap or deep inside, a sphere beyond a capsule's end, and a
+sphere's center inside an ellipsoid.  dist, pos and the normal agree to
 1e-9 (the two evaluate the same closed forms; they differ only in
 rounding).  Then finger's and ball_in_cup's `collide_all` are held to the
 JAX package's at seeded states.
@@ -101,6 +103,43 @@ def _poses(kind, case, rng):
     else:
       pos1 = pos2 + rng.uniform(-0.15, 0.15, (B, 3))
     return pos1, mat1, size1, pos2, mat2, size2
+  if kind == 'sphere_sphere':
+    size1, size2 = (np.stack([rng.uniform(0.01, 0.08, B), np.zeros(B),
+                              np.zeros(B)], -1) for _ in range(2))
+    if case == 'grazing':  # the surfaces about touching
+      offset = rng.randn(B, 3)
+      offset /= np.linalg.norm(offset, axis=1, keepdims=True)
+      pos2 = pos1 + offset * (size1[:, 0] + size2[:, 0]
+                              + rng.uniform(-0.005, 0.005, B))[:, None]
+    else:
+      pos2 = pos1 + rng.uniform(-0.12, 0.12, (B, 3))
+    return pos1, mat1, size1, pos2, _rot(rng, B), size2
+  if kind.endswith('ellipsoid'):
+    size2 = rng.uniform(0.02, 0.1, (B, 3))         # the semi-axes
+    mat2 = _rot(rng, B)
+    if kind == 'plane_ellipsoid':
+      size1 = np.tile([1.0, 1.0, 0.1], (B, 1))
+      n = mat1[:, :, 2]
+      # the support radius along n: the center's height when touching
+      reach = np.linalg.norm(size2 * np.einsum('bij,bi->bj', mat2, n),
+                             axis=1)
+      lo, hi = (-0.05, 0.1) if case == 'generic' else (-0.005, 0.005)
+      h = rng.uniform(lo, hi, B) + (reach if case == 'grazing' else 0.0)
+      pos2 = pos1 + rng.uniform(-0.2, 0.2, (B, 3))
+      pos2 += n * (h - (n * (pos2 - pos1)).sum(1))[:, None]
+      return pos1, mat1, size1, pos2, mat2, size2
+    if kind == 'sphere_ellipsoid':
+      size1 = np.stack([rng.uniform(0.01, 0.05, B), np.zeros(B),
+                        np.zeros(B)], -1)
+    pos2 = rng.uniform(-0.1, 0.1, (B, 3))
+    if case == 'inside':   # the sphere's center within the ellipsoid
+      u = rng.randn(B, 3)
+      u /= np.linalg.norm(u, axis=1, keepdims=True)
+      local = u * size2 * rng.uniform(0.1, 0.9, (B, 1))
+      pos1 = pos2 + np.einsum('bij,bj->bi', mat2, local)
+    else:
+      pos1 = pos2 + rng.uniform(-0.15, 0.15, (B, 3))
+    return pos1, mat1, size1, pos2, mat2, size2
   if case == 'near_parallel':
     mat2 = mat1 @ _rot(rng, B, tilt=1e-3)
   else:
@@ -160,6 +199,11 @@ CASES = {
     # ball_in_cup's ball against the floor and the cup
     'plane_sphere': ('generic', 'grazing'),
     'sphere_capsule': ('generic', 'grazing', 'end'),
+    # humanoid's self-contacts and quadruped's feet and body
+    'sphere_sphere': ('generic', 'grazing'),
+    'plane_ellipsoid': ('generic', 'grazing'),
+    'sphere_ellipsoid': ('generic', 'inside'),
+    'capsule_ellipsoid': ('generic',),
 }
 PARAMS = [(k, c) for k, cases in CASES.items() for c in cases]
 

@@ -14,8 +14,9 @@ port's BatchedEnv for 5 control steps.  qpos, qvel, reward and
 every observation key agree to 1e-6 scaled by max(1, |ref|) at every
 step, the rollout tests' bound: the solves stop at opt.tolerance and their
 differences pass into everything after them.  The RK4 step alone, the
-n <= 1 branch of `substeps` and `settle` are held to the JAX package's
-functions as well.
+n <= 1 branch of `substeps`, `settle` and quadruped's settle (the lowest
+contact-free height of 200) are held to the JAX package's functions as
+well.
 """
 
 import dataclasses
@@ -124,6 +125,14 @@ def _states(what, jtask, rng):
     qpos[:, 3:7] = quat / np.linalg.norm(quat, axis=1, keepdims=True)
     qpos[:, :3] = rng.uniform(-0.3, 0.3, (BATCH, 3))
     qvel *= 0.1
+  if what.split('-')[0] in ('humanoid', 'quadruped'):
+    # the free root low, at random orientations: lying or standing on
+    # the floor, limbs touching it and each other
+    quat = rng.randn(BATCH, 4)
+    qpos[:, 3:7] = quat / np.linalg.norm(quat, axis=1, keepdims=True)
+    qpos[:, :2] = rng.uniform(-0.5, 0.5, (BATCH, 2))
+    qpos[:, 2] = rng.uniform(0.1, 0.4, BATCH)
+    qvel *= 0.3
   model_var = {}
   if (what.split('-')[0] in ('reacher', 'finger', 'swimmer')
       or what in ('point_mass-hard', 'fish-swim')):
@@ -137,7 +146,8 @@ def _states(what, jtask, rng):
 CASES = ['cheetah-run', 'hopper-hop', 'pendulum-swingup', 'reacher-easy',
          'cartpole-swingup', 'cartpole-two_poles', 'acrobot-swingup',
          'finger-turn_easy', 'point_mass-easy', 'point_mass-hard',
-         'ball_in_cup-catch', 'swimmer-swimmer6', 'fish-swim']
+         'ball_in_cup-catch', 'swimmer-swimmer6', 'fish-swim',
+         'humanoid-run', 'quadruped-walk']
 
 
 @pytest.mark.parametrize('what', CASES)
@@ -156,6 +166,8 @@ def test_domain_matches_jax(what):
   qpos, qvel, model_var = _states(what, jtask, rng)
   lo, hi = m.actuator_ctrlrange.T
   actions = rng.uniform(lo, hi, (STEPS, BATCH, m.nu))
+  # quadruped's filter activations start anywhere in the control range
+  act = rng.uniform(-1, 1, (BATCH, m.na))
   n_sub = task.n_sub_steps()
   d0 = jforward.make_data(jm)
 
@@ -164,8 +176,9 @@ def test_domain_matches_jax(what):
     return d, jtask.get_reward(jm, d), jtask.get_observation(jm, d)
 
   jstep = _jax_batch(jstep)
-  jd = _jax_batch(lambda q, v, mv: d0.replace(qpos=q, qvel=v, model_var=mv))(
-      jnp.asarray(qpos), jnp.asarray(qvel),
+  jd = _jax_batch(lambda q, v, a, mv: d0.replace(qpos=q, qvel=v, act=a,
+                                                 model_var=mv))(
+      jnp.asarray(qpos), jnp.asarray(qvel), jnp.asarray(act),
       {k: jnp.asarray(x) for k, x in model_var.items()})
   env = runner.BatchedEnv(task, BATCH, dtype=torch.float64)
   data = bridge.data_from_numpy(_fields(jd), device='cpu',
@@ -180,9 +193,10 @@ def test_domain_matches_jax(what):
   for t in range(STEPS):
     jd, jrew, jobs = jstep(jd, jnp.asarray(actions[t]))
     state, (obs, rew, done, _) = env.step(state, torch.tensor(actions[t]))
-    ref = dict(qpos=jd.qpos, qvel=jd.qvel, reward=jrew,
+    ref = dict(qpos=jd.qpos, qvel=jd.qvel, act=jd.act, reward=jrew,
                **{'obs.' + k: x for k, x in jobs.items()})
-    out = dict(qpos=state.data.qpos, qvel=state.data.qvel, reward=rew,
+    out = dict(qpos=state.data.qpos, qvel=state.data.qvel,
+               act=state.data.act, reward=rew,
                **{'obs.' + k: x for k, x in obs.items()})
     assert out.keys() == ref.keys()
     for k in ref:
@@ -308,7 +322,10 @@ TASKS = [('cheetah', 'run'), ('hopper', 'stand'), ('hopper', 'hop'),
          ('finger', 'turn_easy'), ('finger', 'turn_hard'),
          ('point_mass', 'easy'), ('point_mass', 'hard'),
          ('ball_in_cup', 'catch'), ('swimmer', 'swimmer6'),
-         ('swimmer', 'swimmer15'), ('fish', 'upright'), ('fish', 'swim')]
+         ('swimmer', 'swimmer15'), ('fish', 'upright'), ('fish', 'swim'),
+         ('humanoid', 'stand'), ('humanoid', 'walk'), ('humanoid', 'run'),
+         ('humanoid', 'run_pure_state'), ('quadruped', 'walk'),
+         ('quadruped', 'run')]
 
 
 @pytest.mark.parametrize('domain,task_name', TASKS)
@@ -327,3 +344,32 @@ def test_every_task_builds_and_steps(domain, task_name):
   if not torch.cuda.is_available():
     with pytest.raises(RuntimeError, match='device="cpu"'):
       suite.build_task(domain, task_name)
+
+
+def test_quadruped_settle_matches_jax():
+  """quadruped's settle at 8 random orientations (numpy draws, the hinges
+  at qpos0): each lane's torso height, and so its qpos, equal to the JAX
+  package's, and the settled lanes touch nothing."""
+  from dm_control_tpu.suite import quadruped as jquadruped
+  from dm_control_tpu_torch.suite import quadruped
+  jtask = jsuite.build_task('quadruped', 'walk')
+  jm = jtask.model
+  m = suite.build_task('quadruped', 'walk', device='cpu').model
+  quat = np.random.RandomState(8).randn(BATCH, 4)
+  quat /= np.linalg.norm(quat, axis=1, keepdims=True)
+  d0 = jforward.make_data(jm)
+  jp = jquadruped._Parts(jm)
+  jq = _jax_batch(lambda q: jp.settle(jm, d0, q).qpos)(jnp.asarray(quat))
+  d = quadruped._Parts(m).settle(
+      m, forward.make_data(m, BATCH, torch.float64, 'cpu'), torch.tensor(quat))
+  print(f'quadruped settle: heights {d.qpos[:, 2].tolist()}')
+  np.testing.assert_array_equal(d.qpos.numpy(), np.asarray(jq))
+  assert bool((d.qpos[:, 2] > 0).all())
+  assert not bool(base.has_contacts(m, d).any())
+
+
+@pytest.mark.parametrize('task_name,waits_on', [('escape', 'heightfield'),
+                                                ('fetch', 'condim-6')])
+def test_quadruped_escape_and_fetch_raise(task_name, waits_on):
+  with pytest.raises(NotImplementedError, match=waits_on):
+    suite.build_task('quadruped', task_name, device='cpu')

@@ -47,6 +47,7 @@ from dm_control_tpu._src import forward as jforward
 from dm_control_tpu.suite import base as jbase
 from dm_control_tpu_torch import bridge
 from dm_control_tpu_torch import suite
+from dm_control_tpu_torch._src import collision
 from dm_control_tpu_torch._src import efc
 from dm_control_tpu_torch._src import forward
 
@@ -146,17 +147,32 @@ def _fish_states(jm, rng, n):
   return qpos, 0.1 * rng.randn(n, jm.nv), rng.uniform(-1, 1, (n, jm.nu))
 
 
-def _jax_step(jm, n_sub, qpos, qvel, ctrl, warm=None):
+def _body_states(jm, rng, n):
+  """n humanoids or quadrupeds lying or standing on the floor: every hinge
+  anywhere in range, the free root 0.1 to 0.4 above the floor at a random
+  orientation, slow."""
+  qpos = _draw_qpos(jm, n, rng)
+  quat = rng.randn(n, 4)
+  qpos[:, 3:7] = quat / np.linalg.norm(quat, axis=1, keepdims=True)
+  qpos[:, :2] = 0.0
+  qpos[:, 2] = rng.uniform(0.1, 0.4, n)
+  return qpos, 0.3 * rng.randn(n, jm.nv), rng.uniform(-1, 1, (n, jm.nu))
+
+
+def _jax_step(jm, n_sub, qpos, qvel, ctrl, warm=None, act=None):
   """The JAX package's control step at float32, in its substeps' stage
   order (step1, then per substep the acc stage, Euler, the divergence
-  check and step1), from qacc_warmstart `warm` (default 0), with each acc
-  stage's incoming warmstart and outgoing Data."""
+  check and step1), from qacc_warmstart `warm` and activations `act`
+  (default 0), returning qpos, qvel, act and each acc stage's incoming
+  warmstart and outgoing Data."""
   d0 = jforward.make_data(jm, jnp.float32)
   if warm is None:
     warm = np.zeros_like(qvel)
+  if act is None:
+    act = np.zeros((len(qpos), jm.na))
 
-  def one(q, v, u, w):
-    d = jforward.step1(jm, d0.replace(qpos=q, qvel=v, ctrl=u,
+  def one(q, v, u, w, a):
+    d = jforward.step1(jm, d0.replace(qpos=q, qvel=v, ctrl=u, act=a,
                                       qacc_warmstart=w), skipsensor=True)
 
     def sub(d, _):
@@ -168,10 +184,11 @@ def _jax_step(jm, n_sub, qpos, qvel, ctrl, warm=None):
       return jforward.step1(jm, d, skipsensor=True), rec
 
     d, recs = jax.lax.scan(sub, d, None, length=n_sub)
-    return d.qpos, d.qvel, recs
+    return d.qpos, d.qvel, d.act, recs
 
   f32 = lambda x: jnp.asarray(x, jnp.float32)
-  return jax.jit(jax.vmap(one))(f32(qpos), f32(qvel), f32(ctrl), f32(warm))
+  return jax.jit(jax.vmap(one))(f32(qpos), f32(qvel), f32(ctrl), f32(warm),
+                                f32(act))
 
 
 def _jax_branches(pm, warm, after, n_sub):
@@ -215,13 +232,14 @@ JAX_MAX = cs.K2_MAX
 
 
 def _lane_err(out, ref):
-  return torch.maximum(*(cs.scaled_err(out[f].double(), ref[f]).amax(dim=1)
-                         for f in ('qpos', 'qvel')))
+  return torch.stack([cs.scaled_err(out[f].double(), ref[f]).amax(dim=1)
+                      for f in ('qpos', 'qvel', 'act') if f in ref]).amax(0)
 
 
 def run_steps(what, n):
-  """One control step of n lanes of task `what` ('walker-walk',
-  'finger-spin', 'cheetah-run' or 'hopper-hop') drawn with numpy (seed 5):
+  """One control step of n lanes of task `what` (walker-walk, finger-spin,
+  cheetah-run, hopper-hop, ..., humanoid-run, quadruped-walk) drawn with
+  numpy (seed 5):
   the port's at float32 and at
   float64 and the JAX package's at float32, each with its choices
   ({run: {'qpos', 'qvel', 'branches'}}); with the port's CPU model, its
@@ -234,7 +252,8 @@ def run_steps(what, n):
   draw = {'walker': _walker_states, 'finger': _finger_states,
           'point_mass': _point_mass_states,
           'ball_in_cup': _ball_in_cup_states, 'swimmer': _swimmer_states,
-          'fish': _fish_states}.get(domain, _planar_states)
+          'fish': _fish_states, 'humanoid': _body_states,
+          'quadruped': _body_states}.get(domain, _planar_states)
   qpos, qvel, ctrl = draw(jm, rng, n)
   n_sub = task.n_sub_steps()
   d = forward.make_data(pm, n, torch.float64, 'cpu').replace(
@@ -243,11 +262,13 @@ def run_steps(what, n):
   runs = {str(dt).split('.')[1]: cs.one_step(
       pm, d, slice(0, n), torch.tensor(ctrl), n_sub, dt, 'cpu',
       record=True) for dt in (torch.float32, torch.float64)}
-  jq, jv, (warm, after) = _jax_step(jm, n_sub, qpos, qvel, ctrl)
+  jq, jv, ja, (warm, after) = _jax_step(jm, n_sub, qpos, qvel, ctrl)
   runs['jax float32'] = {
       'qpos': torch.tensor(np.asarray(jq, np.float64)),
       'qvel': torch.tensor(np.asarray(jv, np.float64)),
       'branches': _jax_branches(pm, warm, after, n_sub)}
+  if pm.na:
+    runs['jax float32']['act'] = torch.tensor(np.asarray(ja, np.float64))
   return runs, pm, d, torch.tensor(ctrl)
 
 
@@ -255,7 +276,8 @@ def run_steps(what, n):
                                         'cheetah-run', 'hopper-hop',
                                         'point_mass-easy',
                                         'ball_in_cup-catch',
-                                        'swimmer-swimmer6', 'fish-swim'])
+                                        'swimmer-swimmer6', 'fish-swim',
+                                        'humanoid-run', 'quadruped-walk'])
 def steps(request):
   """`run_steps` of BATCH lanes of each task."""
   return request.param, run_steps(request.param, BATCH)[0]
@@ -268,14 +290,19 @@ def test_port_float32_step_matches_jax_under_the_gate_rule(steps):
   holds the card's kernels to K1's plain versions.  The port's step
   against the JAX package's: on lanes whose choices differ, the gate's
   rule with the JAX run as the reference; on the others, the median
-  within JAX_MEDIAN and none above JAX_MAX.  The steps reach every
+  within JAX_MEDIAN (where float32 reaches that) and none above JAX_MAX.
+  Where the JAX package's own float32 step lies further than JAX_MEDIAN
+  from float64 on the median lane (quadruped: its stiff filter
+  actuators and damped legs), two float32 steps cannot agree to
+  JAX_MEDIAN on it, and the port's median lane is held instead to be no
+  further from float64 than the JAX package's.  The steps reach every
   quantity the gate records for the model (contacts, on at least half the
   lanes, joint and tendon limits, and the solve's)."""
   what, runs = steps
   ref = runs['float64']
-  gated = {}
+  gated, to_f64 = {}, {}
   for name in ('float32', 'jax float32'):
-    err = _lane_err(runs[name], ref)
+    err = to_f64[name] = _lane_err(runs[name], ref)
     first = cs.first_differences(runs[name]['branches'], ref['branches'],
                                  BATCH)
     gated[name] = cs.lane_verdicts(
@@ -297,7 +324,13 @@ def test_port_float32_step_matches_jax_under_the_gate_rule(steps):
   assert same.sum() >= BATCH // 2
   verdicts = cs.lane_verdicts(err, first, cs.BAND)
   assert all(v != 'failed' for v, s in zip(verdicts, same) if not s)
-  assert err[same].median().item() <= JAX_MEDIAN
+  floor = to_f64['jax float32'].median().item()
+  print(f'{what}: median lane vs float64, port {to_f64["float32"].median()}'
+        f', JAX package {floor}')
+  if floor <= JAX_MEDIAN:
+    assert err[same].median().item() <= JAX_MEDIAN
+  else:
+    assert to_f64['float32'].median().item() <= floor
   assert err[same].max().item() <= JAX_MAX
   first_sub = port['branches'][0]
   lay = efc.layout(suite.build_task(*what.split('-'), device='cpu').model)
@@ -306,6 +339,9 @@ def test_port_float32_step_matches_jax_under_the_gate_rule(steps):
     touching = first_sub['contact'][0].any(dim=1)
     assert touching.float().mean() >= 0.5, 'too few lanes in contact'
     want |= {'contact', 'contact normal'}
+    if any(g.dynamic for g in collision.groups(
+        suite.build_task(*what.split('-'), device='cpu').model)):
+      want.add('selection')
   if len(lay.lim_jnt):
     want.add('limit')
   if len(lay.lim_ten):
@@ -465,3 +501,90 @@ def test_gate_excuses_a_string_flip_only_inside_the_band():
   verdicts = cs.lane_verdicts(torch.tensor([2.5e-2, 2.5e-2]), first,
                               cs.BAND)
   assert verdicts == ['excused', 'failed']
+
+
+@pytest.mark.parametrize('distance,verdict', [(0.5, 'excused'),
+                                              (2.0, 'failed')])
+def test_gate_excuses_a_selection_flip_only_inside_the_band(distance,
+                                                            verdict):
+  """A top-K group of four candidate pairs, K = 2: lane 0's run selected
+  pairs 0 and 2 where the reference selected 0 and 1, whose K-th and
+  (K+1)-th scores stood `distance` bands apart; lane 1's selection
+  matches.  Both lanes' first contact flipped too, but the selection is
+  recorded before the contacts, so it is lane 0's first difference: 2.5e-2 off, it is excused inside the band and fails outside
+  it."""
+  band = cs.BAND * cs.EPS32
+  ref_sel = torch.tensor([[True, True, False, False]] * 2)
+  run_sel = torch.tensor([[True, False, True, False],
+                          [True, True, False, False]])
+  gap = torch.full((2, 4), distance * band, dtype=torch.float64)
+  scale = torch.ones_like(gap)
+  contact = torch.tensor([[True, False]] * 2)
+  c_val = torch.tensor([[-1e-3, 1e-3]] * 2, dtype=torch.float64)
+  run = [{'selection': (run_sel, gap, scale),
+          'contact': (~contact, -c_val, torch.ones_like(c_val))}]
+  ref = [{'selection': (ref_sel, gap, scale),
+          'contact': (contact, c_val, torch.ones_like(c_val))}]
+  first = cs.first_differences(run, ref)
+  assert first[1][:3] == (0, 'contact', 0)
+  assert first[0][:3] == (0, 'selection', 1)
+  assert first[0][3] == pytest.approx(distance * cs.BAND)
+  verdicts = cs.lane_verdicts(torch.tensor([2.5e-2, 9e-3]), first, cs.BAND)
+  assert verdicts == [verdict, 'held']
+
+
+def test_a_reorder_inside_the_selection_records_nothing():
+  """humanoid's first acc stage at float64 (16 lanes lying on the floor):
+  with every dynamic group's selected pairs, their contacts and their
+  efc rows put in reverse order, `branches` records the same choices (and
+  the same values, up to the rounding of the solve's costs): its contact
+  quantities and row zones are keyed by pair, not by slot.  Without the
+  keying (slot by slot) the reversed run would differ."""
+  task = suite.build_task('humanoid', 'run', device='cpu')
+  pm = task.model
+  lay = efc.layout(pm)
+  qpos, qvel, ctrl = _body_states(pm, np.random.RandomState(5), BATCH)
+  d = forward.make_data(pm, BATCH, torch.float64, 'cpu').replace(
+      qpos=torch.tensor(qpos), qvel=torch.tensor(qvel))
+  caught = []
+  with cs.recording(lambda before, after: caught.append((before, after))):
+    cs.one_step(pm, d, slice(0, BATCH), torch.tensor(ctrl), 1,
+                torch.float64, 'cpu')
+  before, after = caught[0]
+  slots = np.arange(lay.contact.ncon)
+  start = 0
+  for g in collision.groups(pm):
+    if g.dynamic:
+      k = g.ncon_per_pair
+      block = slots[start:start + g.ncon].reshape(g.K, k)
+      slots[start:start + g.ncon] = block[::-1].ravel()
+    start += g.ncon
+  per_con = np.diff(np.append(lay.contact.row_start, lay.nefc))
+  rows = np.concatenate([np.arange(lay.n_noncontact)] + [
+      lay.contact.row_start[c] + np.arange(per_con[c]) for c in slots])
+  con = after.contact
+  flipped = after.replace(
+      contact=con.replace(**{f: getattr(con, f)[:, slots] for f in (
+          'dist', 'pos', 'frame', 'includemargin', 'friction', 'solref',
+          'solimp', 'geom1', 'geom2', 'body1', 'body2', 'dim')}),
+      **{f: getattr(after, f)[:, rows] for f in (
+          'efc_J', 'efc_pos', 'efc_margin', 'efc_D', 'efc_aref',
+          'efc_frictionloss', 'efc_active', 'efc_force')})
+  assert not torch.equal(flipped.contact.geom2, con.geom2)
+  rec, rec_flipped = (cs.branches(pm, lay, before, x)
+                      for x in (after, flipped))
+  assert set(rec) >= {'selection', 'contact', 'contact normal', 'row zone'}
+  assert cs.first_differences([rec_flipped], [rec], BATCH) == [None] * BATCH
+  for q, (state, value, scale) in rec.items():
+    f_state, f_value, f_scale = rec_flipped[q]
+    assert torch.equal(state.nan_to_num(), f_state.nan_to_num()), q
+    torch.testing.assert_close(value, f_value, rtol=1e-9, atol=1e-12,
+                               equal_nan=True)
+    torch.testing.assert_close(scale, f_scale, rtol=1e-9, atol=1e-12,
+                               equal_nan=True)
+  slotwise = cs.first_differences(
+      [{'contact': (flipped.contact.dist < flipped.contact.includemargin,
+                    flipped.contact.dist, torch.ones_like(con.dist))}],
+      [{'contact': (con.dist < con.includemargin, con.dist,
+                    torch.ones_like(con.dist))}], BATCH)
+  assert any(f is not None for f in slotwise)

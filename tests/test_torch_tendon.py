@@ -7,7 +7,9 @@ ball_in_cup's spatial string (a two-site chain); `smooth.transmission`
 through tendons (point_mass's motors, fish's fins_flap position
 actuator beside its joint actuators); the tendon limit row (ball_in_cup's
 string, slack and taut) and tendon friction-loss rows (point_mass with a
-friction loss set on both tendons) in `constraint.make_constraint`; the
+friction loss set on both tendons) and the tendon equality rows
+(quadruped's four couplings, one of them edited into a polynomial in a
+second tendon's length) in `constraint.make_constraint`; the
 tendon spring, with an unset spring length (fish's fins_sym, its length
 at qpos0) and with a deadband, and the tendon damper in
 `forward.passive`; and `setconst`'s tendon_length0 and
@@ -250,3 +252,53 @@ def test_tendon_setconst_matches_jax(name):
     print(f'{name} {f}: {getattr(m, f)} (max scaled err {err:.1e})')
     assert err <= TOL, (f, getattr(m, f), getattr(jm, f))
   assert (m.tendon_invweight0 > 0).all()
+
+
+@pytest.mark.parametrize('case', ['coupling', 'polynomial'])
+def test_tendon_equality_rows_match_jax(case):
+  """quadruped's four tendon equalities (each a tendon held at its qpos0
+  length) come first in the layout: their J, pos, D and aref, and those
+  of every row before the contacts, agree with the JAX package's (the
+  contacts' rows follow the top-K selection's order, which ties of
+  structural distances leave to each package's rounding;
+  tests/test_torch_broadphase.py holds them).  'polynomial' makes the first
+  one a quartic in a second tendon's length (tendon2, eq_data[:5]).  A
+  CONNECT equality raises, naming itself."""
+  from dm_control_tpu.suite import quadruped as jquadruped
+  from dm_control_tpu_torch._src.types import EqType
+  from dm_control_tpu_torch.suite import quadruped
+  jm = jquadruped._model.__wrapped__(floor_size=10.0)
+  m = engine.model_from_root(quadruped.arena(10.0), 'cpu',
+                             **quadruped.BROADPHASE)
+  assert m.neq == 4 and (m.eq_type == int(EqType.TENDON)).all()
+  assert (m.eq_obj2id == -1).all()
+  if case == 'polynomial':
+    for mm in (jm, m):
+      mm.eq_obj2id[0] = 4
+      mm.eq_data[0, :5] = [0.01, 0.5, -0.3, 0.2, 0.1]
+  lay = efc.layout(m)
+  assert list(lay.types[:4]) == [efc.EQUALITY] * 4
+  rng = np.random.RandomState(6)
+  qpos = np.tile(m.qpos0, (B, 1))
+  for j in range(1, m.njnt):
+    qpos[:, m.jnt_qposadr[j]] = rng.uniform(*m.jnt_range[j], B)
+  qpos[:, 2] = rng.uniform(0.2, 0.5, B)
+  qvel = rng.randn(B, m.nv)
+  ref, d = _run(jm, m, qpos, qvel,
+                lambda d: jforward.step1(jm, d, skipsensor=True),
+                lambda d: forward.step1(m, d, skipsensor=True))
+  n = lay.n_noncontact
+  errs = {f: (_scaled(getattr(d, f)[:, :4].numpy(),
+                      np.asarray(getattr(ref, f))[:, :4]),
+              _scaled(getattr(d, f)[:, :n].numpy(),
+                      np.asarray(getattr(ref, f))[:, :n]))
+          for f in ('efc_J', 'efc_pos', 'efc_D', 'efc_aref')}
+  print(f'quadruped tendon equality ({case}): max scaled err (equality '
+        f'rows, the {n} rows before the contacts) {errs}')
+  assert all(e <= TOL for pair in errs.values() for e in pair), errs
+  assert bool(d.efc_active[:, :4].all())
+  assert float(d.efc_pos[:, :4].abs().min()) > 0
+  if case == 'polynomial':
+    m.eq_type[1] = int(EqType.CONNECT)
+    with pytest.raises(NotImplementedError, match='CONNECT'):
+      constraint.make_constraint(m, d)

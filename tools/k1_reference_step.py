@@ -16,7 +16,8 @@ and those of the lanes past them from a generator of the task's own
 (`extra_controls`).  The slice's tasks (`chip_smoke.SLICE_TASKS`:
 cheetah-run, hopper-hop, pendulum-swingup, reacher-easy,
 cartpole-swingup, acrobot-swingup, finger-turn_easy, point_mass-easy,
-ball_in_cup-catch, swimmer-swimmer6, fish-swim) start, as in
+ball_in_cup-catch, swimmer-swimmer6, fish-swim, humanoid-run,
+quadruped-walk) start, as in
 chip_smoke.py's phase slice, from the final states of its last rollout
 run of each (`chip_smoke.slice_run`), with its reference controls first
 (`chip_smoke.slice_controls`) and those of the lanes past them from the
@@ -25,13 +26,13 @@ it runs one control step of each task's lanes on the card at float32
 (`chip_smoke.one_step`) twice: through the K1 kernels (route `kernels`),
 and with K1's wrappers sent to their plain versions on the card (route
 `plain`); and once on the CPU at float64.  Each run records the discrete
-choices of every substep (`chip_smoke.branches`: contact and limit
-activity, the solve's warmstart choice, the zones of its rows and cones
-at the solution, and, at float32, where each Newton solve stopped:
-`solve stop`).
+choices of every substep (`chip_smoke.branches`: the top-K selection,
+contact and limit activity, the solve's warmstart choice, the zones of
+its rows and cones at the solution, and, at float32, where each Newton
+solve stopped: `solve stop`).
 
-For each route and task it prints the per-lane max scaled error of qpos
-and qvel against float64 (largest, mean, lanes above 1e-3 and REF_TOL),
+For each route and task it prints the per-lane max scaled error of qpos,
+qvel and (quadruped) act against float64 (largest, mean, lanes above 1e-3 and REF_TOL),
 the lanes whose choices all matched and their largest error, and for
 every lane over REF_TOL its verdict and what decided it
 (`chip_smoke.lane_reason`): the first choice that differs (acc stage,
@@ -180,8 +181,9 @@ def dump(name, data, ctrl, idx):
 
 
 def report(what, out, ref, launches):
+  fields = [f for f in ('qpos', 'qvel', 'act') if f in ref]
   errs = {f: cs.scaled_err(out[f].cpu().double(), ref[f]).amax(dim=1)
-          for f in ('qpos', 'qvel')}
+          for f in fields}
   for f, err in errs.items():
     print(f'{what} vs float64 CPU: {f} per-lane max scaled err: max '
           f'{err.max().item():.2e} mean {err.mean().item():.2e} first '
@@ -190,7 +192,7 @@ def report(what, out, ref, launches):
           f'{int((err > 1e-3).sum())}, above {cs.REF_TOL:g} '
           f'{int((err > cs.REF_TOL).sum())}; K1 launches {launches}',
           flush=True)
-  err = torch.maximum(errs['qpos'], errs['qvel'])
+  err = torch.stack(list(errs.values())).amax(dim=0)
   first = cs.first_differences(out['branches'], ref['branches'],
                                err.shape[0])
   stops = cs.stop_distances(out['branches'], err.shape[0])
@@ -198,9 +200,9 @@ def report(what, out, ref, launches):
   print(f'{what}: lanes whose choices all matched {int(matched.sum())} of '
         f'{len(first)}, their largest error '
         f'{err[matched].max().item() if matched.any() else 0:.2e}')
-  lane_err = torch.maximum(*(
+  lane_err = torch.stack([
       cs.lane_scaled_err(out[f].cpu().double(), ref[f]).amax(dim=1)
-      for f in ('qpos', 'qvel')))
+      for f in fields]).amax(dim=0)
   verdicts = cs.lane_verdicts(err, first, cs.BAND, stops)
   for lane in torch.nonzero(err > cs.REF_TOL).flatten().tolist():
     print(f'{what}: lane {lane} error {err[lane].item():.2e} (lane-scaled '

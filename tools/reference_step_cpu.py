@@ -166,12 +166,15 @@ def replay(what, path):
       for dt in (torch.float32, torch.float64)}
   qaccs = {str(dt).split('.')[1]: stage_qaccs(pm, d, ctrl, n_sub, dt)
            for dt in (torch.float32, torch.float64)}
-  jq, jv, (warm, after) = ref_step._jax_step(
-      jm, n_sub, z['qpos'], z['qvel'], z['ctrl'], warm=z['qacc_warmstart'])
+  jq, jv, ja, (warm, after) = ref_step._jax_step(
+      jm, n_sub, z['qpos'], z['qvel'], z['ctrl'], warm=z['qacc_warmstart'],
+      act=z['act'] if pm.na else None)
   runs['jax float32'] = {
       'qpos': torch.tensor(np.asarray(jq, np.float64)),
       'qvel': torch.tensor(np.asarray(jv, np.float64)),
       'branches': ref_step._jax_branches(pm, warm, after, n_sub)}
+  if pm.na:
+    runs['jax float32']['act'] = torch.tensor(np.asarray(ja, np.float64))
   qaccs['jax float32'] = [torch.tensor(np.asarray(after.qacc, np.float64)[:, s])
                           for s in range(n_sub)]
   ref = runs['float64']

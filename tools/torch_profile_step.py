@@ -2,7 +2,7 @@
 
 Run on a machine with one CUDA device, from the root of a checkout:
 
-    python3 tools/torch_profile_step.py [--task walker-walk|finger-spin|cheetah-run|...]
+    python3 tools/torch_profile_step.py [--task walker-walk|finger-spin|humanoid-run|...]
 
 Builds the task (walker-walk by default) at batch 4096 (bench.py's batch)
 on the card, warms it up, then runs the same window of 3 control steps
@@ -44,7 +44,8 @@ TASKS = {what: tuple(what.split('-')) for what in (
     'walker-walk', 'finger-spin', 'cheetah-run', 'hopper-hop',
     'pendulum-swingup', 'reacher-easy', 'cartpole-swingup',
     'acrobot-swingup', 'finger-turn_easy', 'point_mass-easy',
-    'ball_in_cup-catch', 'swimmer-swimmer6', 'fish-swim')}
+    'ball_in_cup-catch', 'swimmer-swimmer6', 'fish-swim', 'humanoid-run',
+    'quadruped-walk')}
 
 
 def main():
