@@ -46,16 +46,22 @@ any failure exits non-zero and no phase catches its own failure:
      some lane (`topk_live`); for those two also the top-K broadphase
      (`broadphase_bits`): the selection and every contact field it
      gathers for the first 4093 lanes alone, and for a second call, equal
-     the full batch's bit for bit; and K1 at humanoid's n = 27 and
-     quadruped's n = 22 on their initial states (drawn collision-free and
-     settled), with the same bound and bit checks;
+     the full batch's bit for bit; K2-ell at the six manipulator and
+     stacker layouts (nefc 392-1166, nv 11-20, 128-386 cones; stack_4 one
+     environment per block) on states with the props on the floor,
+     stacked or in the slot (`prop_states`), held by `ell_gates` with the
+     same launch and bit checks; and K1 at humanoid's n = 27,
+     quadruped's n = 22, manipulator's n = 11 and stacker's 14 and 20 on
+     their initial states (drawn collision-free, humanoid's and
+     quadruped's settled), with the same bound and bit checks;
   3. reference: one control step of REF_LANES = 256 walker-walk lanes,
      and of 256 finger-spin lanes in contact, on the card at float32
      against the port's float64 CPU path (plain versions) from the same
      state, every run recording its discrete choices at every acc stage
      (contact activity and normals, limit activity, the solve's warmstart
      choice and its rows' and cones' zones, and tendon limits where the
-     model has them): each lane within REF_TOL =
+     model has them; the box colliders' corner and axis choices,
+     `box_choices`): each lane within REF_TOL =
      1e-2 (max scaled error of qpos and qvel) is held; one over it is
      excused where its first differing choice stood within BAND * EPS32 *
      scale of its threshold in the float64 run, or, with every choice
@@ -99,23 +105,29 @@ any failure exits non-zero and no phase catches its own failure:
      (cheetah-run, hopper-hop, pendulum-swingup, reacher-easy,
      cartpole-swingup, acrobot-swingup (both RK4), finger-turn_easy,
      point_mass-easy, ball_in_cup-catch, swimmer-swimmer6, fish-swim,
-     humanoid-run and quadruped-walk), SLICE_RUNS runs of reset and 50
-     control steps: states (model_var and act included) finite, rewards
+     humanoid-run, quadruped-walk and SLICE9_TASKS: manipulator
+     bring_ball, bring_peg, insert_ball and insert_peg; stacker is held
+     in phase 2 only, STACKER_TASKS), SLICE_RUNS runs of reset and
+     `slice_steps` control
+     steps: states (model_var and act included) finite, rewards
      in [0, 1], every kernel's launch count exactly `expected_launches`
      per control step; then phase 3's gate on 256 lanes of each task's
      final states (act compared too where the model has activations, and
-     under the top-K broadphase the contacts keyed by pair, with the
-     selection itself recorded: `branches`); then reacher-easy,
+     under the top-K broadphase, or for plane-box pairs, the contacts
+     keyed by pair or box corner, with the selection and the box
+     colliders' choices recorded: `branches`); then reacher-easy,
      finger-turn_easy, cheetah-run, ball_in_cup-catch, swimmer-swimmer6,
-     fish-swim, humanoid-run and quadruped-walk with an episode limit that
-     ends every lane's episode: reacher's, swimmer's and fish's lanes hold
-     the target geom_pos their fresh init drew, finger-turn's, cheetah's,
-     ball_in_cup's, humanoid's and quadruped's their reset pool entry
-     (finger-turn's target site_pos and quadruped's act included).
+     fish-swim, humanoid-run, quadruped-walk and manipulator-insert_peg
+     with an episode limit that ends every lane's episode: reacher's,
+     swimmer's and fish's lanes hold the target geom_pos their fresh
+     init drew, the others their reset pool entry (finger-turn's target
+     site_pos, quadruped's act, insert_peg's body_pos and body_quat
+     included).
 
 Output: the card's name and power limit (nvidia-smi), env-steps/s of
 walker-walk@4096, finger-spin@4096 and each slice task@4096 (each the
-median of three runs), one
+median of three runs; the K2-ell row carries its time at each ninth-slice
+layout, the K1 rows at n = 11, 14 and 20), one
 `{"kernels": [...]}` JSON line, and last the
 `{"ok": true, "device": {...}}` line.  The nvcc/ptxas log of the build
 is in dm_control_tpu_torch/_build/build.log; its register and spill lines
@@ -138,7 +150,21 @@ PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 FINGER_RUNS = 3
 WALKER_RUNS = 3
-# the tasks of the sixth, seventh and eighth slices, each driven through one
+# the ninth slice's tasks (the box colliders; K2-ell at manipulation-sized
+# layouts), their kernel-phase generator's seed, the tasks whose initial
+# states give K1's n = 11, 14 and 20, and the control steps of each of
+# their runs in phase slice
+SLICE9_TASKS = ('manipulator-bring_ball', 'manipulator-bring_peg',
+                'manipulator-insert_ball', 'manipulator-insert_peg')
+SLICE9_SEED = 40
+SLICE9_K1 = ('manipulator-bring_ball', 'stacker-stack_2', 'stacker-stack_4')
+SLICE9_STEPS = 10
+# stacker's tasks, held in phase kernels only (K2-ell at their layouts, K1
+# at n = 14 and 20): their float32 step misses the float64 path past the
+# reference gate's rule on some lanes, as the JAX package's float32 step
+# does (PERF.md, ROADMAP queue 3), so they are not in phase slice
+STACKER_TASKS = ('stacker-stack_2', 'stacker-stack_4')
+# the tasks of the sixth to ninth slices, each driven through one
 # BatchedEnv of BATCH lanes (phase slice) and gated against the float64 CPU
 # path (phase reference, on the rollout's final states); a task's seeds
 # follow from its index, so new tasks are appended
@@ -146,8 +172,11 @@ SLICE_TASKS = ('cheetah-run', 'hopper-hop', 'pendulum-swingup',
                'reacher-easy', 'cartpole-swingup', 'acrobot-swingup',
                'finger-turn_easy', 'point_mass-easy', 'ball_in_cup-catch',
                'swimmer-swimmer6', 'fish-swim', 'humanoid-run',
-               'quadruped-walk')
+               'quadruped-walk') + SLICE9_TASKS
 SLICE_RUNS = 3
+# the control steps of each run of the sixth to eighth slices' tasks (50
+# until the ninth slice cut them, to keep the script within its time)
+SLICE_STEPS = 25
 # seeds of the slice's own generators (kernel draws, K2 inputs, the
 # reference controls of each task), so that every earlier phase keeps its
 # draws
@@ -490,10 +519,11 @@ EPS32 = 2.0 ** -23          # float32 spacing at 1 (torch.finfo().eps)
 BAND = 64
 REF_LANES = 256             # lanes of each task the gate holds
 REF_SEED = 2                # the reference generator's seed
-# pipeline order: the top-K selection, collision, limits, then the solve's
-# warmstart choice and the zones of its rows and cones at the solution
-QUANTITIES = ('selection', 'contact', 'contact core', 'contact normal',
-              'limit',
+# pipeline order: the top-K selection, the box colliders' choices,
+# collision, limits, then the solve's warmstart choice and the zones of its
+# rows and cones at the solution
+QUANTITIES = ('selection', 'box corners', 'box axis', 'contact',
+              'contact core', 'contact normal', 'limit',
               'tendon limit', 'warmstart', 'row zone', 'cone top',
               'cone bottom')
 # two runs' normals of one contact differ where they are further apart
@@ -568,31 +598,63 @@ def selected_pairs(m, con, g, slot):
   return pair
 
 
-def contact_keys(m, con):
+def keys_per_pair(g):
+  """The keys `contact_keys` gives each candidate pair of group g: one per
+  contact, or for plane-box one per box corner."""
+  from dm_control_tpu_torch._src.types import GeomType
+  return 8 if (g.t1, g.t2) == (GeomType.PLANE, GeomType.BOX) else (
+      g.ncon_per_pair)
+
+
+def plane_box_corners(m, d, g):
+  """(B, npairs, 8) each plane-box pair's box corner heights over the
+  plane, and (B, npairs, 4) the corners its 4 contact slots hold
+  (recomputed from d's geom poses at d's dtype, as `_plane_box` chose
+  them)."""
+  import torch
+  from dm_control_tpu_torch._src import colliders
+  from dm_control_tpu_torch._src.types import mirror
+  ref = d.qpos
+  g1, g2 = mirror(m, ref, g.g1), mirror(m, ref, g.g2)
+  _, heights = colliders.plane_box_heights(
+      d.geom_xpos[:, g1], d.geom_xmat[:, g1], d.geom_xpos[:, g2],
+      d.geom_xmat[:, g2], mirror(m, ref, m.geom_size[g.g2]))
+  return heights, torch.argsort(heights, dim=-1, stable=True)[..., :4]
+
+
+def contact_keys(m, con, d=None):
   """(keys (B, ncon), number of keys): each contact slot's place among
   every candidate contact of the model, pair by pair.  A static group's
   slots keep their places; a dynamic (top-K) group's slot i * k + j, which
   holds the pair its lane selected i-th, takes that pair's place (pair
   index * k + j), so that two runs' contacts of one pair meet whatever
-  order their selections took.  Keys are None where the model has no
-  dynamic group: then slots are keys."""
+  order their selections took; a plane-box slot takes its box corner's
+  place (pair index * 8 + corner, the corners `plane_box_corners` reads
+  off d), so that two runs' contacts of one corner meet whatever order
+  their 4 equally deep corners took.  Keys are None where the model has
+  no such group: then slots are keys."""
   import torch
   from dm_control_tpu_torch._src import collision
   groups = collision.groups(m)
-  if not any(g.dynamic for g in groups):
+  if all(keys_per_pair(g) == g.ncon_per_pair and not g.dynamic
+         for g in groups):
     return None, con.dist.shape[1]
   B, dev = con.dist.shape[0], con.dist.device
   keys, slot, key = [], 0, 0
   for g in groups:
-    k = g.ncon_per_pair
+    k, kp = g.ncon_per_pair, keys_per_pair(g)
     if g.dynamic:
       pair = selected_pairs(m, con, g, slot)
       keys.append(key + (pair[..., None] * k + torch.arange(k, device=dev)
                          ).reshape(B, -1))
+    elif kp != k:
+      corner = plane_box_corners(m, d, g)[1]
+      keys.append(key + (torch.arange(g.npairs, device=dev)[:, None] * kp
+                         + corner).reshape(B, -1))
     else:
       keys.append(torch.arange(key, key + g.ncon, device=dev).expand(B, -1))
     slot += g.ncon
-    key += g.npairs * k
+    key += g.npairs * kp
   return torch.cat(keys, dim=1), key
 
 
@@ -615,8 +677,8 @@ def row_keys(m, lay, ckeys):
     keys.append((rkey + local[..., None] * r
                  + torch.arange(r, device=dev)).reshape(B, -1))
     slot += g.ncon
-    key += g.npairs * g.ncon_per_pair
-    rkey += g.npairs * g.ncon_per_pair * r
+    key += g.npairs * keys_per_pair(g)
+    rkey += g.npairs * keys_per_pair(g) * r
   return torch.cat(keys, dim=1), rkey
 
 
@@ -658,6 +720,78 @@ def selection(m, d):
   return tuple(torch.cat(x, dim=1) for x in zip(*parts))
 
 
+def box_choices(m, d):
+  """The box colliders' discrete choices (quantities of `branches`), per
+  pair of the static box groups, each recorded only where it can matter
+  and its value the nearer of the choice's own margin and that reach's:
+    box corners  per plane-box pair and box corner, whether the pair's
+                 4 contacts hold it, where the 4th deepest corner is
+                 within its contact margin (else no corner): value the
+                 smaller of the 4th-to-5th height gap and |4th height -
+                 margin|
+    box axis     per box-box pair, the axis its manifold is built on (the
+                 first largest of `colliders.box_box_axes`' 15
+                 candidates: A's faces, B's faces, the edges), where a
+                 contact of the pair is active (else -1): value the
+                 smaller of the gap between the two largest candidates
+                 and |the pair's smallest dist - margin|
+  scale max(1, |the geoms' positions|)."""
+  import torch
+  from dm_control_tpu_torch._src import colliders
+  from dm_control_tpu_torch._src import collision
+  from dm_control_tpu_torch._src.types import GeomType, mirror
+  con, ref = d.contact, d.qpos
+  out, slot = {}, 0
+  for g in collision.groups(m):
+    if GeomType.BOX in (g.t1, g.t2) and g.t1 in (GeomType.PLANE,
+                                                 GeomType.BOX):
+      assert not g.dynamic, 'a top-K box group'
+      g1, g2 = mirror(m, ref, g.g1), mirror(m, ref, g.g2)
+      scale = torch.maximum(d.geom_xpos[:, g1].abs().amax(-1),
+                            d.geom_xpos[:, g2].abs().amax(-1)).clamp(min=1.0)
+      dist = con.dist[:, slot:slot + g.ncon].reshape(
+          -1, g.npairs, g.ncon_per_pair)
+      margin = con.includemargin[:, slot:slot + g.ncon:g.ncon_per_pair]
+      if g.t1 == GeomType.PLANE:
+        heights, corner = plane_box_corners(m, d, g)
+        ranked = torch.sort(heights, dim=-1, stable=True).values
+        h4 = ranked[..., 3] - margin
+        value = torch.minimum(ranked[..., 4] - ranked[..., 3], h4.abs())
+        held = torch.zeros_like(heights, dtype=torch.bool).scatter_(
+            -1, corner, True) & (h4 < 0)[..., None]
+        part = ('box corners', (held.flatten(1),
+                                value[..., None].expand(heights.shape)
+                                .flatten(1),
+                                scale[..., None].expand(heights.shape)
+                                .flatten(1)))
+      else:
+        cand = colliders.box_box_axes(
+            d.geom_xpos[:, g1], d.geom_xmat[:, g1],
+            mirror(m, ref, m.geom_size[g.g1]), d.geom_xpos[:, g2],
+            d.geom_xmat[:, g2], mirror(m, ref, m.geom_size[g.g2]))[-1]
+        top2 = torch.topk(cand, 2, dim=-1).values
+        reach = dist.amin(-1) - margin
+        axis = torch.where(reach < 0, torch.argmax(cand, dim=-1), -1)
+        part = ('box axis', (axis, torch.minimum(top2[..., 0] - top2[..., 1],
+                                                 reach.abs()), scale))
+      q, x = part
+      out[q] = (tuple(torch.cat([a, b], dim=1) for a, b in zip(out[q], x))
+                if q in out else x)
+    slot += g.ncon
+  return out
+
+
+def cone_keys(lay, ckeys, rows):
+  """(B, ncg) the `contact_keys` of the contacts whose elliptic cones
+  have normal rows rows[:, 0]."""
+  import numpy as np
+  import torch
+  start = lay.contact.row_start
+  con = np.searchsorted(start, rows[:, 0])
+  assert (start[con] == rows[:, 0]).all()
+  return ckeys[:, torch.as_tensor(con, device=ckeys.device)]
+
+
 def branches(m, lay, before, after):
   """The discrete choices one physics step's acc stage made, lane by lane.
 
@@ -671,6 +805,9 @@ def branches(m, lay, before, after):
                the lane selected it (`selection`): decided by the gap
                between the group's K-th and (K+1)-th score; scale max(1,
                |contact position|) of the group's contacts
+    box corners, box axis  which corners a plane-box pair's contacts
+               hold, and the axis a box-box pair's manifold is built on
+               (`box_choices`)
     contact    dist - margin < 0 per candidate contact (constraint.py);
                scale max(1, |contact position|)
     contact core  the separation of the two geoms' cores, dist + their
@@ -699,32 +836,38 @@ def branches(m, lay, before, after):
   contact quantities and the row zones are keyed by pair (`contact_keys`,
   `row_keys`), not by slot: a reorder inside the selected set is no
   choice and records nothing, and a pair left unselected records no
-  contact (its value inf, its normal NaN).  Elliptic cones of dynamic
-  groups are not keyed: no model has them.
+  contact (its value inf, its normal NaN).  Plane-box contacts are keyed
+  by box corner (`contact_keys`) in the same way, and the cones follow
+  their contacts' keys (`cone_keys`).
   """
   import numpy as np
   import torch
+  from dm_control_tpu_torch._src import collision
   from dm_control_tpu_torch._src import efc
-  from dm_control_tpu_torch._src.types import DisableBit
+  from dm_control_tpu_torch._src.types import DisableBit, GeomType
   from dm_control_tpu_torch.ops import newton_kernel as nk
   d = after
   out = {}
   ckeys = rkeys = None
   if lay.contact is not None and lay.contact.ncon:
     con = d.contact
-    ckeys, n = contact_keys(m, con)
-    key = lambda x, fill: by_key(x, ckeys, n, fill)
+    ckeys, n_keys = contact_keys(m, con, d)
+    key = lambda x, fill: by_key(x, ckeys, n_keys, fill)
     v = con.dist - con.includemargin
     scale = key(con.pos.abs().amax(-1).clamp(min=1.0), 1.0)
     if ckeys is not None:
-      assert not lay.ell_groups, 'elliptic cones of a top-K group'
-      out['selection'] = selection(m, d)
+      if any(g.dynamic for g in collision.groups(m)):
+        out['selection'] = selection(m, d)
       rkeys, n_rows = row_keys(m, lay, ckeys)
+    out.update(box_choices(m, d))
     out['contact'] = (key(v < 0, False), key(v, float('inf')), scale)
     radius = torch.as_tensor(m.geom_size[:, 0], dtype=v.dtype,
                              device=v.device)
-    radius = torch.where(torch.as_tensor(m.geom_type == 0, device=v.device),
-                         0.0, radius)                      # planes
+    # planes and boxes have no core radius: a sphere's core is then its
+    # center, which crossing a box's surface flips sphere-box's normal
+    radius = torch.where(torch.as_tensor(
+        (m.geom_type == GeomType.PLANE) | (m.geom_type == GeomType.BOX),
+        device=v.device), 0.0, radius)
     sep = con.dist + radius[con.geom1.long()] + radius[con.geom2.long()]
     out['contact core'] = (key(sep < CORE_EPS, False),
                            key(sep - CORE_EPS, float('inf')), scale)
@@ -806,8 +949,16 @@ def branches(m, lay, before, after):
     scale = ys[..., 0] + mu * ys[..., 1:].norm(dim=-1)
     c_on = on[:, rows[:, 0]]
     v_top, v_bot = mu * t - n, mu * n + t
-    tops.append((c_on & (v_top <= 0), v_top, scale))
-    bottoms.append((c_on & (v_bot <= 0), v_bot, scale))
+    top = (c_on & (v_top <= 0), v_top, scale)
+    bottom = (c_on & (v_bot <= 0), v_bot, scale)
+    if ckeys is not None:
+      k = cone_keys(lay, ckeys, rows.cpu().numpy())
+      top, bottom = ((by_key(z[0], k, n_keys, False),
+                      by_key(z[1], k, n_keys, float('inf')),
+                      by_key(z[2], k, n_keys, float('inf')))
+                     for z in (top, bottom))
+    tops.append(top)
+    bottoms.append(bottom)
   for q, parts in (('cone top', tops), ('cone bottom', bottoms)):
     if parts:
       out[q] = tuple(torch.cat(x, dim=1) for x in zip(*parts))
@@ -1016,9 +1167,16 @@ def finger_solver_inputs(m, lay, B, gen, dev):
   return args, d
 
 
+def slice_steps(what):
+  """The control steps of each of slice task `what`'s runs."""
+  return (SLICE9_STEPS if what in SLICE9_TASKS + STACKER_TASKS
+          else SLICE_STEPS)
+
+
 def slice_run(env, i_task, run, dev, after_reset=lambda: None):
-  """Run `run` of slice task number `i_task` (in SLICE_TASKS): env.reset(
-  seed=run), after_reset(), then CONTROL_STEPS control steps through
+  """Run `run` of slice task number `i_task` (in SLICE_TASKS, then
+  STACKER_TASKS for tools/k1_reference_step.py): env.reset(
+  seed=run), after_reset(), then `slice_steps` control steps through
   `rollout_fn` with actions from a generator of its own.  Returns (state,
   rewards, seconds of the reset, seconds of the steps), each ended by a
   synchronize."""
@@ -1032,7 +1190,8 @@ def slice_run(env, i_task, run, dev, after_reset=lambda: None):
   t_reset = time.perf_counter() - t0
   after_reset()
   t0 = time.perf_counter()
-  state, rewards = env.rollout_fn(CONTROL_STEPS)(state, gen)
+  what = (SLICE_TASKS + STACKER_TASKS)[i_task]
+  state, rewards = env.rollout_fn(slice_steps(what))(state, gen)
   torch.cuda.synchronize()
   return state, rewards, t_reset, time.perf_counter() - t0
 
@@ -1057,8 +1216,9 @@ def impact_states(what, m, B, gen, dev):
   first joint at its limit (within 0.01 either side) moving into it, the
   rest of the chain anywhere in range, slow; humanoids lying on the floor
   (the root 0.1 to 0.4 up) and quadrupeds standing or fallen (0.15 to
-  0.6), at random orientations, every hinge anywhere in range, slow.
-  Controls uniform."""
+  0.6), at random orientations, every hinge anywhere in range, slow;
+  manipulators and stackers with their props on the floor, stacked or in
+  the slot (`prop_states`).  Controls uniform."""
   import math as pymath
   import torch
   from dm_control_tpu_torch._src import forward
@@ -1097,6 +1257,8 @@ def impact_states(what, m, B, gen, dev):
         kind == 0, cup_z + 0.2675,
         torch.where(kind == 1, u(-0.015, 0.0), -0.176))
     qvel = 0.3 * torch.randn((B, m.nv), **kw)
+  elif what in SLICE9_TASKS + STACKER_TASKS:
+    qpos, qvel = prop_states(m, qpos, gen)
   elif what in SLICE8_TASKS:
     for j in range(1, m.njnt):
       qpos[:, int(m.jnt_qposadr[j])] = u(*(float(v) for v in m.jnt_range[j]))
@@ -1118,6 +1280,57 @@ def impact_states(what, m, B, gen, dev):
   return d.replace(qpos=qpos, qvel=qvel, ctrl=ctrl)
 
 
+def prop_states(m, qpos, gen):
+  """qpos and qvel of manipulator or stacker lanes (qpos: the model's
+  qpos0 per lane, on the card), drawn from `gen`: the arm anywhere in
+  range, slow, and on two lanes of three the props in contact: the ball on
+  the floor; the peg standing on its tip, or by turns in its slot (at the
+  model's slot pose); box 0 on the floor, box 1 on box 0 and boxes 2 and 3
+  on the floor beside them, each turned by up to 0.05 or, on every fourth
+  lane, exactly flat (corners and faces tied).  The other lanes' props
+  anywhere in the air.  (tests/test_torch_domains.prop_states draws the
+  same with numpy.)"""
+  import math as pymath
+  import torch
+  from dm_control_tpu_torch.suite import manipulator
+  B, dev = qpos.shape[0], qpos.device
+  kw = dict(generator=gen, device=dev)
+  u = lambda lo, hi: lo + (hi - lo) * torch.rand(B, **kw)
+  adr = lambda name: int(m.jnt_qposadr[m.name2id('joint', name)])
+  qpos = manipulator.Arm(m).sample(qpos, gen)
+  lane = torch.arange(B, device=dev)
+  in_contact = lane % 3 < 2
+  sink = u(0.0, 1e-3)
+  tilt = torch.where(lane % 4 == 0, 0.0, u(-0.05, 0.05))
+  names = m.names['joint']
+  if 'ball_x' in names:
+    qpos[:, adr('ball_x')] = u(-0.3, 0.3)
+    qpos[:, adr('ball_z')] = torch.where(in_contact, 0.022 - sink,
+                                         u(0.1, 0.5))
+  if 'peg_x' in names:
+    x, z, angle = u(-0.3, 0.3), 0.118 - sink, tilt
+    if 'slot_0' in m.names['geom']:
+      b = m.name2id('body', 'slot')
+      into = lane % 3 == 1
+      x = torch.where(into, float(m.body_pos[b, 0]) + u(-1e-3, 1e-3), x)
+      z = torch.where(into, float(m.body_pos[b, 2]) + u(-1e-3, 1e-3), z)
+      angle = torch.where(into, 2 * pymath.atan2(float(m.body_quat[b, 2]),
+                                                 float(m.body_quat[b, 0])),
+                          angle)
+    qpos[:, adr('peg_x')] = x
+    qpos[:, adr('peg_z')] = torch.where(in_contact, z, u(0.2, 0.5))
+    qpos[:, adr('peg_y')] = angle
+  for i, x0 in enumerate((0.1, 0.1, -0.1, 0.25)):
+    if f'box{i}_x' not in names:
+      break
+    qpos[:, adr(f'box{i}_x')] = x0 + u(-0.01, 0.01)
+    qpos[:, adr(f'box{i}_z')] = torch.where(
+        in_contact, (0.066 - 2 * sink) if i == 1 else (0.022 - sink),
+        u(0.1, 0.6))
+    qpos[:, adr(f'box{i}_y')] = tilt * (1 - 2 * (i % 2))
+  return qpos, 0.3 * torch.randn((B, m.nv), **kw)
+
+
 def k2_task_check(nk, what, m, lay, d):
   """K2 on `what`'s solver inputs from the states d (the pipeline run up
   to the solve, warm-started from d's qacc_warmstart), at least a quarter
@@ -1130,8 +1343,12 @@ def k2_task_check(nk, what, m, lay, d):
   and a second launch giving the full batch's bits.  The component-scaled
   readings are printed for the record: on walker's first floor impacts
   they fail 5e-2 for the plain float32 solve itself against float64, so
-  they measure float32, not the kernel.  Returns (args, kw, iterations,
-  max |kernel - plain|, the forward Data)."""
+  they measure float32, not the kernel.  On an elliptic layout the
+  solve is K2-ell, held by `ell_gates` (its plain versions with the
+  layout's cones), and the lanes' active elliptic contacts and their
+  zones at the float64 optimum are printed.  Returns (args, kw,
+  iterations, max |kernel - plain|, the forward Data, each lane's active
+  elliptic contacts or None)."""
   import torch
   from dm_control_tpu_torch._src import efc
   from dm_control_tpu_torch._src import forward
@@ -1145,11 +1362,14 @@ def k2_task_check(nk, what, m, lay, d):
             tol=solver.effective_tol(m.opt.tolerance, torch.float32),
             meaninertia=float(m.stat_meaninertia))
   B = args[0].shape[0]
+  name = 'newton_solve_ell' if lay.ell_groups else 'newton_solve_batched'
   x_k, f_k, iters = nk.newton_solve_batched(*args, lay=lay,
                                             return_iters=True, **kw)
-  x_p, _ = nk.newton_solve_plain(*args, types=lay.types, **kw)
+  plain_kw = dict(types=lay.types, ell_groups=lay.ell_groups)
+  x_p, _, iters_p = nk.newton_solve_plain(*args, **plain_kw,
+                                          return_iters=True, **kw)
   x_64, _ = nk.newton_solve_plain(
-      *[a.double() for a in args], types=lay.types,
+      *[a.double() for a in args], **plain_kw,
       **dict(kw, tol=solver.effective_tol(m.opt.tolerance, torch.float64)))
   # the rows after the equalities (always active), friction losses and
   # joint limits
@@ -1157,21 +1377,35 @@ def k2_task_check(nk, what, m, lay, d):
            + len(lay.lim_jnt))
   touch = d.efc_active[:, first:] if lay.nefc > first else d.efc_active
   active = int(touch.any(dim=1).sum())
-  log(f'# phase kernels: newton_solve_batched on {what} B={B} '
+  cones = None
+  if lay.ell_groups:
+    on, zones = cone_zones(lay, args[0].double(), args[2].double(), args[5],
+                           x_64)
+    cones = on.sum(dim=1)
+    extra = (f'; active elliptic contacts mean '
+             f'{cones.double().mean().item():.2f} max {int(cones.max())} '
+             f'of ncg={len(lay.ell_groups[3][0])} per lane, zones at the '
+             f'float64 optimum top {zones["top"]:.4f} bottom '
+             f'{zones["bottom"]:.4f} mid {zones["mid"]:.4f}')
+  log(f'# phase kernels: {name} on {what} B={B} '
       f'nefc={lay.nefc} nv={m.nv}: lanes in contact (or, without contacts, '
       f'with an active row) {active}; iterations mean '
-      f'{iters.float().mean().item():.2f} max {int(iters.max())}')
-  assert active >= B // 4, f'K2 on {what}: too few lanes in contact'
+      f'{iters.float().mean().item():.2f} max {int(iters.max())} (plain '
+      f'float32: mean {iters_p.float().mean().item():.2f} max '
+      f'{int(iters_p.max())})' + (extra if cones is not None else ''))
+  assert active >= B // 4, f'{name} on {what}: too few lanes in contact'
   assert torch.isfinite(f_k).all() and torch.isfinite(x_k).all()
-  k2_check(f'K2 on {what} kernel vs plain float32', x_k, x_p, gate=True)
-  k2_check(f'K2 on {what} kernel vs plain float64', x_k.double(), x_64,
-           gate=True)
-  k2_check(f'K2 on {what} plain float32 vs plain float64', x_p.double(),
-           x_64, gate=False)
-  newton_launch(nk, f'newton_solve_batched on {what}', lay, m.nv, B)
-  newton_bits(nk, f'newton_solve_batched on {what}', args, lay, kw,
-              (x_k, f_k, iters))
-  return args, kw, iters, (x_k - x_p).abs().max().item(), d
+  if lay.ell_groups:
+    ell_gates(f'K2-ell on {what}', x_k, x_p, x_64)
+  else:
+    k2_check(f'K2 on {what} kernel vs plain float32', x_k, x_p, gate=True)
+    k2_check(f'K2 on {what} kernel vs plain float64', x_k.double(), x_64,
+             gate=True)
+    k2_check(f'K2 on {what} plain float32 vs plain float64', x_p.double(),
+             x_64, gate=False)
+  newton_launch(nk, f'{name} on {what}', lay, m.nv, B)
+  newton_bits(nk, f'{name} on {what}', args, lay, kw, (x_k, f_k, iters))
+  return args, kw, iters, (x_k - x_p).abs().max().item(), d, cones
 
 
 def topk_live(what, m, d):
@@ -1330,8 +1564,8 @@ def main() -> int:
   env = BatchedEnv(task, BATCH)
   state = env.reset()
   state, _ = env.rollout_fn(40)(state, gen)   # falls onto the floor
-  k2_args, k2_kw, iters, k2_err, d = k2_task_check(nk, 'walker-walk', m,
-                                                   lay, state.data)
+  k2_args, k2_kw, iters, k2_err, d, _ = k2_task_check(
+      nk, 'walker-walk', m, lay, state.data)
   per_step = expected_launches(task)
   per_reset = reset_launches(task)
 
@@ -1422,7 +1656,7 @@ def main() -> int:
   # point_mass's (2 wall limits), ball_in_cup's (the string's limit row
   # and 16 pyramidal contacts) and swimmer6's (5 joint limits, very soft)
   slice_tasks = {what: suite.build_task(*what.split('-'))
-                 for what in SLICE_TASKS}
+                 for what in SLICE_TASKS + STACKER_TASKS}
   k2_slice = {}
   for what, g in (('cheetah-run', s_gen), ('cartpole-swingup', s_gen),
                   ('point_mass-easy', s7_gen), ('ball_in_cup-catch', s7_gen),
@@ -1437,8 +1671,22 @@ def main() -> int:
     if what in SLICE8_TASKS:
       topk_live(what, tm, k2_slice[what][4])
 
+  # K2-ell at the ninth slice's layouts (nefc 392-1166, nv 11-20, 128-386
+  # condim-3 cones; stack_4's one environment per block), on states with
+  # the props on the floor, stacked or in the slot, from a generator of
+  # their own
+  s9_gen = torch.Generator(device=dev)
+  s9_gen.manual_seed(SLICE9_SEED)
+  ell_slice = {}
+  for what in SLICE9_TASKS + STACKER_TASKS:
+    tm = slice_tasks[what].model
+    ell_slice[what] = k2_task_check(
+        nk, what, tm, efc.layout(tm), impact_states(what, tm, BATCH, s9_gen,
+                                                    dev))
+
   # K1 at humanoid's n = 27 and quadruped's 22 on their initial states
-  # (reset through the tasks' collision-free draws and settling).  Their
+  # (reset through the tasks' collision-free draws and settling), and at
+  # manipulator's n = 11 and stacker's 14 and 20 on theirs.  Their
   # mass matrices are far worse conditioned than the random draws above
   # (a float32 solve of humanoid's moves ~1e-3 of x with the order of its
   # sums), so each mode is held as K2 is (`ell_gates`): K2's bounds on the
@@ -1447,7 +1695,7 @@ def main() -> int:
   # error where plain float32 misses them; these are the errors their
   # timing rows report
   s8_init = {what: BatchedEnv(slice_tasks[what], BATCH).reset(seed=0).data
-             for what in SLICE8_TASKS}
+             for what in SLICE8_TASKS + SLICE9_K1}
   for what, s_d in s8_init.items():
     A, b = s_d.qM.contiguous(), s_d.qfrc_smooth.contiguous()
     n = A.shape[1]
@@ -1643,7 +1891,7 @@ def main() -> int:
   slice_k1 = {}
   for what in ('pendulum-swingup', 'reacher-easy', 'hopper-hop',
                'ball_in_cup-catch', 'swimmer-swimmer6', 'fish-swim',
-               'humanoid-run', 'quadruped-walk'):
+               'humanoid-run', 'quadruped-walk') + SLICE9_K1:
     s_d = s8_init[what] if what in s8_init else BatchedEnv(slice_tasks[what],
                                           BATCH).reset(seed=0).data
     slice_k1[what] = k1_rows(what, s_d.qM.contiguous(),
@@ -1668,7 +1916,7 @@ def main() -> int:
   # cartpole, point_mass, ball_in_cup and swimmer6), with the launches of
   # that task's rollout run
   k2_sub = {}
-  for what, (s_args, s_kw, s_iters, s_err, _) in k2_slice.items():
+  for what, (s_args, s_kw, s_iters, s_err, _, _) in k2_slice.items():
     s_m = slice_tasks[what].model
     s_lay = efc.layout(s_m)
     b_ms, b_by = bound_ms(
@@ -1686,6 +1934,34 @@ def main() -> int:
     profiled[key] = (solve, 5)
     profiled_rows[key] = k2_sub[what.split('-')[0]]
 
+  # K2-ell at the ninth slice's layouts, with the launches of that task's
+  # rollout run; bytes and FLOPs as for finger's row below
+  ell_sub = {}
+  for what, (s_args, s_kw, s_iters, s_err, _, s_cones) in ell_slice.items():
+    s_m = slice_tasks[what].model
+    s_lay = efc.layout(s_m)
+    s_ncg = len(s_lay.ell_groups[3][0])
+    b_ms, b_by = bound_ms(
+        k2_bytes(BATCH, s_lay.nefc, s_m.nv)
+        + 4 * (3 * s_ncg + s_ncg + s_lay.nefc),
+        newton_flops(s_lay.nefc, s_m.nv, solver.LS_ITERATIONS, s_iters,
+                     cones=s_cones.to(s_iters.device)))
+    solve = (lambda s_args=s_args, s_lay=s_lay, s_kw=s_kw:
+             nk.newton_solve_batched(*s_args, lay=s_lay, **s_kw))
+    warps, smem = nk.launch_config(s_lay.nefc, s_m.nv, s_ncg)
+    ell_sub[what] = dict(
+        launches=None, max_abs_err=s_err, ms=cuda_ms(solve, 5),
+        plain_ms=cuda_ms(lambda: nk.newton_solve_plain(
+            *s_args, types=s_lay.types, ell_groups=s_lay.ell_groups,
+            **s_kw), 1),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        max_iters=int(s_iters.max()),
+        shape=[BATCH, s_lay.nefc, s_m.nv, s_ncg], warps=warps,
+        smem_bytes=smem)
+    key = f'newton_solve_ell on {what}'
+    profiled[key] = (solve, 3)
+    profiled_rows[key] = ell_sub[what]
+
   # every profiled call's CUDA kernels (one per call) and device time
   for key, (kernels, device_ms) in device_kernels(profiled).items():
     profiled_rows[key].update(device_ms=device_ms, kernels_per_call=kernels)
@@ -1694,7 +1970,8 @@ def main() -> int:
     rows.append(dict(name=k, route='cuda', source=SOURCES[k],
                      replaces=REPLACES[k], **walker_k1[k],
                      finger=finger_k1[k],
-                     **{t.split('-')[0]: r[k] for t, r in slice_k1.items()}))
+                     **{t if t in SLICE9_K1 else t.split('-')[0]: r[k]
+                        for t, r in slice_k1.items()}))
   k1_step = {what: sum(per_step[k] * walker_k1[k][what]
                        for k in walker_k1)
              for what in ('ms', 'kernel_ms', 'device_ms')}
@@ -1718,10 +1995,10 @@ def main() -> int:
       None, ell_bytes,
       newton_flops(f_nefc, f_nv, solver.LS_ITERATIONS, ell_iters,
                    cones=cones.to(ell_iters.device)), ell_err,
-      reps=10, plain_reps=2, max_iters=int(ell_iters.max()))
+      reps=10, plain_reps=2, max_iters=int(ell_iters.max()), **ell_sub)
 
   # -- 6. the slices: eleven more tasks, reference gates, resets -------------
-  # Each task: SLICE_RUNS runs of reset and CONTROL_STEPS control steps of
+  # Each task: SLICE_RUNS runs of reset and `slice_steps` control steps of
   # BATCH lanes, states finite, rewards in [0, 1], every kernel launched
   # exactly `expected_launches` times per control step (no episode ends);
   # then the reference gate on REF_LANES lanes of the last run's final
@@ -1732,27 +2009,28 @@ def main() -> int:
     s_task = slice_tasks[what]
     s_env = BatchedEnv(s_task, BATCH)
     want = expected_launches(s_task)
+    steps = slice_steps(what)
     sps = []
     for i in range(SLICE_RUNS):
       state, rewards, t_reset, dt = slice_run(
           s_env, i_task, i, dev,
           after_reset=lambda: (lk.reset_launches(), nk.reset_launches()))
       got = dict(lk.LAUNCHES, **nk.LAUNCHES)
-      sps.append(BATCH * CONTROL_STEPS / dt)
+      sps.append(BATCH * steps / dt)
       log(f'# phase slice: {what}@{BATCH} run {i}: reset {t_reset:.2f} s; '
-          f'{CONTROL_STEPS} control steps in {dt:.2f} s ({sps[-1]:.1f} '
+          f'{steps} control steps in {dt:.2f} s ({sps[-1]:.1f} '
           f'env-steps/s); launches {got}; mean reward '
           f'{rewards.mean().item():.4f}')
       for f, x in forward.state_items(forward.state_of(state.data)):
         assert x.dtype == torch.bool or torch.isfinite(x).all(), (
             f'{what}: {f} not finite')
-      assert tuple(rewards.shape) == (CONTROL_STEPS, BATCH)
+      assert tuple(rewards.shape) == (steps, BATCH)
       assert bool(((rewards >= 0) & (rewards <= 1)).all()), (
           f'{what}: reward outside [0, 1]')
       assert not bool(state.episode_id.any()), f'{what}: an episode ended'
       for k, n in got.items():
-        assert n == want[k] * CONTROL_STEPS, (
-            f'{what} {k}: {n} launches, expected {want[k] * CONTROL_STEPS}')
+        assert n == want[k] * steps, (
+            f'{what} {k}: {n} launches, expected {want[k] * steps}')
     slice_sps[what] = sps
     slice_launches[what] = got
     log(f'# {what}@{BATCH} env-steps/s: {sorted(sps)[len(sps) // 2]:.1f} '
@@ -1768,13 +2046,16 @@ def main() -> int:
 
   # Episode limits that end every lane's episode: reacher's, swimmer's and
   # fish's fresh lanes hold the target geom_pos that init_states drew for
-  # them (the same generator state drawn again); finger-turn's, cheetah's
-  # and ball_in_cup's lanes hold their reset pool entry, its model_var
-  # (finger-turn's target site_pos) included, and init_states is not called.
+  # them (the same generator state drawn again); finger-turn's, cheetah's,
+  # ball_in_cup's, humanoid's, quadruped's and insert_peg's lanes hold their
+  # reset pool entry, its model_var (finger-turn's target site_pos,
+  # insert_peg's target and slot body_pos and body_quat) included, and
+  # init_states is not called.
   for what, limit_steps in (('reacher-easy', 2), ('finger-turn_easy', 3),
                             ('cheetah-run', 2), ('ball_in_cup-catch', 2),
                             ('swimmer-swimmer6', 2), ('fish-swim', 2),
-                            ('humanoid-run', 2), ('quadruped-walk', 2)):
+                            ('humanoid-run', 2), ('quadruped-walk', 2),
+                            ('manipulator-insert_peg', 2)):
     s_task = slice_tasks[what]
     r_env = BatchedEnv(s_task, BATCH, time_limit=limit_steps * (
         s_task.model.opt.timestep * s_task.n_sub_steps()))
@@ -1824,14 +2105,21 @@ def main() -> int:
         f'{got}')
   log(f'# phase slice: {time.perf_counter() - t_slice:.1f} s')
 
+  # (stacker runs in phase kernels only: its entries keep launches None)
   for what, r in slice_k1.items():
     for k in r:
-      r[k]['launches'] = slice_launches[what][k]
-      r[k]['launches_per_control_step'] = r[k]['launches'] / CONTROL_STEPS
+      if what in slice_launches:
+        r[k]['launches'] = slice_launches[what][k]
+        r[k]['launches_per_control_step'] = r[k]['launches'] / slice_steps(
+            what)
   for what in k2_slice:
     sub = k2_sub[what.split('-')[0]]
     sub['launches'] = slice_launches[what]['newton_solve_batched']
-    sub['launches_per_control_step'] = sub['launches'] / CONTROL_STEPS
+    sub['launches_per_control_step'] = sub['launches'] / slice_steps(what)
+  for what, sub in ell_sub.items():
+    if what in slice_launches:
+      sub['launches'] = slice_launches[what]['newton_solve_ell']
+      sub['launches_per_control_step'] = sub['launches'] / slice_steps(what)
 
   log(smi)
   log(json.dumps({'kernels': rows}, allow_nan=False))

@@ -5,10 +5,13 @@ tasks reach: contact-parameter mixing, the contact frame, the
 plane-sphere, plane-capsule, plane-ellipsoid, plane-cylinder,
 sphere-sphere, sphere-capsule, sphere-ellipsoid, sphere-cylinder,
 capsule-capsule, capsule-ellipsoid, capsule-cylinder and
-cylinder-cylinder colliders, the top-K broadphase score and the
-`collide_all` dispatch.  A collider returns either one normal or a whole
-frame per contact; `collide_all` builds the frame from a normal.  Every
-other geom-type pair raises NotImplementedError naming the pair.
+cylinder-cylinder colliders, the box colliders (plane-box, sphere-box,
+capsule-box and box-box, the last with its separating-axis test and
+face clipping written once over a batch of pairs), the top-K
+broadphase score and the `collide_all` dispatch.  A collider returns
+either one normal or a whole frame per contact; `collide_all` builds the
+frame from a normal.  Every other geom-type pair raises
+NotImplementedError naming the pair.
 """
 
 from __future__ import annotations
@@ -326,6 +329,271 @@ def _cylinder_cylinder(pos1, mat1, size1, pos2, mat2, size2):
           torch.gather(ns, -2, o3))
 
 
+def _take(x, idx):
+  """x[..., idx] for a per-element index tensor idx (...,), x's leading
+  axes broadcast against idx's (a group's sizes against its poses)."""
+  x = x.expand(idx.shape + x.shape[-1:])
+  return torch.take_along_dim(x, idx[..., None], dim=-1)[..., 0]
+
+
+def _column(mat, idx):
+  """Column idx (...,) of each (..., 3, 3) matrix: (..., 3)."""
+  return torch.take_along_dim(mat, idx[..., None, None].expand(
+      idx.shape + (3, 1)), dim=-1)[..., 0]
+
+
+def _one_hot(idx, dtype):
+  return torch.nn.functional.one_hot(idx, 3).to(dtype)
+
+
+# corner signs of a box in _plane_box's order (x slowest, z fastest)
+_CORNERS = [(sx, sy, sz) for sx in (-1.0, 1.0) for sy in (-1.0, 1.0)
+            for sz in (-1.0, 1.0)]
+
+
+def plane_box_heights(p_pos, p_mat, b_pos, b_mat, b_size):
+  """The box's 8 corners (..., 8, 3) and their heights over the plane
+  (..., 8); `_plane_box` keeps the 4 lowest."""
+  n = p_mat[..., :, 2]
+  sign = torch.as_tensor(_CORNERS, dtype=b_pos.dtype, device=b_pos.device)
+  local = sign * b_size[..., None, :]
+  corners = b_pos[..., None, :] + torch.einsum('...ij,...kj->...ki', b_mat,
+                                               local)
+  heights = (n[..., None, :] * (corners - p_pos[..., None, :])).sum(-1)
+  return corners, heights
+
+
+def _plane_box(p_pos, p_mat, p_size, b_pos, b_mat, b_size):
+  """The 4 deepest corners, deepest first (a stable sort: the lower
+  corner index first among equal heights)."""
+  n = p_mat[..., :, 2]
+  corners, heights = plane_box_heights(p_pos, p_mat, b_pos, b_mat, b_size)
+  idx = torch.argsort(heights, dim=-1, stable=True)[..., :4]
+  dist = torch.gather(heights, -1, idx)
+  pos = torch.gather(corners, -2, idx[..., None].expand(idx.shape + (3,)))
+  pos = pos - n[..., None, :] * (dist / 2)[..., None]
+  return dist, pos, n[..., None, :].expand(pos.shape)
+
+
+def _sphere_box(s_pos, s_mat, s_size, b_pos, b_mat, b_size):
+  """One contact: outside the box at the surface point nearest the
+  center; with the center inside, out through the face of least depth."""
+  r = s_size[..., 0]
+  local = torch.einsum('...ij,...i->...j', b_mat, s_pos - b_pos)
+  clamped = torch.maximum(torch.minimum(local, b_size), -b_size)
+  inside = (local.abs() < b_size).all(-1)
+  vec_out = local - clamped
+  d_out = math.norm_safe(vec_out)
+  n_out_l = vec_out / torch.clamp(d_out, min=1e-12)[..., None]
+  depth = b_size - local.abs()
+  axis = torch.argmin(depth, dim=-1)
+  sgn = torch.sign(_take(local, axis))
+  hot = _one_hot(axis, local.dtype)
+  n_in_l = hot * sgn[..., None]
+  d_in = -_take(depth, axis)
+  surf_in = torch.where(hot > 0, sgn[..., None] * b_size, local)
+  dist = torch.where(inside, d_in, d_out) - r
+  n_l = torch.where(inside[..., None], n_in_l, n_out_l)
+  surf_l = torch.where(inside[..., None], surf_in, clamped)
+  n = torch.einsum('...ij,...j->...i', b_mat, -n_l)     # sphere -> box
+  surf = b_pos + torch.einsum('...ij,...j->...i', b_mat, surf_l)
+  pos = (surf + s_pos + n * r[..., None]) / 2
+  return dist[..., None], pos[..., None, :], n[..., None, :]
+
+
+def _capsule_box(c_pos, c_mat, c_size, b_pos, b_mat, b_size):
+  """Two contacts: sphere-box at each end of the capsule's axis."""
+  axis = c_mat[..., :, 2]
+  hl = c_size[..., 1:2]
+  outs = [_sphere_box(c_pos + t * hl * axis, c_mat, c_size, b_pos, b_mat,
+                      b_size) for t in (-1.0, 1.0)]
+  return (torch.cat([o[0] for o in outs], -1),
+          torch.cat([o[1] for o in outs], -2),
+          torch.cat([o[2] for o in outs], -2))
+
+
+def _clip_polygon(pts, valid, n, c):
+  """Sutherland-Hodgman clip of padded polygons against n . p <= c.
+
+  pts (..., K, 2), valid (..., K), n (2,), c (...,): the clipped polygons
+  padded to the same K, their points compacted in edge order (a stable
+  sort, so the padding keeps its order too)."""
+  K = pts.shape[-2]
+  nv = valid.sum(-1, keepdim=True)
+  idx = torch.arange(K, device=pts.device)
+  nxt = torch.where(idx + 1 >= nv, 0, idx + 1)                   # (..., K)
+  p0 = pts
+  p1 = torch.gather(pts, -2, nxt[..., None].expand(pts.shape))
+  d0 = (p0 * n).sum(-1) - c[..., None]
+  d1 = (p1 * n).sum(-1) - c[..., None]
+  in0, in1 = d0 <= 0, d1 <= 0
+  denom = torch.where((d0 - d1).abs() < 1e-12, 1e-12, d0 - d1)
+  s = d0 / denom
+  inter = p0 + s[..., None] * (p1 - p0)
+  edge_active = valid & (idx < nv)
+  out_pts = torch.cat([p0, inter], -2)                         # (..., 2K, 2)
+  out_ok = torch.cat([edge_active & in0, edge_active & (in0 ^ in1)], -1)
+  key = torch.where(out_ok, torch.cat([2 * idx, 2 * idx + 1]), 10 * K)
+  order = torch.argsort(key, dim=-1, stable=True)[..., :K]
+  return (torch.gather(out_pts, -2, order[..., None].expand(
+      order.shape + (2,))), torch.gather(out_ok, -1, order))
+
+
+# the contact capacity of a box-box pair, and the edge axes' bias (face
+# axes win within it, as in the reference)
+_BOX_K = 8
+_EDGE_BIAS = 1e-4
+
+
+def box_box_axes(p1, R1, a, p2, R2, b):
+  """The separating-axis test of `_box_box`: its frames (R = R1' R2, the
+  offset t in A's frame and tB in B's), each face of A's, each face of
+  B's and each edge pair's separation (..., 3), (..., 3), (..., 9), and the
+  15 candidate values (..., 15) whose first largest is the axis the
+  manifold is built on: A's faces, B's faces, then the edges less
+  _EDGE_BIAS."""
+  eps = 1e-10
+  R = R1.transpose(-1, -2) @ R2                # columns: B's axes in A's frame
+  t = torch.einsum('...ki,...k->...i', R1, p2 - p1)
+  absR = R.abs() + eps
+  tB = torch.einsum('...ij,...i->...j', R, t)
+  sep_a = t.abs() - a - torch.einsum('...ij,...j->...i', absR, b)
+  sep_b = tB.abs() - b - torch.einsum('...ij,...i->...j', absR, a)
+  zero = torch.zeros_like(t[..., 0])
+  seps = []
+  for i in range(3):
+    i1, i2 = (i + 1) % 3, (i + 2) % 3
+    for j in range(3):
+      comp = [zero] * 3
+      comp[i1], comp[i2] = -R[..., i2, j], R[..., i1, j]
+      L = torch.stack(comp, -1)
+      norm = torch.sqrt(torch.clamp((L * L).sum(-1), min=eps))
+      Ln = L / norm[..., None]
+      ra = a[..., i1] * Ln[..., i1].abs() + a[..., i2] * Ln[..., i2].abs()
+      j1, j2 = (j + 1) % 3, (j + 2) % 3
+      rb = ((Ln * R[..., :, j1]).sum(-1).abs() * b[..., j1]
+            + (Ln * R[..., :, j2]).sum(-1).abs() * b[..., j2])
+      seps.append(torch.where(norm > 1e-5, (t * Ln).sum(-1).abs() - ra - rb,
+                              -float('inf')))
+  sep_e = torch.stack(seps, -1)
+  cand = torch.cat([sep_a, sep_b, sep_e - _EDGE_BIAS], -1)
+  return R, t, tB, sep_a, sep_b, sep_e, cand
+
+
+def _box_face_manifold(ref_is_a, p1, R1, a, p2, R2, b, R, t, tB, axis_i):
+  """Up to 8 contacts of the incident box's face clipped against the
+  reference box's face `axis_i` (A's where ref_is_a, else B's)."""
+  dtype = t.dtype
+  eps = 1e-10
+  if ref_is_a:
+    r_half, i_half, Rri, c_inc = a, b, R, t
+  else:
+    r_half, i_half, Rri, c_inc = b, a, R.transpose(-1, -2), -tB
+  sign = torch.sign(_take(c_inc, axis_i) + eps)
+  normal_r = _one_hot(axis_i, dtype) * sign[..., None]
+  proj = torch.einsum('...k,...kc->...c', normal_r, Rri)
+  inc_axis = torch.argmax(proj.abs(), dim=-1)
+  inc_col = _column(Rri, inc_axis)
+  inc_sign = -torch.sign((normal_r * inc_col).sum(-1) + eps)
+  inc_center = c_inc + (inc_sign * _take(i_half, inc_axis))[..., None] * inc_col
+  e1_axis, e2_axis = (inc_axis + 1) % 3, (inc_axis + 2) % 3
+  e1 = _column(Rri, e1_axis) * _take(i_half, e1_axis)[..., None]
+  e2 = _column(Rri, e2_axis) * _take(i_half, e2_axis)[..., None]
+  # the incident face's corners in ring order
+  corners = torch.stack([inc_center + sx * e1 + sy * e2
+                         for sx, sy in ((1.0, -1.0), (1.0, 1.0),
+                                        (-1.0, 1.0), (-1.0, -1.0))], -2)
+  # clip in the reference face's plane, axes u, v the other two
+  u_axis, v_axis = (axis_i + 1) % 3, (axis_i + 2) % 3
+  hot_u, hot_v = _one_hot(u_axis, dtype), _one_hot(v_axis, dtype)
+  pts2 = torch.stack([(corners * hot_u[..., None, :]).sum(-1),
+                      (corners * hot_v[..., None, :]).sum(-1)], -1)
+  pts = torch.cat([pts2, torch.zeros_like(pts2)], -2)          # (..., 8, 2)
+  valid = (torch.arange(_BOX_K, device=t.device) < 4).expand(pts.shape[:-1])
+  hu, hv = (r_half * hot_u).sum(-1), (r_half * hot_v).sum(-1)
+  for n2, c in (((1.0, 0.0), hu), ((-1.0, 0.0), hu), ((0.0, 1.0), hv),
+                ((0.0, -1.0), hv)):
+    pts, valid = _clip_polygon(
+        pts, valid, torch.as_tensor(n2, dtype=dtype, device=t.device), c)
+  # the clipped points' depth under the reference face, from the plane of
+  # the incident face (its normal's axis_i component guarded)
+  n_ax = _take(inc_col, axis_i)
+  denom = torch.where(n_ax.abs() < 1e-8, 1e-8, n_ax)
+  w = ((inc_col * inc_center).sum(-1)[..., None]
+       - pts[..., 0] * _take(inc_col, u_axis)[..., None]
+       - pts[..., 1] * _take(inc_col, v_axis)[..., None]) / denom[..., None]
+  r_ax = _take(r_half, axis_i)
+  depth = r_ax[..., None] - sign[..., None] * w
+  pr = (pts[..., 0:1] * hot_u[..., None, :] + pts[..., 1:2] * hot_v[..., None, :]
+        + (sign[..., None] * (r_ax[..., None] - depth / 2))[..., None]
+        * normal_r.abs()[..., None, :])
+  dist = torch.where(valid, -depth, 1e10)
+  if ref_is_a:
+    pw = p1[..., None, :] + pr @ R1.transpose(-1, -2)
+    nw = torch.einsum('...ij,...j->...i', R1, normal_r)       # A's face, to B
+  else:
+    pw = p2[..., None, :] + pr @ R2.transpose(-1, -2)
+    nw = -torch.einsum('...ij,...j->...i', R2, normal_r)      # B's face, to A
+  return dist, pw, nw[..., None, :].expand(pw.shape)
+
+
+def _box_box(pos1, mat1, size1, pos2, mat2, size2):
+  """Box-box over any leading batch of pairs: the separating-axis test
+  over A's 3 and B's 3 face axes and the 9 edge pairs (`box_box_axes`),
+  and up to 8 contacts: the incident face clipped against the reference
+  face where a face axis wins, the closest points of the two edges where
+  an edge axis does (one contact).  Every candidate manifold is computed
+  and the choice made branch-free (the JAX package's `_box_box_one`,
+  vmapped there per pair)."""
+  p1, R1, a, p2, R2, b = pos1, mat1, size1, pos2, mat2, size2
+  dtype = p1.dtype
+  eps = 1e-10
+  R, t, tB, sep_a, sep_b, sep_e, _ = box_box_axes(p1, R1, a, p2, R2, b)
+  face_a, face_b = torch.argmax(sep_a, -1), torch.argmax(sep_b, -1)
+  best_edge = torch.argmax(sep_e, -1)
+  s_a, s_b = _take(sep_a, face_a), _take(sep_b, face_b)
+  s_e = _take(sep_e, best_edge) - _EDGE_BIAS
+  d_a, p_a, n_a = _box_face_manifold(True, p1, R1, a, p2, R2, b, R, t, tB,
+                                     face_a)
+  d_b, p_b, n_b = _box_face_manifold(False, p1, R1, a, p2, R2, b, R, t, tB,
+                                     face_b)
+
+  # edge-edge: one contact between the closest points of the two edges
+  ei, ej = best_edge // 3, best_edge % 3
+  Ai = _one_hot(ei, dtype)
+  Bj = _column(R, ej)
+  L = math.cross(Ai, Bj)
+  Ln = L / torch.sqrt(torch.clamp((L * L).sum(-1), min=eps))[..., None]
+  Ln = Ln * torch.sign((Ln * t).sum(-1) + eps)[..., None]
+  pa = torch.where(Ai > 0, 0.0, torch.sign(Ln) * a)  # A's support edge
+  LnB = torch.einsum('...k,...kc->...c', Ln, R)
+  pb_local = torch.where(_one_hot(ej, dtype) > 0, 0.0, -torch.sign(LnB) * b)
+  pb = t + torch.einsum('...ij,...j->...i', R, pb_local)
+  r12 = pb - pa
+  d1d2 = (Ai * Bj).sum(-1)
+  denom = torch.clamp(1.0 - d1d2 ** 2, min=eps)
+  r1, r2 = (r12 * Ai).sum(-1), (r12 * Bj).sum(-1)
+  s_par = (r1 - r2 * d1d2) / denom
+  u_par = (r1 * d1d2 - r2) / denom
+  a_ei, b_ej = _take(a, ei), _take(b, ej)
+  cA = pa + torch.maximum(torch.minimum(s_par, a_ei), -a_ei)[..., None] * Ai
+  cB = pb + torch.maximum(torch.minimum(u_par, b_ej), -b_ej)[..., None] * Bj
+  edge_pos = p1 + torch.einsum('...ij,...j->...i', R1, (cA + cB) / 2)
+  edge_n = torch.einsum('...ij,...j->...i', R1, Ln)
+  d_e = torch.full_like(d_a, 1e10)
+  d_e[..., 0] = s_e + _EDGE_BIAS
+  p_e = edge_pos[..., None, :].expand(p_a.shape)
+  n_e = edge_n[..., None, :].expand(n_a.shape)
+
+  use_b = (s_b > s_a)[..., None]
+  use_e = (s_e > torch.maximum(s_a, s_b))[..., None]
+  dist = torch.where(use_e, d_e, torch.where(use_b, d_b, d_a))
+  use_b, use_e = use_b[..., None], use_e[..., None]
+  pos = torch.where(use_e, p_e, torch.where(use_b, p_b, p_a))
+  nrm = torch.where(use_e, n_e, torch.where(use_b, n_b, n_a))
+  return dist, pos, nrm
+
+
 _COLLIDERS = {
     (GeomType.PLANE, GeomType.SPHERE): _plane_sphere,
     (GeomType.PLANE, GeomType.CAPSULE): _plane_capsule,
@@ -339,6 +607,10 @@ _COLLIDERS = {
     (GeomType.CAPSULE, GeomType.ELLIPSOID): _capsule_ellipsoid,
     (GeomType.CAPSULE, GeomType.CYLINDER): _capsule_cylinder,
     (GeomType.CYLINDER, GeomType.CYLINDER): _cylinder_cylinder,
+    (GeomType.PLANE, GeomType.BOX): _plane_box,
+    (GeomType.SPHERE, GeomType.BOX): _sphere_box,
+    (GeomType.CAPSULE, GeomType.BOX): _capsule_box,
+    (GeomType.BOX, GeomType.BOX): _box_box,
 }
 
 

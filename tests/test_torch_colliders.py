@@ -11,7 +11,11 @@ rim, on a cap or deep inside, a sphere beyond a capsule's end, and a
 sphere's center inside an ellipsoid.  dist, pos and the normal agree to
 1e-9 (the two evaluate the same closed forms; they differ only in
 rounding).  Then finger's and ball_in_cup's `collide_all` are held to the
-JAX package's at seeded states.
+JAX package's at seeded states.  The box colliders (plane-box, sphere-box,
+capsule-box, box-box) are held the same way on their own poses and
+degenerate cases, each pair's contacts compared as a set, and stack_2's
+and insert_peg's `collide_all` at states with the props on the floor,
+stacked or in the slot; a pair with no collider raises naming it.
 """
 
 import numpy as np
@@ -349,3 +353,234 @@ def test_ball_in_cup_collide_all_matches_jax():
   for g in groups:
     assert on[:, start:start + g.ncon].any(), (g.t1.name, g.t2.name)
     start += g.ncon
+
+
+# -- the box colliders (manipulator's slot, stacker's boxes) ----------------
+
+
+def _axis_rot(axis, angle):
+  """(n, 3, 3) rotations by angle (n,) about the fixed axis 0, 1 or 2."""
+  c, s = np.cos(angle), np.sin(angle)
+  R = np.tile(np.eye(3), (len(angle), 1, 1))
+  i, j = [(1, 2), (2, 0), (0, 1)][axis]
+  R[:, i, i], R[:, i, j], R[:, j, i], R[:, j, j] = c, -s, s, c
+  return R
+
+
+def _box_poses(kind, case, rng):
+  """(pos1, mat1, size1, pos2, mat2, size2) numpy arrays for B pairs of a
+  box collider: generic overlapping poses, and its degenerate ones: a box
+  flat on the plane (4 corners tied) or resting on an edge (tied in
+  pairs); a sphere whose center is inside the box, or about touching a
+  face; a capsule lying parallel to a face; boxes face to face (a small
+  tilt, sizes apart) and boxes whose deepest axis is an edge pair."""
+  mat1 = _rot(rng, B)
+  pos1 = rng.uniform(-0.1, 0.1, (B, 3))
+  box = rng.uniform(0.01, 0.1, (B, 3))
+  if kind == 'plane_box':
+    plane = np.tile([1.0, 1.0, 0.1], (B, 1))
+    n = mat1[:, :, 2]
+    yaw = _axis_rot(2, rng.uniform(-np.pi, np.pi, B))
+    if case == 'flat':
+      mat2 = mat1 @ yaw
+      h = box[:, 2] + rng.uniform(-0.005, 0.005, B)
+    elif case == 'edge':
+      mat2 = mat1 @ yaw @ _axis_rot(0, np.full(B, np.pi / 4))
+      h = np.sqrt(0.5) * (box[:, 1] + box[:, 2]) + rng.uniform(-0.005, 0.005,
+                                                              B)
+    else:
+      mat2 = _rot(rng, B)
+      h = rng.uniform(-0.05, 0.1, B)
+    pos2 = pos1 + rng.uniform(-0.2, 0.2, (B, 3))
+    pos2 += n * (h - (n * (pos2 - pos1)).sum(1))[:, None]
+    return pos1, mat1, plane, pos2, mat2, box
+  mat2 = _rot(rng, B)
+  pos2 = rng.uniform(-0.1, 0.1, (B, 3))
+  if kind == 'sphere_box':
+    sphere = np.stack([rng.uniform(0.01, 0.05, B), np.zeros(B),
+                       np.zeros(B)], -1)
+    if case == 'inside':
+      local = box * rng.uniform(-0.9, 0.9, (B, 3))
+    elif case == 'grazing':     # over a face, about r from it
+      local = box * rng.uniform(-0.9, 0.9, (B, 3))
+      ax = rng.randint(3, size=B)
+      sgn = rng.choice([-1.0, 1.0], B)
+      local[np.arange(B), ax] = sgn * (box[np.arange(B), ax] + sphere[:, 0]
+                                       + rng.uniform(-0.005, 0.005, B))
+    else:
+      local = rng.uniform(-0.15, 0.15, (B, 3))
+    return (pos2 + np.einsum('bij,bj->bi', mat2, local), mat1, sphere, pos2,
+            mat2, box)
+  if kind == 'capsule_box':
+    capsule = _size(rng, B)
+    if case == 'parallel':      # lying on the box's top face along its x
+      mat1 = mat2 @ _axis_rot(1, np.full(B, np.pi / 2))
+      local = np.stack([rng.uniform(-0.5, 0.5, B) * box[:, 0],
+                        rng.uniform(-0.5, 0.5, B) * box[:, 1],
+                        box[:, 2] + capsule[:, 0]
+                        + rng.uniform(-0.005, 0.005, B)], -1)
+      pos1 = pos2 + np.einsum('bij,bj->bi', mat2, local)
+    else:
+      pos1 = pos2 + rng.uniform(-0.15, 0.15, (B, 3))
+    return pos1, mat1, capsule, pos2, mat2, box
+  if case == 'face':            # box 2 on box 1's top face, a little turned
+    box2 = box * rng.uniform(0.5, 0.8, (B, 3))
+    mat2 = mat1 @ _axis_rot(2, rng.uniform(-np.pi, np.pi, B)) @ _rot(
+        rng, B, tilt=0.02)
+    local = np.stack([rng.uniform(-0.3, 0.3, B) * box[:, 0],
+                      rng.uniform(-0.3, 0.3, B) * box[:, 1],
+                      box[:, 2] + box2[:, 2] + rng.uniform(-0.005, 0.001, B)],
+                     -1)
+    return (pos1, mat1, box, pos1 + np.einsum('bij,bj->bi', mat1, local),
+            mat2, box2)
+  if case == 'edge':            # kept where an edge pair's axis wins
+    out = [[] for _ in range(6)]
+    while len(out[0]) < B:
+      args = [pos1, mat1, box, pos1 + rng.uniform(-0.1, 0.1, (B, 3)),
+              _rot(rng, B), rng.uniform(0.01, 0.1, (B, 3))]
+      cand = colliders.box_box_axes(*map(torch.tensor, args))[-1]
+      dist = colliders._box_box(*map(torch.tensor, args))[0]
+      keep = ((cand.argmax(-1) >= 6) & (dist[:, 0] < 0.005)).numpy()
+      for o, a in zip(out, args):
+        o.extend(a[keep])
+    return tuple(np.asarray(o[:B]) for o in out)
+  return (pos1, mat1, box, pos1 + rng.uniform(-0.12, 0.12, (B, 3)), mat2,
+          rng.uniform(0.01, 0.1, (B, 3)))
+
+
+BOX_CASES = {
+    'plane_box': ('generic', 'flat', 'edge'),
+    'sphere_box': ('generic', 'inside', 'grazing'),
+    'capsule_box': ('generic', 'parallel'),
+    'box_box': ('generic', 'face', 'edge'),
+}
+BOX_PARAMS = [(k, c) for k, cases in BOX_CASES.items() for c in cases]
+
+
+def _as_sets(dist, pos, normal):
+  """Each pair's contacts ordered by their position along a fixed generic
+  direction, so that two colliders that order tied contacts their own
+  way compare contact for contact."""
+  key = pos @ np.array([0.6, 0.3, 0.742])
+  order = np.argsort(np.where(dist < 1e9, key, np.inf), axis=-1,
+                     kind='stable')
+  take = lambda x: np.take_along_axis(x, order[..., None] if x.ndim == 3
+                                      else order, axis=1)
+  return take(dist), take(pos), take(normal)
+
+
+@pytest.mark.parametrize('kind,case', BOX_PARAMS,
+                         ids=[f'{k}-{c}' for k, c in BOX_PARAMS])
+def test_box_collider_matches_jax(kind, case):
+  """The box colliders on seeded numpy poses, float64, against the JAX
+  package's: each pair's contacts compared as a set (`_as_sets`: a flat
+  box's 4 corners, or an edge's 2, are tied in depth and each package's
+  sort rounds the tie its own way), dist within 1e-9 scaled on every slot
+  and pos and normal on the slots that hold a contact (dist < 1e9; the
+  others are the clipping's padding).  The face case builds manifolds of
+  3 or more contacts, the edge case one contact per pair."""
+  seed = 100 + BOX_PARAMS.index((kind, case))
+  args = _box_poses(kind, case, np.random.RandomState(seed))
+  ref = getattr(jcolliders, '_' + kind)(*[jnp.asarray(a) for a in args])
+  out = getattr(colliders, '_' + kind)(*[torch.tensor(a) for a in args])
+  ref = _as_sets(*[np.asarray(r) for r in ref])
+  out = _as_sets(*[o.numpy() for o in out])
+  has = ref[0] < 1e9
+  np.testing.assert_array_equal(out[0] < 1e9, has)
+  print(f'{kind}/{case}: {int((ref[0] < 0).sum())} of {int(has.sum())} '
+        f'contacts penetrating; max err', end='')
+  for name, a, r in zip(('dist', 'pos', 'normal'), out, ref):
+    assert a.shape == r.shape, (name, a.shape, r.shape)
+    err = _scaled(a[has], r[has]) if name != 'dist' else _scaled(a, r)
+    print(f' {name} {err:.1e}', end='')
+    assert err <= TOL, f'{kind}/{case} {name}: {err:.2e}'
+  print()
+  assert (ref[0] < 0.01).any() and (ref[0] > -0.5).all()
+  per_pair = has.sum(-1)
+  if case == 'face':
+    assert (per_pair >= 3).mean() >= 0.5, per_pair
+  if case == 'edge' and kind == 'box_box':
+    assert (per_pair == 1).all(), per_pair
+
+
+def test_stacker_collide_all_matches_jax():
+  """stack_2's and insert_peg's candidate pairs, their box groups (plane-
+  box, sphere-box, capsule-box, box-box) among them, at seeded states with
+  the props on the floor, stacked or in the slot: dist and every
+  per-contact constant agree on every slot of a static group, pos and
+  frame on the box groups' contacts within 0.1, the plane-box pairs' 4 contacts as sets (flat
+  boxes' corners tie); stack_2's box groups, and insert_peg's capsule-box
+  (the peg in its slot), touch on some lane."""
+  from dm_control_tpu import suite as jsuite
+  from dm_control_tpu_torch import suite
+  from test_torch_domains import prop_states
+  for domain, task in (('stacker', 'stack_2'), ('manipulator', 'insert_peg')):
+    jm = jsuite.build_task(domain, task).model
+    pm = suite.build_task(domain, task, device='cpu').model
+    qpos, _ = prop_states(jm, np.random.RandomState(9), 12)
+
+    def collide(q):
+      d = jforward.make_data(jm).replace(qpos=q)
+      return jcollision.collide(jm, jsmooth.kinematics(jm, d)).contact
+
+    con = jax.jit(jax.vmap(collide))(jnp.asarray(qpos))
+    d = forward.make_data(pm, len(qpos), torch.float64, 'cpu')
+    d = collision.collide(pm, smooth.kinematics(
+        pm, d.replace(qpos=torch.tensor(qpos))))
+    ref = {f: np.array(getattr(con, f)) for f in (
+        'dist', 'pos', 'frame', 'includemargin', 'friction', 'solref',
+        'solimp', 'geom1', 'geom2', 'body1', 'body2', 'dim')}
+    out = {f: getattr(d.contact, f).numpy() for f in ref}
+    slot = 0
+    for g in collision.groups(pm):
+      if (g.t1.name, g.t2.name) == ('PLANE', 'BOX'):
+        for p in range(g.npairs):
+          s = slice(slot + 4 * p, slot + 4 * p + 4)
+          for x in (ref, out):
+            dist, pos, frame = _as_sets(x['dist'][:, s], x['pos'][:, s],
+                                        x['frame'][:, s].reshape(-1, 4, 9))
+            x['dist'][:, s], x['pos'][:, s] = dist, pos
+            x['frame'][:, s] = frame.reshape(-1, 4, 3, 3)
+      slot += g.ncon
+    # pos and frame of the box groups' contacts within 0.1 (the arm's
+    # parallel finger capsules have no single closest point: their pos is
+    # rounding's)
+    box = np.concatenate([np.full(g.ncon, 'BOX' in (g.t1.name, g.t2.name))
+                          for g in collision.groups(pm)])
+    near = (ref['dist'] < 0.1) & box
+    # the top-K groups' slots follow each package's order of tied scores
+    # (tests/test_torch_broadphase.py holds them by pair)
+    static = np.concatenate([np.full(g.ncon, not g.dynamic)
+                             for g in collision.groups(pm)])
+    print(f'{domain}-{task} collide_all: max err', end='')
+    for f in ref:
+      assert out[f].shape == ref[f].shape, f
+      a, r = (out[f][near], ref[f][near]) if f in ('pos', 'frame') else (
+          out[f][:, static], ref[f][:, static])
+      err = _scaled(a, r)
+      print(f' {f} {err:.1e}', end='')
+      assert err <= TOL, f'{domain}-{task} {f}: {err:.2e}'
+    print()
+    on = out['dist'] < out['includemargin']
+    slot = 0
+    for g in collision.groups(pm):
+      if 'BOX' in (g.t1.name, g.t2.name) and (domain == 'stacker'
+                                              or g.t1.name == 'CAPSULE'):
+        assert on[:, slot:slot + g.ncon].any(), (g.t1.name, g.t2.name)
+      slot += g.ncon
+
+
+def test_unported_pair_raises_naming_it():
+  """A geom pair with no collider in the port (cylinder-box) raises
+  NotImplementedError naming the pair when it collides."""
+  import xml.etree.ElementTree as ET
+  root = ET.fromstring(
+      '<mujoco><worldbody>'
+      '<body><joint type="free"/><geom type="cylinder" size=".1 .1"/></body>'
+      '<body pos="0 0 1"><joint type="free"/>'
+      '<geom type="box" size=".1 .1 .1"/></body>'
+      '</worldbody></mujoco>')
+  m = engine.model_from_root(root, device='cpu')
+  d = forward.make_data(m, 2, torch.float64, 'cpu')
+  with pytest.raises(NotImplementedError, match=r'\(CYLINDER, BOX\)'):
+    collision.collide(m, smooth.kinematics(m, d))

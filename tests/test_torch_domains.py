@@ -1,14 +1,16 @@
 """The port's cheetah, hopper, pendulum, reacher, cartpole, acrobot,
-finger-turn, point_mass, ball_in_cup, swimmer and fish against the JAX
-package's, float64 on the CPU.
+finger-turn, point_mass, ball_in_cup, swimmer, fish, humanoid, quadruped,
+manipulator and stacker against the JAX package's, float64 on the CPU.
 
 For each task numpy draws 8 lanes' joint positions and velocities (where
 the task would start out of contact, positions that touch or press a
 limit; ball_in_cup's balls in the cup, on the floor or with the string
-about taut; fish's free root at random orientations; reacher's,
-finger-turn's, point_mass-hard's, swimmer's and fish-swim's per-lane
-`model_var` comes from the JAX package's episode init), and the port
-takes the same states through the bridge.
+about taut; fish's free root at random orientations; manipulator's and
+stacker's props on the floor, stacked or in the slot, `prop_states`, from
+the JAX package's collision-free episode init; reacher's, finger-turn's,
+point_mass-hard's, swimmer's, fish-swim's, manipulator's and stacker's
+per-lane `model_var` comes from that init), and the port takes the same
+states through the bridge.
 The same numpy actions then drive the JAX package's `substeps` and the
 port's BatchedEnv for 5 control steps.  qpos, qvel, reward and
 every observation key agree to 1e-6 scaled by max(1, |ref|) at every
@@ -16,7 +18,8 @@ step, the rollout tests' bound: the solves stop at opt.tolerance and their
 differences pass into everything after them.  The RK4 step alone, the
 n <= 1 branch of `substeps`, `settle` and quadruped's settle (the lowest
 contact-free height of 200) are held to the JAX package's functions as
-well.
+well, and the six manipulation models' collision groups and efc layouts
+to the JAX package's.
 """
 
 import dataclasses
@@ -62,6 +65,66 @@ def _scaled(x, ref):
 
 def _jax_batch(fn):
   return jax.jit(jax.vmap(fn))
+
+
+def prop_states(jm, rng, n, model_var=None, base=None):
+  """n manipulator or stacker states in numpy, slow, with the props in
+  contact on two lanes of three: the ball on the floor; the peg standing
+  on its tip, or by turns in its slot (insert: at the slot's pose, from
+  `model_var`'s body_pos and body_quat where given); box 0 on the floor,
+  box 1 on box 0 and boxes 2 and 3 on the floor beside them, each turned
+  by up to 0.05 or, on every fourth lane, exactly flat (their corners and
+  faces tied).  The arm, and the third lanes' props, come from `base`
+  (n, nq) where given (the task's collision-free init: the planar arm's
+  links do not cross there, where two coplanar capsules' axes meet and
+  their normal is rounding's), else the arm anywhere in range and those
+  props anywhere in the air."""
+  adr = lambda name: jm.jnt_qposadr[jm.name2id('joint', name)]
+  names = jm.names['joint']
+  if base is not None:
+    qpos = np.array(base, np.float64)
+  else:
+    qpos = np.tile(jm.qpos0, (n, 1))
+    for name in ('arm_root', 'arm_shoulder', 'arm_elbow', 'arm_wrist',
+                 'thumb', 'thumbtip', 'fingertip'):
+      j = jm.name2id('joint', name)
+      lo, hi = jm.jnt_range[j] if jm.jnt_limited[j] else (-np.pi, np.pi)
+      qpos[:, jm.jnt_qposadr[j]] = rng.uniform(lo, hi, n)
+    qpos[:, adr('finger')] = qpos[:, adr('thumb')]
+  on = np.arange(n) % 3 < 2
+  sink = rng.uniform(0.0, 1e-3, n)
+  tilt = np.where(np.arange(n) % 4 == 0, 0.0, rng.uniform(-0.05, 0.05, n))
+  placed = {}
+  if 'ball_x' in names:
+    placed['ball_x'] = rng.uniform(-0.3, 0.3, n)
+    placed['ball_z'] = np.where(on, 0.022 - sink, rng.uniform(0.1, 0.5, n))
+  if 'peg_x' in names:
+    x, z, angle = rng.uniform(-0.3, 0.3, n), 0.118 - sink, tilt
+    if 'slot' in jm.names['body']:
+      b = jm.name2id('body', 'slot')
+      pos = np.tile(jm.body_pos[b], (n, 1))
+      quat = np.tile(jm.body_quat[b], (n, 1))
+      if model_var:
+        pos, quat = model_var['body_pos'][:, b], model_var['body_quat'][:, b]
+      into = np.arange(n) % 3 == 1
+      x = np.where(into, pos[:, 0] + rng.uniform(-1e-3, 1e-3, n), x)
+      z = np.where(into, pos[:, 2] + rng.uniform(-1e-3, 1e-3, n), z)
+      angle = np.where(into, 2 * np.arctan2(quat[:, 2], quat[:, 0]), angle)
+    placed['peg_x'] = x
+    placed['peg_z'] = np.where(on, z, rng.uniform(0.2, 0.5, n))
+    placed['peg_y'] = angle
+  for i, x0 in enumerate((0.1, 0.1, -0.1, 0.25)):
+    if f'box{i}_x' not in names:
+      break
+    placed[f'box{i}_x'] = x0 + rng.uniform(-0.01, 0.01, n)
+    placed[f'box{i}_z'] = np.where(
+        on, (0.066 if i == 1 else 0.022) - sink * (1 + (i == 1)),
+        rng.uniform(0.1, 0.6, n))
+    placed[f'box{i}_y'] = tilt * (1 - 2 * (i % 2))
+  keep = on if base is not None else np.ones(n, bool)
+  for name, value in placed.items():
+    qpos[keep, adr(name)] = value[keep]
+  return qpos, 0.3 * rng.randn(n, jm.nv)
 
 
 def _states(what, jtask, rng):
@@ -134,12 +197,15 @@ def _states(what, jtask, rng):
     qpos[:, 2] = rng.uniform(0.1, 0.4, BATCH)
     qvel *= 0.3
   model_var = {}
-  if (what.split('-')[0] in ('reacher', 'finger', 'swimmer')
+  if (what.split('-')[0] in ('reacher', 'finger', 'swimmer', 'manipulator',
+                             'stacker')
       or what in ('point_mass-hard', 'fish-swim')):
     d0 = jforward.make_data(jm)
-    init = _jax_batch(lambda k: jtask.init_episode(jm, d0, k))
-    model_var = {k: np.asarray(x) for k, x in init(jax.random.split(
-        jax.random.PRNGKey(3), BATCH)).model_var.items()}
+    init = _jax_batch(lambda k: jtask.init_episode(jm, d0, k))(
+        jax.random.split(jax.random.PRNGKey(3), BATCH))
+    model_var = {k: np.asarray(x) for k, x in init.model_var.items()}
+  if what.split('-')[0] in ('manipulator', 'stacker'):
+    qpos, qvel = prop_states(jm, rng, BATCH, model_var, base=init.qpos)
   return qpos, qvel, model_var
 
 
@@ -147,7 +213,8 @@ CASES = ['cheetah-run', 'hopper-hop', 'pendulum-swingup', 'reacher-easy',
          'cartpole-swingup', 'cartpole-two_poles', 'acrobot-swingup',
          'finger-turn_easy', 'point_mass-easy', 'point_mass-hard',
          'ball_in_cup-catch', 'swimmer-swimmer6', 'fish-swim',
-         'humanoid-run', 'quadruped-walk']
+         'humanoid-run', 'quadruped-walk', 'manipulator-bring_ball',
+         'manipulator-insert_peg', 'stacker-stack_2']
 
 
 @pytest.mark.parametrize('what', CASES)
@@ -325,7 +392,10 @@ TASKS = [('cheetah', 'run'), ('hopper', 'stand'), ('hopper', 'hop'),
          ('swimmer', 'swimmer15'), ('fish', 'upright'), ('fish', 'swim'),
          ('humanoid', 'stand'), ('humanoid', 'walk'), ('humanoid', 'run'),
          ('humanoid', 'run_pure_state'), ('quadruped', 'walk'),
-         ('quadruped', 'run')]
+         ('quadruped', 'run'), ('manipulator', 'bring_ball'),
+         ('manipulator', 'bring_peg'), ('manipulator', 'insert_ball'),
+         ('manipulator', 'insert_peg'), ('stacker', 'stack_2'),
+         ('stacker', 'stack_4')]
 
 
 @pytest.mark.parametrize('domain,task_name', TASKS)
@@ -373,3 +443,39 @@ def test_quadruped_settle_matches_jax():
 def test_quadruped_escape_and_fetch_raise(task_name, waits_on):
   with pytest.raises(NotImplementedError, match=waits_on):
     suite.build_task('quadruped', task_name, device='cpu')
+
+
+MANIPULATION = [('manipulator', 'bring_ball'), ('manipulator', 'bring_peg'),
+                ('manipulator', 'insert_ball'), ('manipulator', 'insert_peg'),
+                ('stacker', 'stack_2'), ('stacker', 'stack_4')]
+
+
+@pytest.mark.parametrize('domain,task_name', MANIPULATION)
+def test_manipulation_layout_matches_jax(domain, task_name):
+  """Each manipulation model's collision groups (geom types, condim,
+  friction, pairs, K) and efc layout (nefc, row types, the elliptic
+  groups' rows, mu and scales) equal the JAX package's: the props each
+  task prunes, and the box groups among them, give the same rows."""
+  from dm_control_tpu._src import collision as jcollision
+  from dm_control_tpu._src import efc as jefc
+  from dm_control_tpu_torch._src import collision
+  from dm_control_tpu_torch._src import efc
+  jm = jsuite.build_task(domain, task_name).model
+  m = suite.build_task(domain, task_name, device='cpu').model
+  jg, g = jcollision.groups(jm), collision.groups(m)
+  assert len(g) == len(jg)
+  for a, b in zip(g, jg):
+    assert (int(a.t1), int(a.t2), a.condim, a.npairs, a.K) == (
+        int(b.t1), int(b.t2), b.condim, b.npairs, b.K)
+    np.testing.assert_array_equal(a.g1, b.g1)
+    np.testing.assert_array_equal(a.g2, b.g2)
+    np.testing.assert_array_equal(a.friction, b.friction)
+  jlay, lay = jefc.layout(jm), efc.layout(m)
+  assert lay.nefc == jlay.nefc
+  np.testing.assert_array_equal(lay.types, jlay.types)
+  assert lay.ell_groups.keys() == jlay.ell_groups.keys() == {3}
+  for x, y in zip(lay.ell_groups[3], jlay.ell_groups[3]):
+    np.testing.assert_array_equal(x, y)
+  print(f'{domain}-{task_name}: nv {m.nv} nefc {lay.nefc} cones '
+        f'{len(lay.ell_groups[3][0])}; groups '
+        f'{[(a.t1.name, a.t2.name, a.npairs, a.K) for a in g]}')

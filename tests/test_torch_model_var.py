@@ -1,7 +1,8 @@
 """Per-lane `model_var` through every copy of the integration state, float64
 on the CPU: `forward.state_of`, the bridge, `base.select_collision_free`,
 BatchedEnv's auto-reset of fresh lanes (reacher's target `geom_pos`) and
-its reset pool (finger-turn's target `site_pos`, an expensive init).
+its reset pool (finger-turn's target `site_pos`, an expensive init;
+insert_ball's target and cup `body_pos` and `body_quat`).
 """
 
 import numpy as np
@@ -118,3 +119,50 @@ def test_reset_pool_carries_site_pos():
   new = state.data.model_var['site_pos'][:, s_target]
   assert moved.any()
   assert bool((new[moved] != old[moved, s_target]).any(-1).all())
+
+
+def test_reset_pool_carries_body_pose():
+  """manipulator-insert_ball (expensive init): each lane's reset draws the
+  target's and the cup's pose, the same per lane in body_pos (x and z)
+  and body_quat (a rotation about y), which the kinematics places (the cup's
+  xpos and xquat); the pose goes through the bridge at float32 and, with
+  an episode limit of 2 control steps, every lane resets from the pool at
+  the second, holding its pool entry's body_pos and body_quat with the
+  rest of the entry, and no longer its own old ones."""
+  task = suite.build_task('manipulator', 'insert_ball', device='cpu')
+  m = task.model
+  env = runner.BatchedEnv(task, BATCH, time_limit=0.02, dtype=torch.float64)
+  state = env.reset(seed=5)
+  mv = state.data.model_var
+  assert mv.keys() == {'body_pos', 'body_quat'}
+  target, cup = m.name2id('body', 'target_ball'), m.name2id('body', 'cup')
+  xz = lambda b: mv['body_pos'][:, b][:, [0, 2]]
+  assert torch.equal(xz(cup), xz(target))
+  assert torch.equal(mv['body_quat'][:, cup], mv['body_quat'][:, target])
+  quat = mv['body_quat'][:, target]
+  assert bool((quat[:, [1, 3]] == 0).all())
+  assert len(set(quat[:, 2].tolist())) == BATCH
+  torch.testing.assert_close(state.data.xpos[:, cup], mv['body_pos'][:, cup],
+                             rtol=0, atol=1e-12)
+  torch.testing.assert_close(state.data.xquat[:, cup], quat, rtol=0,
+                             atol=1e-12)
+  fields = bridge.data_to_numpy(state.data)
+  back = bridge.data_from_numpy(fields, device='cpu', dtype=torch.float32)
+  for k in ('body_pos', 'body_quat'):
+    np.testing.assert_array_equal(back.model_var[k].double().numpy(),
+                                  mv[k].float().double())
+  old = {k: v.clone() for k, v in mv.items()}
+  pool = state.reset_pool
+  a = torch.zeros(BATCH, m.nu, dtype=torch.float64)
+  for _ in range(2):
+    state, (_, _, done, _) = env.step(state, a)
+  assert done.all() and env.reset_calls == 0
+  idx = runner.pool_index(torch.zeros(BATCH, dtype=torch.int32),
+                          torch.arange(BATCH), BATCH)
+  for name, x in forward.state_items(forward.state_of(state.data)):
+    assert torch.equal(x, dict(forward.state_items(pool))[name][idx]), name
+  moved = idx != torch.arange(BATCH)
+  assert moved.any()
+  for k in ('body_pos', 'body_quat'):
+    new = state.data.model_var[k][:, target]
+    assert bool((new[moved] != old[k][moved, target]).any(-1).all()), k

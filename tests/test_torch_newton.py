@@ -8,8 +8,9 @@ where they touch, with random joint velocities.  The port's plain version
 (the batched torch core) must land on the same optimum as the Pallas
 kernel in interpret mode and as the XLA core, to 1e-5 scaled by
 max(1, |ref|): all three stop at opt.tolerance, so their iterates may
-differ by about that (the bound of test_pallas.py).  The CUDA kernels run
-only on a card (`cuda` marker).
+differ by about that (the bound of test_pallas.py); at stack_4's layout,
+past the TPU kernel's VMEM gate, against the XLA core alone.  The CUDA
+kernels run only on a card (`cuda` marker).
 """
 
 import ctypes
@@ -298,3 +299,42 @@ def test_kernel_odd_batch_matches_full_batch_on_card(domain, task_name):
   for x, y, z in zip(full, again, part):
     assert torch.equal(x, y)
     assert torch.equal(x[:n], z)
+
+
+def test_plain_ell_matches_xla_core_at_stack_4():
+  """K2-ell's plain twin at stack_4's layout (nefc 1166, nv 20, 386
+  condim-3 cones; over the TPU kernel's VMEM gate, so the JAX package
+  solves it in its XLA core) on 4 lanes of its solver inputs, built by the
+  JAX package's forward at float64 from states with the boxes on the
+  floor and stacked (`test_torch_domains.prop_states`), against that
+  core: qacc and forces within 1e-5 scaled, as above, and the lanes take
+  Newton steps on their live cones."""
+  from test_torch_domains import prop_states
+  m = jsuite.build_task('stacker', 'stack_4').model
+  lay = jefc.layout(m)
+  assert (lay.nefc, m.nv, len(lay.ell_groups[3][0])) == (1166, 20, 386)
+  qpos, qvel = prop_states(m, np.random.RandomState(11), 6)
+  qpos, qvel = qpos[np.arange(6) % 3 < 2], qvel[np.arange(6) % 3 < 2]
+  db = jax.jit(jax.vmap(lambda q, v: jforward.forward(
+      m, jforward.make_data(m).replace(qpos=q, qvel=v))))(
+          jax.numpy.asarray(qpos), jax.numpy.asarray(qvel))
+  args = [np.asarray(x) for x in (
+      db.efc_J, db.qM, db.efc_aref, db.efc_D, db.efc_frictionloss,
+      db.efc_active.astype(db.qpos.dtype), db.qacc_smooth, db.qacc_smooth)]
+  kw = dict(niter=int(m.opt.iterations), ls_iter=12,
+            tol=jsolver.effective_tol(float(m.opt.tolerance), db.qpos.dtype),
+            meaninertia=float(m.stat_meaninertia or 1.0))
+  x_ref, f_ref = jax.jit(jax.vmap(
+      lambda *a: jsolver._solve_core_xla(*a, lay=lay, **kw)))(
+          *[jax.numpy.asarray(a) for a in args])
+  x, f, iters = nk.newton_solve_plain(
+      *[torch.tensor(a) for a in args], types=lay.types,
+      ell_groups=lay.ell_groups, return_iters=True, **kw)
+  cones = args[5][:, lay.ell_groups[3][0][:, 0]].sum(1)
+  ex = _scaled_err(x.numpy(), np.asarray(x_ref))
+  ef = _scaled_err(f.numpy(), np.asarray(f_ref))
+  print(f'K2-ell plain vs XLA core at stack_4: live cones per lane '
+        f'{cones.tolist()}, iterations {iters.tolist()}; max scaled err qacc '
+        f'{ex:.2e} force {ef:.2e}')
+  assert (cones >= 4).all() and (iters >= 1).all()
+  assert ex <= 1e-5 and ef <= 1e-5

@@ -159,6 +159,14 @@ def _body_states(jm, rng, n):
   return qpos, 0.3 * rng.randn(n, jm.nv), rng.uniform(-1, 1, (n, jm.nu))
 
 
+def _prop_states(jm, rng, n):
+  """n manipulators or stackers, the props on the floor, stacked or in
+  the slot on two lanes of three (`test_torch_domains.prop_states`)."""
+  from test_torch_domains import prop_states
+  qpos, qvel = prop_states(jm, rng, n)
+  return qpos, qvel, rng.uniform(-1, 1, (n, jm.nu))
+
+
 def _jax_step(jm, n_sub, qpos, qvel, ctrl, warm=None, act=None):
   """The JAX package's control step at float32, in its substeps' stage
   order (step1, then per substep the acc stage, Euler, the divergence
@@ -238,7 +246,8 @@ def _lane_err(out, ref):
 
 def run_steps(what, n):
   """One control step of n lanes of task `what` (walker-walk, finger-spin,
-  cheetah-run, hopper-hop, ..., humanoid-run, quadruped-walk) drawn with
+  cheetah-run, hopper-hop, ..., quadruped-walk, manipulator-bring_ball,
+  manipulator-insert_peg, stacker-stack_2) drawn with
   numpy (seed 5):
   the port's at float32 and at
   float64 and the JAX package's at float32, each with its choices
@@ -253,7 +262,8 @@ def run_steps(what, n):
           'point_mass': _point_mass_states,
           'ball_in_cup': _ball_in_cup_states, 'swimmer': _swimmer_states,
           'fish': _fish_states, 'humanoid': _body_states,
-          'quadruped': _body_states}.get(domain, _planar_states)
+          'quadruped': _body_states, 'manipulator': _prop_states,
+          'stacker': _prop_states}.get(domain, _planar_states)
   qpos, qvel, ctrl = draw(jm, rng, n)
   n_sub = task.n_sub_steps()
   d = forward.make_data(pm, n, torch.float64, 'cpu').replace(
@@ -277,7 +287,10 @@ def run_steps(what, n):
                                         'point_mass-easy',
                                         'ball_in_cup-catch',
                                         'swimmer-swimmer6', 'fish-swim',
-                                        'humanoid-run', 'quadruped-walk'])
+                                        'humanoid-run', 'quadruped-walk',
+                                        'manipulator-bring_ball',
+                                        'manipulator-insert_peg',
+                                        'stacker-stack_2'])
 def steps(request):
   """`run_steps` of BATCH lanes of each task."""
   return request.param, run_steps(request.param, BATCH)[0]

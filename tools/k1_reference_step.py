@@ -17,7 +17,9 @@ and those of the lanes past them from a generator of the task's own
 cheetah-run, hopper-hop, pendulum-swingup, reacher-easy,
 cartpole-swingup, acrobot-swingup, finger-turn_easy, point_mass-easy,
 ball_in_cup-catch, swimmer-swimmer6, fish-swim, humanoid-run,
-quadruped-walk) start, as in
+quadruped-walk, the four manipulator tasks, and
+`chip_smoke.STACKER_TASKS`, which chip_smoke.py holds in its kernel
+phase only) start, as in
 chip_smoke.py's phase slice, from the final states of its last rollout
 run of each (`chip_smoke.slice_run`), with its reference controls first
 (`chip_smoke.slice_controls`) and those of the lanes past them from the
@@ -27,7 +29,7 @@ it runs one control step of each task's lanes on the card at float32
 and with K1's wrappers sent to their plain versions on the card (route
 `plain`); and once on the CPU at float64.  Each run records the discrete
 choices of every substep (`chip_smoke.branches`: the top-K selection,
-contact and limit activity, the solve's warmstart choice, the zones of
+the box colliders' corner and axis choices, contact and limit activity, the solve's warmstart choice, the zones of
 its rows and cones at the solution, and, at float32, where each Newton
 solve stopped: `solve stop`).
 
@@ -80,7 +82,7 @@ def main():
   parser.add_argument('--sizes', default='9,27,56')
   parser.add_argument('--lanes', type=int, default=1024)
   parser.add_argument('--tasks', default=','.join(
-      ('walker-walk', 'finger-spin') + cs.SLICE_TASKS))
+      ('walker-walk', 'finger-spin') + cs.SLICE_TASKS + cs.STACKER_TASKS))
   parser.add_argument('--dump', action='store_true')
   args = parser.parse_args()
   sizes = [int(s) for s in args.sizes.split(',')]
@@ -116,7 +118,7 @@ def main():
                                    dev)
       if name in wanted:
         tasks.append((name, t, data, t.n_sub_steps(), ctrl))
-  for i_task, name in enumerate(cs.SLICE_TASKS):
+  for i_task, name in enumerate(cs.SLICE_TASKS + cs.STACKER_TASKS):
     if name in wanted:
       t = suite.build_task(*name.split('-'))
       state, _, _, _ = cs.slice_run(BatchedEnv(t, BATCH), i_task,
@@ -159,9 +161,11 @@ def main():
 def extra_controls(name, nu, n, dev):
   """The controls of task `name`'s lanes past chip_smoke.py's REF_LANES,
   uniform in [-1, 1], from a generator of the task's own (seeded REF_SEED
-  + 1 + 100 x its index in walker-walk, finger-spin and SLICE_TASKS), so
+  + 1 + 100 x its index in walker-walk, finger-spin, SLICE_TASKS and
+  STACKER_TASKS), so
   that they do not depend on which other tasks `--tasks` names."""
-  order = ['walker-walk', 'finger-spin'] + list(cs.SLICE_TASKS)
+  order = (['walker-walk', 'finger-spin'] + list(cs.SLICE_TASKS)
+           + list(cs.STACKER_TASKS))
   gen = torch.Generator(device=dev)
   gen.manual_seed(cs.REF_SEED + 1 + 100 * order.index(name))
   return torch.rand((n, nu), generator=gen, device=dev) * 2 - 1

@@ -45,7 +45,9 @@ TASKS = {what: tuple(what.split('-')) for what in (
     'pendulum-swingup', 'reacher-easy', 'cartpole-swingup',
     'acrobot-swingup', 'finger-turn_easy', 'point_mass-easy',
     'ball_in_cup-catch', 'swimmer-swimmer6', 'fish-swim', 'humanoid-run',
-    'quadruped-walk')}
+    'quadruped-walk', 'manipulator-bring_ball', 'manipulator-bring_peg',
+    'manipulator-insert_ball', 'manipulator-insert_peg', 'stacker-stack_2',
+    'stacker-stack_4')}
 
 
 def main():
