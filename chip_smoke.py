@@ -50,10 +50,19 @@ any failure exits non-zero and no phase catches its own failure:
      stacker layouts (nefc 392-1166, nv 11-20, 128-386 cones; stack_4 one
      environment per block) on states with the props on the floor,
      stacked or in the slot (`prop_states`), held by `ell_gates` with the
-     same launch and bit checks; and K1 at humanoid's n = 27,
-     quadruped's n = 22, manipulator's n = 11 and stacker's 14 and 20 on
-     their initial states (drawn collision-free, humanoid's and
-     quadruped's settled), with the same bound and bit checks;
+     same launch and bit checks; K2 at the tenth slice's layouts with
+     the same bounds, launch and bit checks and the top-K checks:
+     humanoid_CMU lying on or pressed into the floor (nefc 880, nv 62:
+     the two-dofs-per-lane family, J read from device memory), escape's
+     quadrupeds on their terrains (nefc 378, nv 22) and fetch's with the
+     ball against the floor and a wall (nefc 598, nv 28), converged and
+     after one Newton iteration (`float32_gates`: plain float32 itself
+     misses K2's bounds there at humanoid_CMU's layout); K2 raising at
+     nv 85 on the card without a launch; and K1 at humanoid's n = 27,
+     quadruped's n = 22, manipulator's n = 11, stacker's 14 and 20,
+     humanoid_CMU's 62 and fetch's 28 on their initial states (drawn
+     collision-free, humanoid's and the quadrupeds' settled), with the
+     same bound and bit checks;
   3. reference: one control step of REF_LANES = 256 walker-walk lanes,
      and of 256 finger-spin lanes in contact, on the card at float32
      against the port's float64 CPU path (plain versions) from the same
@@ -61,7 +70,8 @@ any failure exits non-zero and no phase catches its own failure:
      (contact activity and normals, limit activity, the solve's warmstart
      choice and its rows' and cones' zones, and tendon limits where the
      model has them; the box colliders' corner and axis choices,
-     `box_choices`): each lane within REF_TOL =
+     `box_choices`; the heightfield cell under each heightfield contact,
+     `hfield_cells`): each lane within REF_TOL =
      1e-2 (max scaled error of qpos and qvel) is held; one over it is
      excused where its first differing choice stood within BAND * EPS32 *
      scale of its threshold in the float64 run, or, with every choice
@@ -105,9 +115,10 @@ any failure exits non-zero and no phase catches its own failure:
      (cheetah-run, hopper-hop, pendulum-swingup, reacher-easy,
      cartpole-swingup, acrobot-swingup (both RK4), finger-turn_easy,
      point_mass-easy, ball_in_cup-catch, swimmer-swimmer6, fish-swim,
-     humanoid-run, quadruped-walk and SLICE9_TASKS: manipulator
-     bring_ball, bring_peg, insert_ball and insert_peg; stacker is held
-     in phase 2 only, STACKER_TASKS), SLICE_RUNS runs of reset and
+     humanoid-run, quadruped-walk, SLICE9_TASKS: manipulator
+     bring_ball, bring_peg, insert_ball and insert_peg, and SLICE10_TASKS:
+     humanoid_CMU-run, quadruped-escape and quadruped-fetch; stacker is
+     held in phase 2 only, STACKER_TASKS), SLICE_RUNS runs of reset and
      `slice_steps` control
      steps: states (model_var and act included) finite, rewards
      in [0, 1], every kernel's launch count exactly `expected_launches`
@@ -115,19 +126,22 @@ any failure exits non-zero and no phase catches its own failure:
      final states (act compared too where the model has activations, and
      under the top-K broadphase, or for plane-box pairs, the contacts
      keyed by pair or box corner, with the selection and the box
-     colliders' choices recorded: `branches`); then reacher-easy,
-     finger-turn_easy, cheetah-run, ball_in_cup-catch, swimmer-swimmer6,
-     fish-swim, humanoid-run, quadruped-walk and manipulator-insert_peg
-     with an episode limit that ends every lane's episode: reacher's,
-     swimmer's and fish's lanes hold the target geom_pos their fresh
-     init drew, the others their reset pool entry (finger-turn's target
-     site_pos, quadruped's act, insert_peg's body_pos and body_quat
-     included).
+     colliders' choices recorded: `branches`), and escape's rangefinder
+     observation held per lane to the float64 CPU path's from the same
+     state (`rangefinder_check`); then reacher-easy, finger-turn_easy,
+     cheetah-run, ball_in_cup-catch, swimmer-swimmer6, fish-swim,
+     humanoid-run, quadruped-walk, manipulator-insert_peg and the tenth
+     slice's three tasks with an episode limit that ends every lane's
+     episode: reacher's, swimmer's and fish's lanes hold the target
+     geom_pos their fresh init drew, the others their reset pool entry
+     (finger-turn's target site_pos, quadruped's act, insert_peg's
+     body_pos and body_quat, escape's hfield_data included).
 
 Output: the card's name and power limit (nvidia-smi), env-steps/s of
 walker-walk@4096, finger-spin@4096 and each slice task@4096 (each the
 median of three runs; the K2-ell row carries its time at each ninth-slice
-layout, the K1 rows at n = 11, 14 and 20), one
+layout, the K1 rows at n = 11, 14, 20, 62 and 28, the K2 row at the tenth
+slice's three layouts, keyed by task), one
 `{"kernels": [...]}` JSON line, and last the
 `{"ok": true, "device": {...}}` line.  The nvcc/ptxas log of the build
 is in dm_control_tpu_torch/_build/build.log; its register and spill lines
@@ -164,6 +178,14 @@ SLICE9_STEPS = 10
 # reference gate's rule on some lanes, as the JAX package's float32 step
 # does (PERF.md, ROADMAP queue 3), so they are not in phase slice
 STACKER_TASKS = ('stacker-stack_2', 'stacker-stack_4')
+# the tenth slice's tasks (K2 past 32 dofs: humanoid_CMU's nv 62; the
+# heightfield and the rangefinder: escape; the condim-6 ball and the walls:
+# fetch), their kernel-phase generator's seed, the tasks whose initial
+# states give K1's n = 62 and 28, and the control steps of each run
+SLICE10_TASKS = ('humanoid_CMU-run', 'quadruped-escape', 'quadruped-fetch')
+SLICE10_SEED = 50
+SLICE10_K1 = ('humanoid_CMU-run', 'quadruped-fetch')
+SLICE10_STEPS = 10
 # the tasks of the sixth to ninth slices, each driven through one
 # BatchedEnv of BATCH lanes (phase slice) and gated against the float64 CPU
 # path (phase reference, on the rollout's final states); a task's seeds
@@ -172,7 +194,7 @@ SLICE_TASKS = ('cheetah-run', 'hopper-hop', 'pendulum-swingup',
                'reacher-easy', 'cartpole-swingup', 'acrobot-swingup',
                'finger-turn_easy', 'point_mass-easy', 'ball_in_cup-catch',
                'swimmer-swimmer6', 'fish-swim', 'humanoid-run',
-               'quadruped-walk') + SLICE9_TASKS
+               'quadruped-walk') + SLICE9_TASKS + SLICE10_TASKS
 SLICE_RUNS = 3
 # the control steps of each run of the sixth to eighth slices' tasks (50
 # until the ninth slice cut them, to keep the script within its time)
@@ -385,6 +407,30 @@ def ell_gates(what, x_k, x_p, x_64):
            gate=True, bounds=bounds)
 
 
+def float32_gates(what, x_k, x_p, x_64):
+  """K2's bounds on a kernel solve x_k where the plain float32 solve x_p
+  itself misses them against the plain float64 one x_64: on each
+  statistic that plain float32 misses, the kernel is held to 2x plain
+  float32's own error, against plain float32 as against float64 (two
+  float32 solves, each that far from float64, may lie twice that far
+  apart); on the others to K2's bounds (`ell_gates` relaxes only the
+  float64 side).  For one Newton iteration at humanoid_CMU's layout,
+  whose float32 Hessian rounds the step past K2's bounds: plain float32
+  against float64 lane-scaled mean 3.74e-4, max 2.17e-2, 36 lanes of 64
+  over 1e-3 on its impact states (on the CPU)."""
+  p32 = k2_check(f'{what} plain float32 vs plain float64', x_p.double(),
+                 x_64, gate=False)
+  limits = (K2_MEAN, K2_MAX, int(K2_LANES * x_k.shape[0]))
+  bounds = tuple(lim if p <= lim else 2 * p for p, lim in zip(p32, limits))
+  if bounds != limits:
+    log(f'#   plain float32 misses a K2 bound against float64: the kernel '
+        f'is held to (mean, max, lanes) <= {bounds}')
+  k2_check(f'{what} kernel vs plain float32', x_k, x_p, gate=True,
+           bounds=bounds)
+  k2_check(f'{what} kernel vs plain float64', x_k.double(), x_64,
+           gate=True, bounds=bounds)
+
+
 def newton_launch(nk, what, lay, nv, B):
   """Print the Newton kernel's launch configuration for a layout."""
   ncg = len(lay.ell_groups[3][0]) if lay.ell_groups else 0
@@ -520,10 +566,11 @@ BAND = 64
 REF_LANES = 256             # lanes of each task the gate holds
 REF_SEED = 2                # the reference generator's seed
 # pipeline order: the top-K selection, the box colliders' choices,
-# collision, limits, then the solve's warmstart choice and the zones of its
-# rows and cones at the solution
+# collision (and the heightfield cell of each active contact), limits,
+# then the solve's warmstart choice and the zones of its rows and cones at
+# the solution
 QUANTITIES = ('selection', 'box corners', 'box axis', 'contact',
-              'contact core', 'contact normal', 'limit',
+              'hfield cell', 'contact core', 'contact normal', 'limit',
               'tendon limit', 'warmstart', 'row zone', 'cone top',
               'cone bottom')
 # two runs' normals of one contact differ where they are further apart
@@ -781,6 +828,50 @@ def box_choices(m, d):
   return out
 
 
+def hfield_cells(m, d):
+  """The 'hfield cell' quantity of `branches`, per contact of the static
+  heightfield groups: the grid cell (y0 * ncol + x0) under its point where
+  the contact is active (else -1), recomputed from d's geom poses at d's
+  dtype as `colliders.hfield_points` and `hfield_grid` place it (the cell
+  picks the bilinear patch, hence the contact's normal); value the
+  point's distance to the nearest cell edge (the grid fraction's nearer
+  side times the spacing); scale max(1, |contact position|).  {} where
+  the model has no heightfield."""
+  import torch
+  from dm_control_tpu_torch._src import colliders
+  from dm_control_tpu_torch._src import collision
+  from dm_control_tpu_torch._src.types import GeomType, mirror
+  con, ref = d.contact, d.qpos
+  parts, slot = [], 0
+  for g in collision.groups(m):
+    if g.t1 == GeomType.HFIELD:
+      assert not g.dynamic, 'a top-K heightfield group'
+      hid = int(m.geom_dataid[g.g1[0]])
+      g1, g2 = mirror(m, ref, g.g1), mirror(m, ref, g.g2)
+      h_pos, h_mat = d.geom_xpos[:, g1], d.geom_xmat[:, g1]
+      pts = colliders.hfield_points(g, h_mat, d.geom_xpos[:, g2],
+                                    d.geom_xmat[:, g2],
+                                    mirror(m, ref, m.geom_size[g.g2]))
+      local = torch.stack([torch.einsum('...ij,...i->...j', h_mat, p - h_pos)
+                           for p, _ in pts], 2)              # (B, K, k, 3)
+      x0, y0, tx, ty = colliders.hfield_grid(m, hid, local[..., :2])
+      nrow, ncol = int(m.hfield_nrow[hid]), int(m.hfield_ncol[hid])
+      dx, dy = (2 * float(v) / (n - 1) for v, n in zip(
+          m.hfield_size[hid][:2], (ncol, nrow)))
+      edge = torch.minimum(torch.minimum(tx, 1 - tx) * dx,
+                           torch.minimum(ty, 1 - ty) * dy).flatten(1)
+      n = g.ncon
+      on = (con.dist[:, slot:slot + n] - con.includemargin[:, slot:slot + n]
+            ) < 0
+      cell = torch.where(on, (y0 * ncol + x0).flatten(1), -1)
+      scale = con.pos[:, slot:slot + n].abs().amax(-1).clamp(min=1.0)
+      parts.append((cell, edge, scale))
+    slot += g.ncon
+  if not parts:
+    return {}
+  return {'hfield cell': tuple(torch.cat(x, dim=1) for x in zip(*parts))}
+
+
 def cone_keys(lay, ckeys, rows):
   """(B, ncg) the `contact_keys` of the contacts whose elliptic cones
   have normal rows rows[:, 0]."""
@@ -810,6 +901,9 @@ def branches(m, lay, before, after):
                (`box_choices`)
     contact    dist - margin < 0 per candidate contact (constraint.py);
                scale max(1, |contact position|)
+    hfield cell  the heightfield cell under each active heightfield
+               contact (`hfield_cells`): decided by its distance to the
+               nearest cell edge
     contact core  the separation of the two geoms' cores, dist + their
                radii, < CORE_EPS: where math.normalize clamps it, the pair's
                normal and contact point are rounding's; same scale
@@ -861,6 +955,7 @@ def branches(m, lay, before, after):
       rkeys, n_rows = row_keys(m, lay, ckeys)
     out.update(box_choices(m, d))
     out['contact'] = (key(v < 0, False), key(v, float('inf')), scale)
+    out.update(hfield_cells(m, d))
     radius = torch.as_tensor(m.geom_size[:, 0], dtype=v.dtype,
                              device=v.device)
     # planes and boxes have no core radius: a sphere's core is then its
@@ -1139,6 +1234,70 @@ def reference_gate(what, m, m_cpu, data, ctrl, n_sub, lk):
   return largest['kernels']
 
 
+# escape's rangefinder observation on the card against the float64 CPU
+# path from the same state: tanh of a distance whose heightfield ray ends
+# in a 12-step bisection of a 1.36 m march step (to 3.3e-4 m)
+RF_TOL = 2e-3
+
+
+def rangefinder_check(m, m_cpu, data):
+  """escape's rangefinder observation (tanh of each rangefinder's
+  distance, 1 where its ray hits nothing) of the first REF_LANES lanes of
+  `data`, from kinematics and the posvel sensors on the card at float32
+  and on the CPU at float64 from the same state: each lane's largest
+  difference within RF_TOL, or each of its rays over RF_TOL one whose
+  float64 heightfield march had a sample within BAND x EPS32 x max(1, |z|
+  + |h|) of the surface (`render.hfield_march`), which float32 rounding
+  can put on the other side and so start the bisection a march step
+  away."""
+  import numpy as np
+  import torch
+  from dm_control_tpu_torch._src import forward
+  from dm_control_tpu_torch._src import render
+  from dm_control_tpu_torch._src import sensor
+  from dm_control_tpu_torch._src import smooth
+  from dm_control_tpu_torch._src.types import SensorType
+  rf = [s for s in range(m.nsensor)
+        if SensorType(int(m.sensor_type[s])) == SensorType.RANGEFINDER]
+  cols = [int(m.sensor_adr[s]) for s in rf]
+  sites = [int(m.sensor_objid[s]) for s in rf]
+  lanes = slice(0, REF_LANES)
+
+  def run(mm, dtype, dev):
+    small = forward.map_state(
+        lambda x: x[lanes].to(dev, dtype) if x.is_floating_point()
+        else x[lanes].to(dev), forward.state_of(data))
+    d = smooth.kinematics(mm, forward.make_data(mm, REF_LANES, dtype,
+                                                dev).replace(**small))
+    r = sensor.sensors(mm, d, 'posvel').sensordata[:, cols]
+    return torch.where(r == -1.0, 1.0, torch.tanh(r)), d
+
+  out, _ = run(m, torch.float32, data.qpos.device)
+  ref, d64 = run(m_cpu, torch.float64, 'cpu')
+  diff = (out.cpu().double() - ref).abs()
+  g = m.name2id('geom', 'terrain')
+  h_pos, h_mat = d64.geom_xpos[:, g], d64.geom_xmat[:, g]
+  ol = torch.einsum('BSi,Bij->BSj', d64.site_xpos[:, sites] - h_pos[:, None],
+                    h_mat)
+  dl = torch.einsum('BSi,Bij->BSj', d64.site_xmat[:, sites][..., :, 2], h_mat)
+  _, z, h, _ = render.hfield_march(m_cpu, d64, int(m.geom_dataid[g]), ol, dl)
+  near = ((z - h).abs() / (EPS32 * (z.abs() + h.abs()).clamp(min=1.0))
+          <= BAND).any(-1)
+  over = diff > RF_TOL
+  failed = (over & ~near).any(-1)
+  log(f'# phase reference: quadruped-escape rangefinder, {REF_LANES} lanes x '
+      f'{len(rf)} rays, float32 card vs float64 CPU from the same state: '
+      f'max |obs difference| {diff.max().item():.2e}; rays over RF_TOL '
+      f'{int(over.sum())} (their march within the band of the surface '
+      f'{int((over & near).sum())}); rays that hit nothing '
+      f'{int((ref == 1.0).sum())}')
+  for lane in np.flatnonzero(failed.numpy()).tolist():
+    log(f'#   quadruped-escape rangefinder lane {lane}: differences '
+        f'{diff[lane].tolist()}')
+  assert not bool(failed.any()), (
+      f'escape rangefinder: {int(failed.sum())} lanes over RF_TOL')
+
+
 def finger_solver_inputs(m, lay, B, gen, dev):
   """finger-spin solver inputs for B lanes in contact, float32 on dev.
 
@@ -1169,6 +1328,8 @@ def finger_solver_inputs(m, lay, B, gen, dev):
 
 def slice_steps(what):
   """The control steps of each of slice task `what`'s runs."""
+  if what in SLICE10_TASKS:
+    return SLICE10_STEPS
   return (SLICE9_STEPS if what in SLICE9_TASKS + STACKER_TASKS
           else SLICE_STEPS)
 
@@ -1196,6 +1357,15 @@ def slice_run(env, i_task, run, dev, after_reset=lambda: None):
   return state, rewards, t_reset, time.perf_counter() - t0
 
 
+def row_key(what):
+  """The key of task `what`'s entry in a kernel's row of the `kernels`
+  line: its domain, or the whole task name where its domain has several
+  entries (the ninth slice's and the tenth's)."""
+  if what in SLICE9_K1 + SLICE10_TASKS:
+    return what
+  return what.split('-')[0]
+
+
 def slice_controls(i_task, nu, lanes, dev):
   """The reference step's controls of slice task number `i_task`, uniform
   in [-1, 1], from a generator of its own."""
@@ -1218,7 +1388,11 @@ def impact_states(what, m, B, gen, dev):
   (the root 0.1 to 0.4 up) and quadrupeds standing or fallen (0.15 to
   0.6), at random orientations, every hinge anywhere in range, slow;
   manipulators and stackers with their props on the floor, stacked or in
-  the slot (`prop_states`).  Controls uniform."""
+  the slot (`prop_states`); the tenth slice's bodies as humanoid's and
+  quadruped's, escape's on a terrain of each lane's own (`model_var`), at
+  the bowl's middle or up to 6 m out on its slope, over the terrain there,
+  and fetch's ball on the floor by the body or against a wall
+  (`ball_states`).  Controls uniform."""
   import math as pymath
   import torch
   from dm_control_tpu_torch._src import forward
@@ -1259,6 +1433,31 @@ def impact_states(what, m, B, gen, dev):
     qvel = 0.3 * torch.randn((B, m.nv), **kw)
   elif what in SLICE9_TASKS + STACKER_TASKS:
     qpos, qvel = prop_states(m, qpos, gen)
+  elif what in SLICE10_TASKS:
+    from dm_control_tpu_torch._src import colliders
+    from dm_control_tpu_torch._src.types import JointType
+    from dm_control_tpu_torch.suite import quadruped
+    for j in range(m.njnt):
+      if m.jnt_type[j] == JointType.HINGE:
+        qpos[:, int(m.jnt_qposadr[j])] = u(*(float(v)
+                                             for v in m.jnt_range[j]))
+    quat = torch.randn((B, 4), **kw)
+    qpos[:, 3:7] = quat / quat.norm(dim=1, keepdim=True)
+    qpos[:, :2] = 0.0
+    qpos[:, 2] = (u(0.1, 0.4) if what == 'humanoid_CMU-run'
+                  else u(0.15, 0.6))
+    if what == 'quadruped-escape':
+      d = d.replace(model_var={'hfield_data': quadruped.terrain(m, gen,
+                                                                qpos)})
+      ang, r = u(-pymath.pi, pymath.pi), u(0.0, 6.0)
+      qpos[:, 0], qpos[:, 1] = r * torch.cos(ang), r * torch.sin(ang)
+      g = m.name2id('geom', 'terrain')
+      h = colliders.hfield_height(m, d, int(m.geom_dataid[g]),
+                                  qpos[:, None, :2])[0][:, 0]
+      qpos[:, 2] += (h + float(m.geom_pos[g, 2])).clamp(min=0.0)
+    if what == 'quadruped-fetch':
+      ball_states(m, qpos, gen)
+    qvel = 0.3 * torch.randn((B, m.nv), **kw)
   elif what in SLICE8_TASKS:
     for j in range(1, m.njnt):
       qpos[:, int(m.jnt_qposadr[j])] = u(*(float(v) for v in m.jnt_range[j]))
@@ -1278,6 +1477,32 @@ def impact_states(what, m, B, gen, dev):
     qvel[:, int(m.jnt_dofadr[m.name2id('joint', 'joint_0')])] = side
   ctrl = u(-1.0, 1.0, B, m.nu)
   return d.replace(qpos=qpos, qvel=qvel, ctrl=ctrl)
+
+
+def ball_states(m, qpos, gen):
+  """fetch's ball in qpos (B, nq) on the card, in place, drawn from `gen`:
+  upright, on the floor 0 to 1 mm deep, beside the body (0.45 m from the
+  root, even lanes) or against the wall at x = -15.7, tilted 45 degrees
+  (odd lanes).  (tests/test_torch_domains.ball_states draws the same with
+  numpy.)"""
+  import math as pymath
+  import torch
+  B, dev = qpos.shape[0], qpos.device
+  u = lambda lo, hi: lo + (hi - lo) * torch.rand(B, generator=gen,
+                                                 device=dev)
+  q = int(m.jnt_qposadr[m.name2id('joint', 'ball_root')])
+  r = float(m.geom_size[m.name2id('geom', 'ball'), 0])
+  wall = m.name2id('geom', 'wall_px')
+  z = r - u(0.0, 1e-3)
+  ang = u(-pymath.pi, pymath.pi)
+  x_wall = ((r - u(0.0, 1e-3)) * pymath.sqrt(2) + float(m.geom_pos[wall, 0])
+            - (z - float(m.geom_pos[wall, 2])))
+  even = torch.arange(B, device=dev) % 2 == 0
+  qpos[:, q] = torch.where(even, qpos[:, 0] + 0.45 * torch.cos(ang), x_wall)
+  qpos[:, q + 1] = torch.where(even, qpos[:, 1] + 0.45 * torch.sin(ang),
+                               u(-5.0, 5.0))
+  qpos[:, q + 2] = z
+  qpos[:, q + 3:q + 7] = torch.tensor([1.0, 0.0, 0.0, 0.0], device=dev)
 
 
 def prop_states(m, qpos, gen):
@@ -1440,8 +1665,9 @@ def broadphase_bits(what, m, d):
     return collision.collide(m, smooth.kinematics(m, dd)).contact
 
   full, again = contacts(d), contacts(d)
-  part = contacts(d.replace(**{f: getattr(d, f)[:n] for f in (
-      'qpos', 'qvel', 'ctrl')}))
+  part = contacts(d.replace(
+      model_var={k: v[:n] for k, v in (d.model_var or {}).items()},
+      **{f: getattr(d, f)[:n] for f in ('qpos', 'qvel', 'ctrl')}))
   for f in ('dist', 'pos', 'frame', 'includemargin', 'friction', 'solref',
             'solimp', 'geom1', 'geom2', 'body1', 'body2', 'dim'):
     x = getattr(full, f)
@@ -1657,19 +1883,69 @@ def main() -> int:
   # and 16 pyramidal contacts) and swimmer6's (5 joint limits, very soft)
   slice_tasks = {what: suite.build_task(*what.split('-'))
                  for what in SLICE_TASKS + STACKER_TASKS}
+  # the tenth slice's K2 inputs from a generator of their own: humanoid_CMU
+  # (nv 62, nefc 880: two dofs per lane, J in device memory) lying on or
+  # pressed into the floor, escape on its terrain, fetch's ball against
+  # the floor and a wall
+  s10_gen = torch.Generator(device=dev)
+  s10_gen.manual_seed(SLICE10_SEED)
   k2_slice = {}
   for what, g in (('cheetah-run', s_gen), ('cartpole-swingup', s_gen),
                   ('point_mass-easy', s7_gen), ('ball_in_cup-catch', s7_gen),
                   ('swimmer-swimmer6', s7_gen), ('humanoid-run', s8_gen),
-                  ('quadruped-walk', s8_gen)):
+                  ('quadruped-walk', s8_gen), ('humanoid_CMU-run', s10_gen),
+                  ('quadruped-escape', s10_gen),
+                  ('quadruped-fetch', s10_gen)):
     tm = slice_tasks[what].model
     impacts = impact_states(what, tm, BATCH, g, dev)
-    if what in SLICE8_TASKS:
+    topk = what in SLICE8_TASKS + SLICE10_TASKS
+    if topk:
       broadphase_bits(what, tm, impacts)
     k2_slice[what] = k2_task_check(
         nk, what, tm, efc.layout(tm), impacts)
-    if what in SLICE8_TASKS:
+    if topk:
       topk_live(what, tm, k2_slice[what][4])
+  # one Newton iteration at the tenth slice's layouts, without a line
+  # search (a - H^-1 grad: the Hessian, two dofs per lane at humanoid_CMU's)
+  # and with one line-search step, held on the lanes where float64 moves
+  # alpha off 1 (as finger's K2-ell above)
+  for what in SLICE10_TASKS:
+    s_args, s_kw = k2_slice[what][:2]
+    s_lay = efc.layout(slice_tasks[what].model)
+    tol64 = solver.effective_tol(slice_tasks[what].model.opt.tolerance,
+                                 torch.float64)
+    p_kw = dict(types=s_lay.types, ell_groups=s_lay.ell_groups)
+    one = {}
+    for ls in (0, 1):
+      kw1 = dict(s_kw, niter=1, ls_iter=ls)
+      one[ls] = (nk.newton_solve_batched(*s_args, lay=s_lay, **kw1)[0],
+                 nk.newton_solve_plain(*s_args, **p_kw, **kw1)[0],
+                 nk.newton_solve_plain(*[a.double() for a in s_args], **p_kw,
+                                       **dict(kw1, tol=tol64))[0])
+    off = lane_scaled_err(one[1][2], one[0][2]).amax(dim=1) > 1e-3
+    log(f'# phase kernels: K2 on {what}, one Newton iteration: lanes whose '
+        f'one line-search step moves alpha off 1 '
+        f'{float(off.double().mean()):.4f}')
+    float32_gates(f'K2 on {what}, one iteration, no line search,', *one[0])
+    float32_gates(f'K2 on {what}, one iteration, one line-search step, '
+                  f'alpha off 1,', *(x[off] for x in one[1]))
+  # past the kernel's 64 dofs (dog's 85) K2 raises on the card and
+  # launches nothing: there is no fallback to the plain version
+  cmu_lay = efc.layout(slice_tasks['humanoid_CMU-run'].model)
+  wide = torch.zeros((2, cmu_lay.nefc, nk.MAX_NV + 21), device=dev)
+  nk.reset_launches()
+  try:
+    nk.newton_solve_batched(
+        wide, torch.zeros((2, wide.shape[2], wide.shape[2]), device=dev),
+        *[torch.zeros((2, cmu_lay.nefc), device=dev)] * 4,
+        *[torch.zeros((2, wide.shape[2]), device=dev)] * 2, lay=cmu_lay,
+        niter=1, ls_iter=1, tol=1e-8, meaninertia=1.0)
+    raise AssertionError(f'K2 took nv={wide.shape[2]} on the card')
+  except ValueError as e:
+    assert f'1..{nk.MAX_NV}' in str(e), e
+    log(f'# phase kernels: newton_solve_batched at nv={wide.shape[2]} on the '
+        f'card raises: {e}')
+  assert sum(nk.LAUNCHES.values()) == 0
 
   # K2-ell at the ninth slice's layouts (nefc 392-1166, nv 11-20, 128-386
   # condim-3 cones; stack_4's one environment per block), on states with
@@ -1685,8 +1961,9 @@ def main() -> int:
                                                     dev))
 
   # K1 at humanoid's n = 27 and quadruped's 22 on their initial states
-  # (reset through the tasks' collision-free draws and settling), and at
-  # manipulator's n = 11 and stacker's 14 and 20 on theirs.  Their
+  # (reset through the tasks' collision-free draws and settling), at
+  # manipulator's n = 11 and stacker's 14 and 20 on theirs, and at
+  # humanoid_CMU's n = 62 and fetch's 28 on theirs.  Their
   # mass matrices are far worse conditioned than the random draws above
   # (a float32 solve of humanoid's moves ~1e-3 of x with the order of its
   # sums), so each mode is held as K2 is (`ell_gates`): K2's bounds on the
@@ -1695,7 +1972,7 @@ def main() -> int:
   # error where plain float32 misses them; these are the errors their
   # timing rows report
   s8_init = {what: BatchedEnv(slice_tasks[what], BATCH).reset(seed=0).data
-             for what in SLICE8_TASKS + SLICE9_K1}
+             for what in SLICE8_TASKS + SLICE9_K1 + SLICE10_K1}
   for what, s_d in s8_init.items():
     A, b = s_d.qM.contiguous(), s_d.qfrc_smooth.contiguous()
     n = A.shape[1]
@@ -1891,7 +2168,7 @@ def main() -> int:
   slice_k1 = {}
   for what in ('pendulum-swingup', 'reacher-easy', 'hopper-hop',
                'ball_in_cup-catch', 'swimmer-swimmer6', 'fish-swim',
-               'humanoid-run', 'quadruped-walk') + SLICE9_K1:
+               'humanoid-run', 'quadruped-walk') + SLICE9_K1 + SLICE10_K1:
     s_d = s8_init[what] if what in s8_init else BatchedEnv(slice_tasks[what],
                                           BATCH).reset(seed=0).data
     slice_k1[what] = k1_rows(what, s_d.qM.contiguous(),
@@ -1924,7 +2201,7 @@ def main() -> int:
         newton_flops(s_lay.nefc, s_m.nv, solver.LS_ITERATIONS, s_iters))
     solve = (lambda s_args=s_args, s_lay=s_lay, s_kw=s_kw:
              nk.newton_solve_batched(*s_args, lay=s_lay, **s_kw))
-    k2_sub[what.split('-')[0]] = dict(
+    k2_sub[row_key(what)] = dict(
         launches=None, max_abs_err=s_err, ms=cuda_ms(solve, 10),
         plain_ms=cuda_ms(lambda: nk.newton_solve_plain(
             *s_args, types=s_lay.types, **s_kw), 2),
@@ -1932,7 +2209,7 @@ def main() -> int:
         max_iters=int(s_iters.max()), shape=[BATCH, s_lay.nefc, s_m.nv])
     key = f'newton_solve_batched on {what}'
     profiled[key] = (solve, 5)
-    profiled_rows[key] = k2_sub[what.split('-')[0]]
+    profiled_rows[key] = k2_sub[row_key(what)]
 
   # K2-ell at the ninth slice's layouts, with the launches of that task's
   # rollout run; bytes and FLOPs as for finger's row below
@@ -1970,8 +2247,7 @@ def main() -> int:
     rows.append(dict(name=k, route='cuda', source=SOURCES[k],
                      replaces=REPLACES[k], **walker_k1[k],
                      finger=finger_k1[k],
-                     **{t if t in SLICE9_K1 else t.split('-')[0]: r[k]
-                        for t, r in slice_k1.items()}))
+                     **{row_key(t): r[k] for t, r in slice_k1.items()}))
   k1_step = {what: sum(per_step[k] * walker_k1[k][what]
                        for k in walker_k1)
              for what in ('ms', 'kernel_ms', 'device_ms')}
@@ -2042,20 +2318,24 @@ def main() -> int:
     reference_gate(what, m_s, cpu, state.data,
                    slice_controls(i_task, m_s.nu, REF_LANES, dev),
                    s_task.n_sub_steps(), lk)
+    if what == 'quadruped-escape':
+      rangefinder_check(m_s, cpu, state.data)
     log(f'# phase reference: {what} {time.perf_counter() - t0:.1f} s')
 
   # Episode limits that end every lane's episode: reacher's, swimmer's and
   # fish's fresh lanes hold the target geom_pos that init_states drew for
   # them (the same generator state drawn again); finger-turn's, cheetah's,
-  # ball_in_cup's, humanoid's, quadruped's and insert_peg's lanes hold their
-  # reset pool entry, its model_var (finger-turn's target site_pos,
-  # insert_peg's target and slot body_pos and body_quat) included, and
-  # init_states is not called.
+  # ball_in_cup's, humanoid's, quadruped's, insert_peg's and the tenth
+  # slice's lanes hold their reset pool entry, its model_var (finger-turn's
+  # target site_pos, insert_peg's target and slot body_pos and body_quat,
+  # escape's hfield_data) included, and init_states is not called.
   for what, limit_steps in (('reacher-easy', 2), ('finger-turn_easy', 3),
                             ('cheetah-run', 2), ('ball_in_cup-catch', 2),
                             ('swimmer-swimmer6', 2), ('fish-swim', 2),
                             ('humanoid-run', 2), ('quadruped-walk', 2),
-                            ('manipulator-insert_peg', 2)):
+                            ('manipulator-insert_peg', 2),
+                            ('humanoid_CMU-run', 2), ('quadruped-escape', 2),
+                            ('quadruped-fetch', 2)):
     s_task = slice_tasks[what]
     r_env = BatchedEnv(s_task, BATCH, time_limit=limit_steps * (
         s_task.model.opt.timestep * s_task.n_sub_steps()))
@@ -2113,7 +2393,7 @@ def main() -> int:
         r[k]['launches_per_control_step'] = r[k]['launches'] / slice_steps(
             what)
   for what in k2_slice:
-    sub = k2_sub[what.split('-')[0]]
+    sub = k2_sub[row_key(what)]
     sub['launches'] = slice_launches[what]['newton_solve_batched']
     sub['launches_per_control_step'] = sub['launches'] / slice_steps(what)
   for what, sub in ell_sub.items():

@@ -4,11 +4,14 @@ The port of the parts of `dm_control_tpu/_src/colliders.py` the ported
 tasks reach: contact-parameter mixing, the contact frame, the
 plane-sphere, plane-capsule, plane-ellipsoid, plane-cylinder,
 sphere-sphere, sphere-capsule, sphere-ellipsoid, sphere-cylinder,
-capsule-capsule, capsule-ellipsoid, capsule-cylinder and
-cylinder-cylinder colliders, the box colliders (plane-box, sphere-box,
-capsule-box and box-box, the last with its separating-axis test and
-face clipping written once over a batch of pairs), the top-K
-broadphase score and the `collide_all` dispatch.  A collider returns
+capsule-capsule, capsule-ellipsoid, capsule-cylinder,
+ellipsoid-ellipsoid and cylinder-cylinder colliders, the box colliders
+(plane-box, sphere-box, capsule-box and box-box, the last with its
+separating-axis test and face clipping written once over a batch of
+pairs), the heightfield against spheres, capsules, ellipsoids and
+cylinders (`hfield_height`, per lane where `model_var` carries
+`hfield_data`), the top-K broadphase score and the `collide_all`
+dispatch.  A collider returns
 either one normal or a whole frame per contact; `collide_all` builds the
 frame from a normal.  Every other geom-type pair raises
 NotImplementedError naming the pair.
@@ -125,6 +128,20 @@ def _capsule_ellipsoid(c_pos, c_mat, c_size, e_pos, e_mat, e_size):
   closest = math.closest_segment_point(c_pos - hl * axis, c_pos + hl * axis,
                                        e_pos)
   return _sphere_ellipsoid(closest, c_mat, c_size, e_pos, e_mat, e_size)
+
+
+def _ellipsoid_ellipsoid(pos1, mat1, size1, pos2, mat2, size2):
+  """Two spheres along the center line, each of its ellipsoid's radius in
+  that direction."""
+  vec = pos2 - pos1
+  n = math.normalize(vec)
+  d1 = torch.einsum('...ij,...i->...j', mat1, n)
+  d2 = torch.einsum('...ij,...i->...j', mat2, n)
+  r1 = 1.0 / torch.clamp(math.norm_safe(d1 / size1), min=1e-12)
+  r2 = 1.0 / torch.clamp(math.norm_safe(d2 / size2), min=1e-12)
+  dist = math.norm_safe(vec) - r1 - r2
+  pos = pos1 + n * (r1 + dist / 2)[..., None]
+  return dist[..., None], pos[..., None, :], n[..., None, :]
 
 
 def _plane_capsule(p_pos, p_mat, p_size, c_pos, c_mat, c_size):
@@ -606,12 +623,121 @@ _COLLIDERS = {
     (GeomType.CAPSULE, GeomType.CAPSULE): _capsule_capsule,
     (GeomType.CAPSULE, GeomType.ELLIPSOID): _capsule_ellipsoid,
     (GeomType.CAPSULE, GeomType.CYLINDER): _capsule_cylinder,
+    (GeomType.ELLIPSOID, GeomType.ELLIPSOID): _ellipsoid_ellipsoid,
     (GeomType.CYLINDER, GeomType.CYLINDER): _cylinder_cylinder,
     (GeomType.PLANE, GeomType.BOX): _plane_box,
     (GeomType.SPHERE, GeomType.BOX): _sphere_box,
     (GeomType.CAPSULE, GeomType.BOX): _capsule_box,
     (GeomType.BOX, GeomType.BOX): _box_box,
 }
+
+
+# ---------------------------------------------------------------------------
+# Heightfield: each candidate point meets the tangent plane of the bilinear
+# surface under it (the JAX package's local-surface-plane approximation).
+# ---------------------------------------------------------------------------
+
+
+def hfield_grid(m: Model, hid: int, xy: torch.Tensor):
+  """Grid coordinates of local points xy (B, ..., 2) on hfield `hid`:
+  ((B, ...) cell x0, y0 as int64, and the fractions tx, ty in [0, 1)),
+  clamped into the grid as the reference clamps them.  The scale is one
+  product by (n - 1) / (2 s), as XLA folds the JAX package's division and
+  product: the floor of a point on a cell edge is then the same."""
+  nrow, ncol = int(m.hfield_nrow[hid]), int(m.hfield_ncol[hid])
+  sx, sy = [float(v) for v in m.hfield_size[hid][:2]]
+  fx = (xy[..., 0] + sx) * ((ncol - 1) / (2 * sx))
+  fy = (xy[..., 1] + sy) * ((nrow - 1) / (2 * sy))
+  fx = torch.clamp(fx, 0.0, ncol - 1 - 1e-6)
+  fy = torch.clamp(fy, 0.0, nrow - 1 - 1e-6)
+  x0, y0 = torch.floor(fx), torch.floor(fy)
+  return x0.long(), y0.long(), fx - x0, fy - y0
+
+
+def hfield_height(m: Model, d: Data, hid: int, xy: torch.Tensor):
+  """Bilinear height and its gradient ((B, ...) h, dh/dx, dh/dy) of
+  hfield `hid` at local points xy (B, ..., 2).  The heights are
+  `hfield_data`, each lane's own where `model_var` carries it."""
+  from dm_control_tpu_torch._src import smooth
+  nrow, ncol = int(m.hfield_nrow[hid]), int(m.hfield_ncol[hid])
+  adr = int(m.hfield_adr[hid])
+  sx, sy, sz = [float(v) for v in m.hfield_size[hid][:3]]
+  B = xy.shape[0]
+  data = smooth.mparam(m, d, 'hfield_data')
+  data = data.expand((B,) + data.shape[-1:])[:, adr:adr + nrow * ncol]
+  x0, y0, tx, ty = hfield_grid(m, hid, xy)
+
+  def at(di, dj):
+    # indices clamped into the grid as the JAX package's gather clamps
+    # them: in float32 the clamp's ncol - 1 - 1e-6 rounds to ncol - 1
+    flat = (torch.clamp(y0 + di, max=nrow - 1) * ncol
+            + torch.clamp(x0 + dj, max=ncol - 1)).reshape(B, -1)
+    return data.gather(1, flat).reshape(x0.shape) * sz
+
+  h00, h01, h10, h11 = at(0, 0), at(0, 1), at(1, 0), at(1, 1)
+  h = (h00 * (1 - tx) * (1 - ty) + h01 * tx * (1 - ty)
+       + h10 * (1 - tx) * ty + h11 * tx * ty)
+  dhdx = ((h01 - h00) * (1 - ty) + (h11 - h10) * ty) * ((ncol - 1) / (2 * sx))
+  dhdy = ((h10 - h00) * (1 - tx) + (h11 - h01) * tx) * ((nrow - 1) / (2 * sy))
+  return h, dhdx, dhdy
+
+
+def _hfield_point(m, d, hid, h_pos, h_mat, pts, radius):
+  """World points (B, K, 3) with radii (B, K) against hfield `hid` at
+  poses h_pos (B, K, 3), h_mat (B, K, 3, 3): (dist, pos, world normal)."""
+  local = torch.einsum('...ij,...i->...j', h_mat, pts - h_pos)
+  h, dhdx, dhdy = hfield_height(m, d, hid, local[..., :2])
+  n_local = math.normalize(torch.stack([-dhdx, -dhdy, torch.ones_like(h)],
+                                       -1))
+  surf = torch.stack([local[..., 0], local[..., 1], h], -1)
+  dist = ((local - surf) * n_local).sum(-1) - radius
+  n_world = torch.einsum('...ij,...j->...i', h_mat, n_local)
+  pos = pts - n_world * (radius + dist / 2)[..., None]
+  return dist, pos, n_world
+
+
+def hfield_points(grp, h_mat, pos2, mat2, size2):
+  """The points each pair of hfield group `grp` puts against the field,
+  with their radii: [((B, K, 3) points, (B, K) radii)], one entry per
+  contact of a pair.  A sphere's center; an ellipsoid's lowest point along
+  the field's down axis (radius 0); a capsule's two axis ends; a
+  cylinder's rim points at both ends, nearest and farthest from the field
+  (radius 0)."""
+  t2 = grp.t2
+  zero = torch.zeros_like(size2[..., 0])
+  if t2 == GeomType.SPHERE:
+    return [(pos2, size2[..., 0])]
+  if t2 == GeomType.ELLIPSOID:
+    up = h_mat[..., :, 2]
+    nl = torch.einsum('...ij,...i->...j', mat2, -up)
+    sp_l = (size2 * size2 * nl) / torch.clamp(
+        math.norm_safe(nl * size2), min=1e-12)[..., None]
+    return [(pos2 + torch.einsum('...ij,...j->...i', mat2, sp_l), zero)]
+  if t2 == GeomType.CAPSULE:
+    axis = mat2[..., :, 2]
+    hl = size2[..., 1:2]
+    return [(pos2 + s * hl * axis, size2[..., 0]) for s in (1.0, -1.0)]
+  if t2 == GeomType.CYLINDER:
+    axis = mat2[..., :, 2]
+    r, hl = size2[..., 0:1], size2[..., 1:2]
+    up = h_mat[..., :, 2]
+    proj = -up + axis * (up * axis).sum(-1, keepdim=True)
+    radial = torch.where((math.norm_safe(proj) > 1e-8)[..., None],
+                         math.normalize(proj), mat2[..., :, 0])
+    return [(pos2 + se * hl * axis + sr * r * radial, zero)
+            for se in (1.0, -1.0) for sr in (1.0, -1.0)]
+  raise NotImplementedError(f'hfield vs {t2.name} is not ported yet')
+
+
+def _collide_hfield(m: Model, d: Data, grp, h_pos, h_mat, pos2, mat2, size2):
+  """Heightfield vs sphere, capsule, ellipsoid or cylinder: (dist (B, K,
+  k), pos (B, K, k, 3), normal (B, K, k, 3)), k = `hfield_points`'
+  points per pair."""
+  hid = int(m.geom_dataid[grp.g1[0]])
+  outs = [_hfield_point(m, d, hid, h_pos, h_mat, p, r)
+          for p, r in hfield_points(grp, h_mat, pos2, mat2, size2)]
+  return tuple(torch.stack([o[i] for o in outs], -1 if i == 0 else -2)
+               for i in range(3))
 
 
 def _broadphase_distance(m: Model, d: Data, grp) -> torch.Tensor:
@@ -680,7 +806,7 @@ def collide_all(m: Model, d: Data) -> Data:
                          'body2', 'dim')}
   for grp in coll.groups(m):
     fn = _COLLIDERS.get((grp.t1, grp.t2))
-    if fn is None:
+    if fn is None and grp.t1 != GeomType.HFIELD:
       raise NotImplementedError(
           f'collider for ({grp.t1.name}, {grp.t2.name}) is not ported yet')
     k, K = grp.ncon_per_pair, grp.K
@@ -727,7 +853,11 @@ def collide_all(m: Model, d: Data) -> Data:
           'geom2': per_k(g2.to(torch.int32)),
           'body1': per_k(body[g1].to(torch.int32)),
           'body2': per_k(body[g2].to(torch.int32))}
-    dist, pos, normal_or_frame = fn(pos1, mat1, size1, pos2, mat2, size2)
+    if grp.t1 == GeomType.HFIELD:
+      dist, pos, normal_or_frame = _collide_hfield(m, d, grp, pos1, mat1,
+                                                   pos2, mat2, size2)
+    else:
+      dist, pos, normal_or_frame = fn(pos1, mat1, size1, pos2, mat2, size2)
     if normal_or_frame.dim() == pos.dim() + 1:
       frame = normal_or_frame
     else:

@@ -3,7 +3,8 @@
 The port of `dm_control_tpu/_src/sensor.py` for the sensor types the
 ported tasks read: `subtreecom`, `subtreelinvel`, `jointpos`,
 `jointvel`, `framepos`, `framexaxis` and `frameyaxis` (of a body, xbody,
-geom or site), `velocimeter` and `gyro` (of a site), and in the acc
+geom or site), `velocimeter` and `gyro` (of a site), `rangefinder` (every
+rangefinder's ray in one `render.raycast`), and in the acc
 stage `touch`, `accelerometer`, `force` and `torque` (of a site; the
 last three through `rne_postconstraint`).  Each is one batched
 computation over the leading batch axis.  The stage split is the
@@ -41,7 +42,7 @@ def sensors(m: Model, d: Data, stages: str = 'all') -> Data:
     return d
 
   out = d.sensordata.clone()
-  linvel = forces = None
+  linvel = forces = ranges = None
   if any(SensorType(int(m.sensor_type[s])) in (
       SensorType.ACCELEROMETER, SensorType.FORCE, SensorType.TORQUE)
          for s in selected):
@@ -80,6 +81,10 @@ def sensors(m: Model, d: Data, stages: str = 'all') -> Data:
       if linvel is None:
         linvel = _subtree_linvel(m, d)
       val = linvel[:, objid]
+    elif stype == SensorType.RANGEFINDER:
+      if ranges is None:
+        ranges = _rangefinders(m, d, selected)
+      val = ranges[s]
     elif stype == SensorType.TOUCH:
       if forces is None:
         forces = _contact_forces(m, d)
@@ -93,6 +98,21 @@ def sensors(m: Model, d: Data, stages: str = 'all') -> Data:
       val = torch.clamp(val, lo, cutoff)
     out[:, adr:adr + dim] = val.reshape(val.shape[0], dim)
   return d.replace(sensordata=out)
+
+
+def _rangefinders(m: Model, d: Data, selected) -> dict:
+  """{sensor: (B,) distance} of the selected rangefinders: each site's
+  ray along its z axis, its own body's geoms unseen, -1 where it hits
+  nothing; all sensors' rays in one cast."""
+  from dm_control_tpu_torch._src import render
+  rf = [s for s in selected
+        if SensorType(int(m.sensor_type[s])) == SensorType.RANGEFINDER]
+  sites = np.asarray([int(m.sensor_objid[s]) for s in rf])
+  idx = mirror(m, d.qpos, sites)
+  dist = render.raycast(m, d, d.site_xpos[:, idx],
+                        d.site_xmat[:, idx][..., :, 2],
+                        exclude_body=m.site_bodyid[sites])
+  return {s: dist[:, i] for i, s in enumerate(rf)}
 
 
 def rne_postconstraint(m: Model, d: Data):

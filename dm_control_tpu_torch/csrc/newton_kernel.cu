@@ -55,7 +55,7 @@
 //     that touches the floor in 3 of finger's 34 candidate contacts
 //     evaluates 3 contacts, not 34, in each of the ~15 sweeps of a Newton
 //     iteration.  Live row i and live contact k are items i and nr + k,
-//     item j on lane j mod 32; dof v on lane v (hence MAX_NV = 32).
+//     item j on lane j mod 32; dof v on lane v mod 32.
 //   - Costs, phi' and phi'', the gradient norm and the dot products are
 //     xor-shuffle sums; J' f is summed by each dof's lane over the live
 //     rows in list order.  No atomics: a launch is deterministic, and an
@@ -68,6 +68,27 @@
 //     runs column by column with lane i owning row i, and the two
 //     substitutions pass each solved entry by shuffle, multiplying by the
 //     pivots' reciprocals.
+//
+// Two shape families, one source: the kernel is a template on S, the dofs
+// each lane owns.
+//   - S = 1, nv <= 32: dof v on lane v, J in shared memory, as above.
+//   - S = 2, 32 < nv <= MAX_NV = 64 (the TPU kernel's own limit): lane l
+//     owns dofs l and l + 32 (their rows of M, H and L, their entries of
+//     x, a, delta and the gradient), and J stays in device memory.  At
+//     humanoid_CMU's layout (nefc 880, nv 62) J alone is 218,240 bytes,
+//     over a block's 232,448 with M and H beside it; without J an
+//     environment needs 60,400 bytes, so three share an SM.  J is read
+//     where it is used, with live rows only: the gradient's J' f reads each
+//     live row whole across the lanes (coalesced), H's build reads each
+//     live row's two entries per lane, and the residuals J x read a row per
+//     lane.  Beside three environments' 188 KB of shared memory an
+//     environment's live rows (~170 at humanoid_CMU's impact states, 42 KB)
+//     do not stay in L1, so each of H's build sweeps (31 per iteration at
+//     nv 62) reads them from L2: that sets this family's time, ~39x its
+//     operations bound.  Two dofs per lane keep every reduction, branch and
+//     shuffle of the one-warp design, so the nv <= 32 family's code and
+//     bits are unchanged; two warps per environment would need block-wide
+//     barriers and shared partial sums in every sweep.
 // Everything is float32, as on the TPU.
 
 #include <cuda_runtime.h>
@@ -75,7 +96,7 @@
 
 namespace {
 
-constexpr int MAX_NV = 32;
+constexpr int MAX_NV = 64;             // two dofs per lane past 32
 constexpr int MAX_WARPS = 4;            // environments per block, at most
 constexpr int SMEM_LIMIT = 232448;      // dynamic shared bytes of a block
 constexpr int EQUALITY = 0;
@@ -84,7 +105,7 @@ constexpr int ONESIDED = 2;
 constexpr unsigned FULL = 0xffffffffu;
 
 // Shared-memory carve, in 4-byte words (the wrapper's launch_config
-// mirrors these three functions).
+// mirrors these three functions).  J is in it only where nv <= 32.
 __host__ __device__ inline int row_stride(int nv) { return nv | 1; }
 __host__ __device__ inline int block_words(int nefc, int ncg) {
   return 2 * nefc + 4 * ncg;      // types, scales; cone rows, mu
@@ -94,7 +115,8 @@ __host__ __device__ inline int warp_words(int nefc, int nv, int ncg) {
   // J, M and H; jar, djar, D, fl, active, f, w and the live-row list;
   // cone blocks, flags and the live-cone list; x, a, delta and a scratch
   // vector
-  return nefc * ld + 2 * nv * ld + 8 * nefc + 11 * ncg + 4 * nv;
+  return (nv <= 32 ? nefc * ld : 0) + 2 * nv * ld + 8 * nefc + 11 * ncg
+         + 4 * nv;
 }
 
 // Force, quadratic-zone weight and cost of one row (solver._diag_terms).
@@ -176,7 +198,7 @@ struct Env {
   const int* rows;
   const float* mu;
   const float* scale;
-  float* J;              // per warp
+  const float* J;        // per warp (S = 1), or in device memory (S = 2)
   float* M;
   float* H;
   float* jar;
@@ -197,13 +219,14 @@ struct Env {
   int nefc;
   int nv;
   int ncg;
-  int ld;
+  int ld;                // row stride of M and H
+  int ldj;               // row stride of J
   int lane;
   int nr;
   int nc;
   int cone0;             // this lane's first live contact (list position)
 
-  __device__ float j(int e, int v) const { return J[e * ld + v]; }
+  __device__ float j(int e, int v) const { return J[e * ldj + v]; }
   __device__ void terms(int e, float jar_e, float* f_, float* w_,
                         float* c_) const {
     row_terms(types[e], jar_e, D[e], fl[e], act[e], f_, w_, c_);
@@ -426,18 +449,24 @@ __device__ __forceinline__ float cost_part(const Env& p, float alpha) {
   return total;
 }
 
-// 0.5 vec' M vec over the warp (vec in shared memory); lane u < nv gets
-// (M vec)[u] in *mv.
+// 0.5 vec' M vec over the warp (vec in shared memory); for each of its
+// dofs u = lane + 32 k < nv a lane gets (M vec)[u] in mv[k] (0 past nv).
+template <int S>
 __device__ __forceinline__ float quad(const Env& p, const float* vec,
-                                      float* mv) {
-  float s = 0.0f, q = 0.0f;
-  if (p.lane < p.nv) {
-    const float* row = p.M + p.lane * p.ld;
+                                      float mv[S]) {
+  float q = 0.0f;
+#pragma unroll
+  for (int k = 0; k < S; ++k) {
+    const int u = p.lane + 32 * k;
+    float s = 0.0f;
+    if (u < p.nv) {
+      const float* row = p.M + u * p.ld;
 #pragma unroll 4
-    for (int v = 0; v < p.nv; ++v) s += row[v] * vec[v];
-    q = vec[p.lane] * s;
+      for (int v = 0; v < p.nv; ++v) s += row[v] * vec[v];
+      q = k == 0 ? vec[u] * s : q + vec[u] * s;
+    }
+    mv[k] = s;
   }
-  *mv = s;
   return 0.5f * warp_sum(q);
 }
 
@@ -475,33 +504,52 @@ __device__ __forceinline__ void eval_terms(const Env& p) {
   __syncwarp();
 }
 
-// grad = M (x - a) - J' f and mxa = M (x - a), each held by lane v < nv
-// for dof v (0 on the other lanes), J' f summed over the live rows in
-// list order; needs eval_terms at x's jar.
-__device__ __forceinline__ void gradient(const Env& p, float* mxa,
-                                         float* grad) {
+// grad = M (x - a) - J' f and mxa = M (x - a), each held by the lane of
+// dof v < nv in its slot for v (0 past nv), J' f summed over the live rows
+// in list order; needs eval_terms at x's jar.  A lane's second dof (S = 2)
+// reads column min(lane + 32, nv - 1), kept only where it is below nv, so
+// that every lane runs the same loop.
+template <int S>
+__device__ __forceinline__ void gradient(const Env& p, float mxa[S],
+                                         float grad[S]) {
   __syncwarp();
-  if (p.lane < p.nv) p.t[p.lane] = p.x[p.lane] - p.a[p.lane];
+#pragma unroll
+  for (int k = 0; k < S; ++k) {
+    const int u = p.lane + 32 * k;
+    if (u < p.nv) p.t[u] = p.x[u] - p.a[u];
+  }
   __syncwarp();
-  float m;
-  quad(p, p.t, &m);
-  float jf = 0.0f;
+  float m[S];
+  quad<S>(p, p.t, m);
+  float jf[S];
+#pragma unroll
+  for (int k = 0; k < S; ++k) jf[k] = 0.0f;
   if (p.lane < p.nv) {
     const int v = p.lane;
+    const int v1 = S == 2 ? min(v + 32, p.nv - 1) : v;
 #pragma unroll 4
     for (int i = 0; i < p.nr; ++i) {
       const int e = p.rl[i];
-      jf += p.j(e, v) * p.f[e];
+      jf[0] += p.j(e, v) * p.f[e];
+      if (S == 2) jf[S - 1] += p.j(e, v1) * p.f[e];
     }
     for (int k = 0; k < p.nc; ++k) {
       const int* r = p.rows + 3 * p.cl[k];
-      jf += p.j(r[0], v) * p.f[r[0]];
-      jf += p.j(r[1], v) * p.f[r[1]];
-      jf += p.j(r[2], v) * p.f[r[2]];
+      jf[0] += p.j(r[0], v) * p.f[r[0]];
+      jf[0] += p.j(r[1], v) * p.f[r[1]];
+      jf[0] += p.j(r[2], v) * p.f[r[2]];
+      if (S == 2) {
+        jf[S - 1] += p.j(r[0], v1) * p.f[r[0]];
+        jf[S - 1] += p.j(r[1], v1) * p.f[r[1]];
+        jf[S - 1] += p.j(r[2], v1) * p.f[r[2]];
+      }
     }
   }
-  *mxa = m;
-  *grad = m - jf;
+#pragma unroll
+  for (int k = 0; k < S; ++k) {
+    mxa[k] = m[k];
+    grad[k] = k == 0 || p.lane + 32 * k < p.nv ? m[k] - jf[k] : 0.0f;
+  }
 }
 
 // Row u and column v of entry k of a lower triangle stored row by row.
@@ -516,7 +564,7 @@ __device__ __forceinline__ void tri_index(int k, int* u, int* v) {
 // nv (nv + 1) / 2 entries spread over the lanes: each lane sums entries k
 // and k + 32 in one pass over the live rows and contacts.
 __device__ __forceinline__ void build_h(const Env& p) {
-  const int nt = p.nv * (p.nv + 1) / 2, ld = p.ld;
+  const int nt = p.nv * (p.nv + 1) / 2, ld = p.ld, ldj = p.ldj;
   for (int k = p.lane; k < nt; k += 64) {
     const bool two = k + 32 < nt;
     int u0, v0, u1 = 0, v1 = 0;
@@ -527,7 +575,7 @@ __device__ __forceinline__ void build_h(const Env& p) {
     for (int i = 0; i < p.nr; ++i) {     // a row with w = 0 adds 0
       const int e = p.rl[i];
       const float w = p.w[e];
-      const float* Je = p.J + e * ld;
+      const float* Je = p.J + e * ldj;
       h0 += (w * Je[u0]) * Je[v0];
       h1 += (w * Je[u1]) * Je[v1];
     }
@@ -535,9 +583,9 @@ __device__ __forceinline__ void build_h(const Env& p) {
       if (p.on[c] == 0.0f) continue;
       const int* r = p.rows + 3 * p.cl[c];
       const float* W = p.W + 9 * c;
-      const float* J0 = p.J + r[0] * ld;
-      const float* J1 = p.J + r[1] * ld;
-      const float* J2 = p.J + r[2] * ld;
+      const float* J0 = p.J + r[0] * ldj;
+      const float* J1 = p.J + r[1] * ldj;
+      const float* J2 = p.J + r[2] * ldj;
       float wj[3], wk[3];     // (W J_c)[:, u0], (W J_c)[:, u1]
 #pragma unroll
       for (int i = 0; i < 3; ++i) {
@@ -554,49 +602,86 @@ __device__ __forceinline__ void build_h(const Env& p) {
 }
 
 // In-place Cholesky of H's lower triangle with +1e-12 on the pivot
-// (solver's eye_reg), column by column: lane i >= j forms its entry of
-// column j from its own row and row j (the same subtractions, in the same
-// order, as the right-looking loop), lane j's pivot goes to the others by
-// shuffle, and one __syncwarp publishes the column.
+// (solver's eye_reg), column by column: the lane of row i >= j forms its
+// entry of column j from row i and row j (the same subtractions, in the
+// same order, as the right-looking loop), the pivot goes from row j's lane
+// to the others by shuffle, and one __syncwarp publishes the column.  A
+// lane owns rows lane + 32 k, k < S.
+template <int S>
 __device__ __forceinline__ void cholesky(const Env& p) {
-  const int i = p.lane, ld = p.ld;
-  const bool own = i < p.nv;
+  const int ld = p.ld;
   for (int j = 0; j < p.nv; ++j) {
-    float s = 0.0f;
-    if (own && i >= j) {
-      s = p.H[i * ld + j];
-      for (int k = 0; k < j; ++k) s -= p.H[i * ld + k] * p.H[j * ld + k];
+    float s[S];
+#pragma unroll
+    for (int k = 0; k < S; ++k) {
+      const int i = p.lane + 32 * k;
+      s[k] = 0.0f;
+      if (i < p.nv && i >= j) {
+        s[k] = p.H[i * ld + j];
+        for (int c = 0; c < j; ++c) s[k] -= p.H[i * ld + c] * p.H[j * ld + c];
+      }
     }
-    const float pivot = __shfl_sync(FULL, sqrtf(fmaxf(s + 1e-12f, 1e-30f)), j);
-    if (i == j) p.H[j * ld + j] = pivot;
-    else if (own && i > j) p.H[i * ld + j] = s / pivot;
+    const float sj = j < 32 ? s[0] : s[S - 1];
+    const float pivot = __shfl_sync(FULL, sqrtf(fmaxf(sj + 1e-12f, 1e-30f)),
+                                    j & 31);
+#pragma unroll
+    for (int k = 0; k < S; ++k) {
+      const int i = p.lane + 32 * k;
+      if (i == j) p.H[j * ld + j] = pivot;
+      else if (i < p.nv && i > j) p.H[i * ld + j] = s[k] / pivot;
+    }
     __syncwarp();
   }
 }
 
-// delta = -H^-1 grad from the factor L in H; lane v < nv holds entry v.
-// Each of the 2 nv substitution steps waits on the one before, and an
-// IEEE division is a long instruction sequence, so each lane takes the
-// reciprocal of its own pivot once, all lanes at a time, and the steps
-// multiply by it (within ~1.5 ulp of the quotient).
-__device__ __forceinline__ float newton_step(const Env& p, float grad) {
-  const int i = p.lane, ld = p.ld;
-  const bool own = i < p.nv;
-  const float inv = own ? 1.0f / p.H[i * ld + i] : 0.0f;
-  float d = own ? -grad : 0.0f;
+// delta = -H^-1 grad from the factor L in H; the lane of dof v < nv
+// holds entry v in d.  Each of the 2 nv substitution steps waits on the one
+// before, and an IEEE division is a long instruction sequence, so each lane
+// takes the reciprocal of its own pivots once, all lanes at a time, and the
+// steps multiply by it (within ~1.5 ulp of the quotient).
+template <int S>
+__device__ __forceinline__ void newton_step(const Env& p, const float grad[S],
+                                            float d[S]) {
+  const int ld = p.ld;
+  float inv[S];
+#pragma unroll
+  for (int k = 0; k < S; ++k) {
+    const int i = p.lane + 32 * k;
+    const bool own = i < p.nv;
+    inv[k] = own ? 1.0f / p.H[i * ld + i] : 0.0f;
+    d[k] = own ? -grad[k] : 0.0f;
+  }
   for (int j = 0; j < p.nv; ++j) {
-    const float yj = __shfl_sync(FULL, d * inv, j);
-    if (i > j && own) d -= p.H[i * ld + j] * yj;
-    if (i == j) d = yj;
+    const float src = j < 32 ? d[0] * inv[0] : d[S - 1] * inv[S - 1];
+    const float yj = __shfl_sync(FULL, src, j & 31);
+#pragma unroll
+    for (int k = 0; k < S; ++k) {
+      const int i = p.lane + 32 * k;
+      if (i > j && i < p.nv) d[k] -= p.H[i * ld + j] * yj;
+      if (i == j) d[k] = yj;
+    }
   }
   for (int j = p.nv - 1; j >= 0; --j) {
-    const float xj = __shfl_sync(FULL, d * inv, j);
-    if (i < j) d -= p.H[j * ld + i] * xj;
-    if (i == j) d = xj;
+    const float src = j < 32 ? d[0] * inv[0] : d[S - 1] * inv[S - 1];
+    const float xj = __shfl_sync(FULL, src, j & 31);
+#pragma unroll
+    for (int k = 0; k < S; ++k) {
+      const int i = p.lane + 32 * k;
+      if (i < j) d[k] -= p.H[j * ld + i] * xj;
+      if (i == j) d[k] = xj;
+    }
   }
-  return d;
 }
 
+// This lane's share of |v|^2 over its dof slots.
+template <int S>
+__device__ __forceinline__ float sum_sq(const float v[S]) {
+  float s = v[0] * v[0];
+  if (S == 2) s += v[S - 1] * v[S - 1];
+  return s;
+}
+
+template <int S>
 __global__ void __launch_bounds__(MAX_WARPS * 32)
 newton_kernel(Problem q, int niter, int ls_iter, float tol, float scale) {
   extern __shared__ float smem[];
@@ -629,8 +714,17 @@ newton_kernel(Problem q, int niter, int ls_iter, float tol, float scale) {
   p.ncg = ncg;
   p.ld = row_stride(nv);
   p.lane = lane;
-  p.J = smem + block_words(nefc, ncg) + warp * warp_words(nefc, nv, ncg);
-  p.M = p.J + nefc * p.ld;
+  float* const base = smem + block_words(nefc, ncg)
+                      + warp * warp_words(nefc, nv, ncg);
+  if (S == 1) {
+    p.J = base;
+    p.ldj = p.ld;
+    p.M = base + nefc * p.ld;
+  } else {
+    p.J = q.J + b * nefc * nv;
+    p.ldj = nv;
+    p.M = base;
+  }
   p.H = p.M + nv * p.ld;
   p.jar = p.H + nv * p.ld;
   p.djar = p.jar + nefc;
@@ -648,18 +742,24 @@ newton_kernel(Problem q, int niter, int ls_iter, float tol, float scale) {
   p.d = p.a + nv;
   p.t = p.d + nv;
 
-  warp_load(p.J, q.J + b * nefc * nv, nefc * nv, nv, p.ld, lane);
+  if (S == 1) warp_load(base, q.J + b * nefc * nv, nefc * nv, nv, p.ld, lane);
   warp_load(p.M, q.M + b * nv * nv, nv * nv, nv, p.ld, lane);
   warp_load(p.D, q.D + b * nefc, nefc, nefc, nefc, lane);
   warp_load(p.fl, q.fl + b * nefc, nefc, nefc, nefc, lane);
   warp_load(p.act, q.active + b * nefc, nefc, nefc, nefc, lane);
   for (int e = lane; e < nefc; e += 32) p.f[e] = 0.0f;
-  float a_v = 0.0f, w_v = 0.0f;    // lane v's dof of a and warm
-  if (lane < nv) {
-    a_v = q.a[b * nv + lane];
-    w_v = q.warm[b * nv + lane];
-    p.a[lane] = a_v;
-    p.x[lane] = w_v;
+  float a_v[S], w_v[S];    // the lane's dofs of a and warm
+#pragma unroll
+  for (int k = 0; k < S; ++k) {
+    const int u = lane + 32 * k;
+    a_v[k] = 0.0f;
+    w_v[k] = 0.0f;
+    if (u < nv) {
+      a_v[k] = q.a[b * nv + u];
+      w_v[k] = q.warm[b * nv + u];
+      p.a[u] = a_v[k];
+      p.x[u] = w_v[k];
+    }
   }
   __syncwarp();
   p.nr = warp_compact(nefc, lane, p.rl, [&](int e) {
@@ -701,31 +801,40 @@ newton_kernel(Problem q, int niter, int ls_iter, float tol, float scale) {
     for (int i = 0; i < 3; ++i) jr[i] = p.djar[p.rows[3 * c + i]];
     if (cone_terms(p, c, jr, f, W, &cost)) part_w += cost;
   }
-  if (lane < nv) p.t[lane] = w_v - a_v;
+#pragma unroll
+  for (int k = 0; k < S; ++k)
+    if (lane + 32 * k < nv) p.t[lane + 32 * k] = w_v[k] - a_v[k];
   __syncwarp();
-  float tmp;
-  const float quad_w = quad(p, p.t, &tmp);
+  float tmp[S];
+  const float quad_w = quad<S>(p, p.t, tmp);
   warp_sum2(&part_a, &part_w);
   const float cost_a = part_a, cost_w = part_w + quad_w;
   const bool use_warm = cost_w < cost_a;
   float cost = fminf(cost_w, cost_a);
-  float x_v = use_warm ? w_v : a_v;
+  float x_v[S];
+#pragma unroll
+  for (int k = 0; k < S; ++k) x_v[k] = use_warm ? w_v[k] : a_v[k];
   if (use_warm) {
     p.own_rows([&](int e) { p.jar[e] = p.djar[e]; });
-  } else if (lane < nv) {
-    p.x[lane] = a_v;
+  } else {
+#pragma unroll
+    for (int k = 0; k < S; ++k)
+      if (lane + 32 * k < nv) p.x[lane + 32 * k] = a_v[k];
   }
   eval_terms(p);
-  float mxa, grad;
-  gradient(p, &mxa, &grad);
-  bool done = !(scale * sqrtf(warp_sum(grad * grad)) >= tol);
+  float mxa[S], grad[S];
+  gradient<S>(p, mxa, grad);
+  bool done = !(scale * sqrtf(warp_sum(sum_sq<S>(grad))) >= tol);
 
   int it = 0;
   while (it < niter && !done) {
     build_h(p);
-    cholesky(p);
-    const float d_v = newton_step(p, grad);
-    if (lane < nv) p.d[lane] = d_v;
+    cholesky<S>(p);
+    float d_v[S];
+    newton_step<S>(p, grad, d_v);
+#pragma unroll
+    for (int k = 0; k < S; ++k)
+      if (lane + 32 * k < nv) p.d[lane + 32 * k] = d_v[k];
     __syncwarp();
     p.own_rows([&](int e) {
       float s = 0.0f;
@@ -733,8 +842,9 @@ newton_kernel(Problem q, int niter, int ls_iter, float tol, float scale) {
       for (int v = 0; v < nv; ++v) s += p.j(e, v) * p.d[v];
       p.djar[e] = s;
     });
-    float dmd = 2.0f * quad(p, p.d, &tmp);
-    float gma = d_v * mxa;
+    float dmd = 2.0f * quad<S>(p, p.d, tmp);
+    float gma = d_v[0] * mxa[0];
+    if (S == 2) gma += d_v[S - 1] * mxa[S - 1];
     gma = warp_sum(gma);
     __syncwarp();
 
@@ -765,28 +875,38 @@ newton_kernel(Problem q, int niter, int ls_iter, float tol, float scale) {
 
     // accept if improved
     __syncwarp();
-    if (lane < nv) p.t[lane] = x_v + alpha * d_v - a_v;
+#pragma unroll
+    for (int k = 0; k < S; ++k)
+      if (lane + 32 * k < nv)
+        p.t[lane + 32 * k] = x_v[k] + alpha * d_v[k] - a_v[k];
     __syncwarp();
     float q_new = 0.0f, part = cost_part(p, alpha);
-    if (lane < nv) {
-      float s = 0.0f;
-      for (int v = 0; v < nv; ++v) s += p.M[lane * p.ld + v] * p.t[v];
-      q_new = p.t[lane] * s;
+#pragma unroll
+    for (int k = 0; k < S; ++k) {
+      const int u = lane + 32 * k;
+      if (u < nv) {
+        float s = 0.0f;
+        for (int v = 0; v < nv; ++v) s += p.M[u * p.ld + v] * p.t[v];
+        q_new = k == 0 ? p.t[u] * s : q_new + p.t[u] * s;
+      }
     }
     warp_sum2(&q_new, &part);
     const float new_cost = 0.5f * q_new + part;
     float improvement = 0.0f;
     __syncwarp();
     if (new_cost < cost) {
-      x_v += alpha * d_v;
-      if (lane < nv) p.x[lane] = x_v;
+#pragma unroll
+      for (int k = 0; k < S; ++k) {
+        x_v[k] += alpha * d_v[k];
+        if (lane + 32 * k < nv) p.x[lane + 32 * k] = x_v[k];
+      }
       p.own_rows([&](int e) { p.jar[e] += alpha * p.djar[e]; });
       improvement = scale * (cost - new_cost);
       cost = new_cost;
     }
     eval_terms(p);
-    gradient(p, &mxa, &grad);
-    const float grad_norm = scale * sqrtf(warp_sum(grad * grad));
+    gradient<S>(p, mxa, grad);
+    const float grad_norm = scale * sqrtf(warp_sum(sum_sq<S>(grad)));
     // NaN-robust: a diverged environment stops
     done = !(improvement >= tol && grad_norm >= tol);
     ++it;
@@ -801,11 +921,29 @@ newton_kernel(Problem q, int niter, int ls_iter, float tol, float scale) {
   });
   eval_terms(p);
   for (int e = lane; e < nefc; e += 32) q.f_out[b * nefc + e] = p.f[e];
-  if (lane < nv) q.x_out[b * nv + lane] = x_v;
+#pragma unroll
+  for (int k = 0; k < S; ++k)
+    if (lane + 32 * k < nv) q.x_out[b * nv + lane + 32 * k] = x_v[k];
   if (lane == 0) q.iters_out[b] = it;
 }
 
 }  // namespace
+
+template <int S>
+static int launch(const Problem& q, int niter, int ls_iter, float tol,
+                  float scale, int warps, int smem_bytes,
+                  cudaStream_t stream) {
+  if (smem_bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        newton_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem_bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const unsigned blocks = (unsigned)((q.B + warps - 1) / warps);
+  newton_kernel<S><<<blocks, warps * 32, smem_bytes, stream>>>(
+      q, niter, ls_iter, tol, scale);
+  return (int)cudaGetLastError();
+}
 
 extern "C" int dmc_newton_solve(const float* J, const float* M,
                                 const float* aref, const float* D,
@@ -825,16 +963,11 @@ extern "C" int dmc_newton_solve(const float* J, const float* M,
                           + (long long)warps * warp_words(nefc, nv, ncg);
   if (4 * words != smem_bytes || smem_bytes > SMEM_LIMIT)
     return (int)cudaErrorInvalidValue;
-  if (smem_bytes > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        newton_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem_bytes);
-    if (err != cudaSuccess) return (int)err;
-  }
   Problem q{J, M, aref, D, fl, active, a, warm, types, ell_rows, ell_mu,
             s_row, x_out, f_out, iters_out, nefc, nv, ncg, (long long)batch};
-  const unsigned blocks = (unsigned)((batch + warps - 1) / warps);
-  newton_kernel<<<blocks, warps * 32, smem_bytes, (cudaStream_t)stream>>>(
-      q, niter, ls_iter, tol, scale);
-  return (int)cudaGetLastError();
+  return nv <= 32
+      ? launch<1>(q, niter, ls_iter, tol, scale, warps, smem_bytes,
+                  (cudaStream_t)stream)
+      : launch<2>(q, niter, ls_iter, tol, scale, warps, smem_bytes,
+                  (cudaStream_t)stream);
 }

@@ -12,10 +12,12 @@ kernel in `csrc/newton_kernel.cu` or raises.  Its launches count as K2
 on layouts without elliptic cones and as K2-ell (the TPU kernel's
 `ell_terms` branch) on layouts with them.  The kernel runs one warp per
 environment with its problem in shared memory and reads the batch-first
-tensors as they are.  Its own limits replace the TPU kernel's VMEM gate:
-nv <= MAX_NV (one lane per dof), condim-3 elliptic contacts, and one
-environment's problem within a block's shared memory (`launch_config`);
-anything else raises on the card.
+tensors as they are: one dof per lane and J in shared memory up to nv 32,
+two dofs per lane and J read from device memory past it.  Its own limits
+replace the TPU kernel's VMEM gate: nv <= MAX_NV (the TPU kernel's own
+limit), condim-3 elliptic contacts, and one environment's problem within a
+block's shared memory (`launch_config`); anything else raises on the
+card.
 """
 
 from __future__ import annotations
@@ -27,8 +29,10 @@ from dm_control_tpu_torch._src import efc
 from dm_control_tpu_torch.ops import build
 from dm_control_tpu_torch.ops import linalg_kernel
 
-# dofs the kernel takes, one lane each (csrc/newton_kernel.cu MAX_NV)
-MAX_NV = 32
+# dofs the kernel takes (csrc/newton_kernel.cu MAX_NV): one per lane up
+# to LANE_NV, two per lane past it
+MAX_NV = 64
+LANE_NV = 32
 # environments (warps) per block, at most (csrc/newton_kernel.cu MAX_WARPS)
 MAX_WARPS = 4
 # dynamic shared memory one block may use on sm_90 (227 KB)
@@ -268,15 +272,17 @@ def launch_config(nefc: int, nv: int, ncg: int) -> tuple[int, int]:
 
   Mirrors the kernel's shared-memory carve (`block_words`, `warp_words`
   in csrc/newton_kernel.cu, which checks the bytes again): per block the
-  row types and scales and the contact table; per warp J, M and H with
-  rows padded to an odd stride, seven row vectors and the live-row list,
-  the contact blocks, flags and live-contact list, and four dof vectors,
-  all 4-byte words.  Takes MAX_WARPS environments per block,
-  fewer where they do not fit, and raises where one does not.
+  row types and scales and the contact table; per warp J (only where nv
+  <= LANE_NV; past it J stays in device memory), M and H with rows padded
+  to an odd stride, seven row vectors and the live-row list, the contact
+  blocks, flags and live-contact list, and four dof vectors, all 4-byte
+  words.  Takes MAX_WARPS environments per block, fewer where they do not
+  fit, and raises where one does not.
   """
   ld = nv | 1
   block = 2 * nefc + 4 * ncg
-  warp = nefc * ld + 2 * nv * ld + 8 * nefc + 11 * ncg + 4 * nv
+  warp = ((nefc * ld if nv <= LANE_NV else 0) + 2 * nv * ld + 8 * nefc
+          + 11 * ncg + 4 * nv)
   fit = (SMEM_LIMIT // 4 - block) // warp
   if fit < 1:
     raise ValueError(

@@ -6,9 +6,9 @@ reacher (easy, hard), cartpole (balance, balance_sparse, swingup,
 swingup_sparse, two_poles, three_poles), acrobot (swingup,
 swingup_sparse), point_mass (easy, hard), ball_in_cup (catch), swimmer
 (swimmer6, swimmer15), fish (upright, swim), humanoid (stand, walk, run,
-run_pure_state), quadruped (walk, run), manipulator (bring_ball,
-bring_peg, insert_ball, insert_peg) and stacker (stack_2, stack_4); the
-other domains raise.
+run_pure_state), humanoid_CMU (stand, run), quadruped (walk, run, escape,
+fetch), manipulator (bring_ball, bring_peg, insert_ball, insert_peg) and
+stacker (stack_2, stack_4); the other domains (dog, lqr) raise.
 """
 
 from __future__ import annotations
@@ -20,7 +20,8 @@ from dm_control_tpu_torch.rl import control
 
 DOMAINS = ('walker', 'finger', 'cheetah', 'hopper', 'pendulum', 'reacher',
            'cartpole', 'acrobot', 'point_mass', 'ball_in_cup', 'swimmer',
-           'fish', 'humanoid', 'quadruped', 'manipulator', 'stacker')
+           'fish', 'humanoid', 'humanoid_CMU', 'quadruped', 'manipulator',
+           'stacker')
 
 
 def build_task(domain_name: str, task_name: str,

@@ -2,8 +2,9 @@
 
 Each collider of the finger path (plane-cylinder, capsule-capsule,
 sphere-cylinder, capsule-cylinder, cylinder-cylinder), of ball_in_cup's
-(plane-sphere, sphere-capsule), of humanoid's (sphere-sphere) and of
-quadruped's (plane-ellipsoid, sphere-ellipsoid, capsule-ellipsoid) runs
+(plane-sphere, sphere-capsule), of humanoid's (sphere-sphere), of
+quadruped's (plane-ellipsoid, sphere-ellipsoid, capsule-ellipsoid) and of
+humanoid_CMU's (ellipsoid-ellipsoid) runs
 on the same seeded numpy poses (64 per case, float64) in both packages:
 generic overlapping poses, grazing ones (the surfaces about touching),
 nearly parallel axes, for the cylinders poses that put the contact on a
@@ -16,7 +17,13 @@ capsule-box, box-box) are held the same way on their own poses and
 degenerate cases, each pair's contacts compared as a set, and stack_2's
 and insert_peg's `collide_all` at states with the props on the floor,
 stacked or in the slot; a pair with no collider raises naming it.
+The heightfield (escape's terrain, a field of its own per lane in
+`model_var`) is held the same way: its bilinear height and slope at
+points across the grid, on cell edges and off it, and its contacts with
+spheres, capsules, ellipsoids and cylinders placed about touching it.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -118,6 +125,19 @@ def _poses(kind, case, rng):
     else:
       pos2 = pos1 + rng.uniform(-0.12, 0.12, (B, 3))
     return pos1, mat1, size1, pos2, _rot(rng, B), size2
+  if kind == 'ellipsoid_ellipsoid':
+    size1, size2 = (rng.uniform(0.02, 0.1, (B, 3)) for _ in range(2))
+    mat2 = _rot(rng, B)
+    if case == 'grazing':  # the radii along the center line about touching
+      n = rng.randn(B, 3)
+      n /= np.linalg.norm(n, axis=1, keepdims=True)
+      r1, r2 = (1.0 / np.linalg.norm(np.einsum('bij,bi->bj', m, n) / s,
+                                     axis=1)
+                for m, s in ((mat1, size1), (mat2, size2)))
+      pos2 = pos1 + n * (r1 + r2 + rng.uniform(-0.005, 0.005, B))[:, None]
+    else:
+      pos2 = pos1 + rng.uniform(-0.15, 0.15, (B, 3))
+    return pos1, mat1, size1, pos2, mat2, size2
   if kind.endswith('ellipsoid'):
     size2 = rng.uniform(0.02, 0.1, (B, 3))         # the semi-axes
     mat2 = _rot(rng, B)
@@ -208,6 +228,8 @@ CASES = {
     'plane_ellipsoid': ('generic', 'grazing'),
     'sphere_ellipsoid': ('generic', 'inside'),
     'capsule_ellipsoid': ('generic',),
+    # humanoid_CMU's one ellipsoid pair
+    'ellipsoid_ellipsoid': ('generic', 'grazing'),
 }
 PARAMS = [(k, c) for k, cases in CASES.items() for c in cases]
 
@@ -584,3 +606,101 @@ def test_unported_pair_raises_naming_it():
   d = forward.make_data(m, 2, torch.float64, 'cpu')
   with pytest.raises(NotImplementedError, match=r'\(CYLINDER, BOX\)'):
     collision.collide(m, smooth.kinematics(m, d))
+
+
+@functools.lru_cache(maxsize=None)
+def _escape_models():
+  from dm_control_tpu import suite as jsuite
+  from dm_control_tpu_torch import suite
+  return (jsuite.build_task('quadruped', 'escape').model,
+          suite.build_task('quadruped', 'escape', device='cpu').model)
+
+
+def _fields(jm, n, rng):
+  """(n, nrow * ncol) heightfields in [0, 1]: random cells smoothed a
+  little, so the slopes vary."""
+  nrow, ncol = int(jm.hfield_nrow[0]), int(jm.hfield_ncol[0])
+  f = rng.uniform(0, 1, (n, nrow, ncol))
+  f = (f + np.roll(f, 1, 1) + np.roll(f, 1, 2)) / 3
+  return f.reshape(n, -1)
+
+
+def test_hfield_height_matches_jax():
+  """hfield_height on 16 lanes' own fields at points anywhere on the grid,
+  on cell edges and corners (the floor of the grid coordinate is exact
+  there) and past the field's edge (clamped): h and its slopes agree."""
+  jm, m = _escape_models()
+  rng = np.random.RandomState(20)
+  n, k = 16, 32
+  data = _fields(jm, n, rng)
+  sx, sy = jm.hfield_size[0, :2]
+  res = int(jm.hfield_ncol[0])
+  xy = rng.uniform(-sx, sx, (n, k, 2))
+  xy[:, :8] = (rng.randint(0, res, (n, 8, 2)) / (res - 1) * 2 - 1) * [sx, sy]
+  xy[:, 8:12] = rng.uniform(1.0, 1.5, (n, 4, 2)) * rng.choice(
+      [-1.0, 1.0], (n, 4, 2)) * [sx, sy]
+  d0 = jforward.make_data(jm)
+  ref = jax.jit(jax.vmap(lambda hd, p: jcolliders.hfield_height(
+      jm, d0.replace(model_var={'hfield_data': hd}), 0, p)))(
+          jnp.asarray(data), jnp.asarray(xy))
+  d = forward.make_data(m, n, torch.float64, 'cpu').replace(
+      model_var={'hfield_data': torch.tensor(data)})
+  out = colliders.hfield_height(m, d, 0, torch.tensor(xy))
+  errs = [_scaled(o.numpy(), np.asarray(r)) for o, r in zip(out, ref)]
+  print(f'hfield_height: max err h {errs[0]:.1e} dh/dx {errs[1]:.1e} '
+        f'dh/dy {errs[2]:.1e}')
+  assert max(errs) <= TOL
+
+
+@pytest.mark.parametrize('partner', ['SPHERE', 'CAPSULE', 'ELLIPSOID',
+                                     'CYLINDER'])
+def test_hfield_collider_matches_jax(partner):
+  """escape's heightfield against each partner type's group, 16 lanes each
+  with a field of its own (model_var) and random partner poses whose
+  lowest point is within 5 cm of the surface under it: dist, pos and the
+  normal of every contact point agree, and some points touch."""
+  jm, m = _escape_models()
+  grp = next(g for g in collision.groups(m)
+             if (g.t1.name, g.t2.name) == ('HFIELD', partner))
+  jgrp = next(g for g in jcollision.groups(jm)
+              if (g.t1.name, g.t2.name) == ('HFIELD', partner))
+  rng = np.random.RandomState(21 + len(partner))
+  n, K = 16, grp.K
+  data = _fields(jm, n, rng)
+  g1 = int(grp.g1[0])
+  h_pos = np.tile(jm.geom_pos[g1], (n, K, 1))
+  h_mat = np.tile(np.eye(3), (n, K, 1, 1))
+  size2 = np.tile(jm.geom_size[grp.g2], (n, 1, 1))
+  mat2 = _rot(rng, n * K).reshape(n, K, 3, 3)
+  pos2 = np.concatenate([rng.uniform(-20, 20, (n, K, 2)),
+                         np.zeros((n, K, 1))], -1)
+  # the surface under each partner, from the field's own bilinear form
+  d = forward.make_data(m, n, torch.float64, 'cpu').replace(
+      model_var={'hfield_data': torch.tensor(data)})
+  h = colliders.hfield_height(m, d, 0, torch.tensor(pos2[..., :2]))[0]
+  reach = np.linalg.norm(size2, axis=-1)
+  pos2[..., 2] = (h.numpy() + h_pos[..., 2] + reach * rng.uniform(0.3, 1.0)
+                  + rng.uniform(-0.05, 0.05, (n, K)))
+  d0 = jforward.make_data(jm)
+
+  def one(hd, hp, hm, p, mt, sz2):
+    jd = d0.replace(model_var={'hfield_data': hd},
+                    geom_xpos=d0.geom_xpos.at[g1].set(hp[0]),
+                    geom_xmat=d0.geom_xmat.at[g1].set(hm[0]))
+    return jcolliders._collide_hfield(jm, jd, jgrp, jnp.asarray(jgrp.g1),
+                                      p, mt, sz2)
+
+  ref = jax.jit(jax.vmap(one))(*[jnp.asarray(a) for a in (
+      data, h_pos, h_mat, pos2, mat2, size2)])
+  out = colliders._collide_hfield(m, d, grp, *[torch.tensor(a) for a in (
+      h_pos, h_mat, pos2, mat2, size2)])
+  print(f'hfield-{partner.lower()}: {int((out[0] < 0).sum())} of '
+        f'{out[0].numel()} points touching; max err', end='')
+  for name, a, r in zip(('dist', 'pos', 'normal'), out, ref):
+    r = np.asarray(r)
+    assert a.shape == r.shape, (name, a.shape, r.shape)
+    err = _scaled(a.numpy(), r)
+    print(f' {name} {err:.1e}', end='')
+    assert err <= TOL, f'hfield-{partner} {name}: {err:.2e}'
+  print()
+  assert (out[0] < 0).any() and (out[0] > 0).any()

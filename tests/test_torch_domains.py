@@ -1,16 +1,19 @@
 """The port's cheetah, hopper, pendulum, reacher, cartpole, acrobot,
-finger-turn, point_mass, ball_in_cup, swimmer, fish, humanoid, quadruped,
-manipulator and stacker against the JAX package's, float64 on the CPU.
+finger-turn, point_mass, ball_in_cup, swimmer, fish, humanoid,
+humanoid_CMU, quadruped (walk, escape, fetch), manipulator and stacker
+against the JAX package's, float64 on the CPU.
 
 For each task numpy draws 8 lanes' joint positions and velocities (where
 the task would start out of contact, positions that touch or press a
 limit; ball_in_cup's balls in the cup, on the floor or with the string
 about taut; fish's free root at random orientations; manipulator's and
 stacker's props on the floor, stacked or in the slot, `prop_states`, from
-the JAX package's collision-free episode init; reacher's, finger-turn's,
-point_mass-hard's, swimmer's, fish-swim's, manipulator's and stacker's
-per-lane `model_var` comes from that init), and the port takes the same
-states through the bridge.
+the JAX package's collision-free episode init; quadruped's on the floor,
+escape's on its terrain, fetch's ball on the floor by the body or against
+a wall; reacher's, finger-turn's, point_mass-hard's, swimmer's,
+fish-swim's, manipulator's and stacker's per-lane `model_var` comes from
+that init, escape's terrain from `jax.image.resize` of numpy bumps), and
+the port takes the same states through the bridge.
 The same numpy actions then drive the JAX package's `substeps` and the
 port's BatchedEnv for 5 control steps.  qpos, qvel, reward and
 every observation key agree to 1e-6 scaled by max(1, |ref|) at every
@@ -18,8 +21,9 @@ step, the rollout tests' bound: the solves stop at opt.tolerance and their
 differences pass into everything after them.  The RK4 step alone, the
 n <= 1 branch of `substeps`, `settle` and quadruped's settle (the lowest
 contact-free height of 200) are held to the JAX package's functions as
-well, and the six manipulation models' collision groups and efc layouts
-to the JAX package's.
+well, the six manipulation models' and the tenth slice's collision groups
+and efc layouts to the JAX package's, and escape's terrain resize to
+`jax.image.resize`.
 """
 
 import dataclasses
@@ -65,6 +69,70 @@ def _scaled(x, ref):
 
 def _jax_batch(fn):
   return jax.jit(jax.vmap(fn))
+
+
+_JAX_SUBSTEPS = {}
+
+
+def _jax_substeps(jm, n_sub):
+  """The JAX package's batched substeps of a model, compiled once per
+  (model, n): humanoid_CMU's stand and run share one model and its ~1 min
+  compile."""
+  key = (id(jm), n_sub)
+  if key not in _JAX_SUBSTEPS:
+    _JAX_SUBSTEPS[key] = (jm, _jax_batch(
+        lambda d, u: jforward.substeps(jm, d.replace(ctrl=u), n_sub)))
+  return _JAX_SUBSTEPS[key][1]
+
+
+def escape_terrain(jm, bumps):
+  """escape's (n, 201 * 201) hfield_data from (n, 30, 30) numpy bumps, as
+  the JAX package's episode init makes it: its bowl times the bumps'
+  `jax.image.resize(..., 'bicubic')`."""
+  res = int(jm.hfield_nrow[0])
+  row_grid, col_grid = np.ogrid[-1:1:res * 1j, -1:1:res * 1j]
+  radius = np.clip(np.sqrt(col_grid ** 2 + row_grid ** 2), .04, 1)
+  bowl = .5 - np.cos(2 * np.pi * radius) / 2
+  smooth = np.stack([np.asarray(jax.image.resize(jnp.asarray(b), (res, res),
+                                                 'bicubic'))
+                     for b in bumps])
+  return (bowl * smooth).reshape(len(bumps), -1)
+
+
+def terrain_height(jm, hdata, xy):
+  """(n,) world height of escape's terrain (n, 201 * 201) at (n, 2)
+  points, bilinear in numpy (the geom sits 0.01 below the origin)."""
+  g = jm.name2id('geom', 'terrain')
+  res, (sx, sy, sz) = int(jm.hfield_nrow[0]), jm.hfield_size[0, :3]
+  f = (xy + [sx, sy]) / (2 * np.array([sx, sy])) * (res - 1)
+  x0, y0 = np.floor(f).astype(int).T
+  tx, ty = (f - np.floor(f)).T
+  grid = hdata.reshape(-1, res, res) * sz
+  n = np.arange(len(xy))
+  h = (grid[n, y0, x0] * (1 - tx) * (1 - ty) + grid[n, y0, x0 + 1] * tx
+       * (1 - ty) + grid[n, y0 + 1, x0] * (1 - tx) * ty
+       + grid[n, y0 + 1, x0 + 1] * tx * ty)
+  return h + jm.geom_pos[g, 2]
+
+
+def ball_states(jm, rng, qpos):
+  """fetch's ball in qpos (n, nq), in place: still and upright, on the
+  floor beside the body (lanes 0, 2, ...) or against the wall at x = -15.7
+  (tilted 45 degrees, lanes 1, 3, ...), 0 to 1 mm into each."""
+  n = len(qpos)
+  q = jm.jnt_qposadr[jm.name2id('joint', 'ball_root')]
+  r = float(jm.geom_size[jm.name2id('geom', 'ball'), 0])
+  z = r - rng.uniform(0, 1e-3, n)
+  ang = rng.uniform(-np.pi, np.pi, n)
+  by_body = qpos[:, :2] + 0.45 * np.stack([np.cos(ang), np.sin(ang)], -1)
+  wall = jm.name2id('geom', 'wall_px')
+  x_wall = ((r - rng.uniform(0, 1e-3, n)) * np.sqrt(2)
+            + jm.geom_pos[wall, 0] - (z - jm.geom_pos[wall, 2]))
+  at_wall = np.stack([x_wall, rng.uniform(-5, 5, n)], -1)
+  qpos[:, q:q + 2] = np.where((np.arange(n) % 2 == 0)[:, None], by_body,
+                              at_wall)
+  qpos[:, q + 2] = z
+  qpos[:, q + 3:q + 7] = [1.0, 0.0, 0.0, 0.0]
 
 
 def prop_states(jm, rng, n, model_var=None, base=None):
@@ -188,7 +256,7 @@ def _states(what, jtask, rng):
     qpos[:, 3:7] = quat / np.linalg.norm(quat, axis=1, keepdims=True)
     qpos[:, :3] = rng.uniform(-0.3, 0.3, (BATCH, 3))
     qvel *= 0.1
-  if what.split('-')[0] in ('humanoid', 'quadruped'):
+  if what.split('-')[0] in ('humanoid', 'humanoid_CMU', 'quadruped'):
     # the free root low, at random orientations: lying or standing on
     # the floor, limbs touching it and each other
     quat = rng.randn(BATCH, 4)
@@ -197,6 +265,18 @@ def _states(what, jtask, rng):
     qpos[:, 2] = rng.uniform(0.1, 0.4, BATCH)
     qvel *= 0.3
   model_var = {}
+  if what == 'quadruped-escape':
+    # a terrain per lane; half the bodies out on its slope, as low over it
+    model_var['hfield_data'] = escape_terrain(
+        jm, rng.uniform(0.15, 1.0, (BATCH, 30, 30)))
+    ang = rng.uniform(-np.pi, np.pi, BATCH)
+    out = np.where(half, rng.uniform(2.0, 6.0, BATCH), 0.0)
+    qpos[:, :2] += out[:, None] * np.stack([np.cos(ang), np.sin(ang)], -1)
+    qpos[:, 2] += np.maximum(terrain_height(jm, model_var['hfield_data'],
+                                            qpos[:, :2]), 0.0)
+  if what == 'quadruped-fetch':
+    ball_states(jm, rng, qpos)
+    qvel[:, -6:] = 0.0
   if (what.split('-')[0] in ('reacher', 'finger', 'swimmer', 'manipulator',
                              'stacker')
       or what in ('point_mass-hard', 'fish-swim')):
@@ -214,7 +294,8 @@ CASES = ['cheetah-run', 'hopper-hop', 'pendulum-swingup', 'reacher-easy',
          'finger-turn_easy', 'point_mass-easy', 'point_mass-hard',
          'ball_in_cup-catch', 'swimmer-swimmer6', 'fish-swim',
          'humanoid-run', 'quadruped-walk', 'manipulator-bring_ball',
-         'manipulator-insert_peg', 'stacker-stack_2']
+         'manipulator-insert_peg', 'stacker-stack_2', 'humanoid_CMU-stand',
+         'humanoid_CMU-run', 'quadruped-escape', 'quadruped-fetch']
 
 
 @pytest.mark.parametrize('what', CASES)
@@ -237,12 +318,14 @@ def test_domain_matches_jax(what):
   act = rng.uniform(-1, 1, (BATCH, m.na))
   n_sub = task.n_sub_steps()
   d0 = jforward.make_data(jm)
+  jsub = _jax_substeps(jm, n_sub)
+  jout = _jax_batch(lambda d: (jtask.get_reward(jm, d),
+                               jtask.get_observation(jm, d)))
 
   def jstep(d, u):
-    d = jforward.substeps(jm, d.replace(ctrl=u), n_sub)
-    return d, jtask.get_reward(jm, d), jtask.get_observation(jm, d)
+    d = jsub(d, u)
+    return (d,) + jout(d)
 
-  jstep = _jax_batch(jstep)
   jd = _jax_batch(lambda q, v, a, mv: d0.replace(qpos=q, qvel=v, act=a,
                                                  model_var=mv))(
       jnp.asarray(qpos), jnp.asarray(qvel), jnp.asarray(act),
@@ -392,7 +475,9 @@ TASKS = [('cheetah', 'run'), ('hopper', 'stand'), ('hopper', 'hop'),
          ('swimmer', 'swimmer15'), ('fish', 'upright'), ('fish', 'swim'),
          ('humanoid', 'stand'), ('humanoid', 'walk'), ('humanoid', 'run'),
          ('humanoid', 'run_pure_state'), ('quadruped', 'walk'),
-         ('quadruped', 'run'), ('manipulator', 'bring_ball'),
+         ('quadruped', 'run'), ('quadruped', 'escape'),
+         ('quadruped', 'fetch'), ('humanoid_CMU', 'stand'),
+         ('humanoid_CMU', 'run'), ('manipulator', 'bring_ball'),
          ('manipulator', 'bring_peg'), ('manipulator', 'insert_ball'),
          ('manipulator', 'insert_peg'), ('stacker', 'stack_2'),
          ('stacker', 'stack_4')]
@@ -438,11 +523,28 @@ def test_quadruped_settle_matches_jax():
   assert not bool(base.has_contacts(m, d).any())
 
 
-@pytest.mark.parametrize('task_name,waits_on', [('escape', 'heightfield'),
-                                                ('fetch', 'condim-6')])
-def test_quadruped_escape_and_fetch_raise(task_name, waits_on):
-  with pytest.raises(NotImplementedError, match=waits_on):
-    suite.build_task('quadruped', task_name, device='cpu')
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32],
+                         ids=['float64', 'float32'])
+def test_escape_terrain_resize_matches_jax(dtype):
+  """escape's upsampling of 4 lanes' numpy bumps (30 x 30 -> 201 x 201)
+  equals `jax.image.resize(..., 'bicubic')` of the same bumps to
+  rounding (torch's own bicubic interpolate is another kernel: it is off
+  by far more), and the bowl times it is the hfield_data the JAX package's
+  init makes."""
+  from dm_control_tpu_torch.suite import quadruped
+  m = suite.build_task('quadruped', 'escape', device='cpu').model
+  bumps = np.random.RandomState(12).uniform(0.15, 1.0, (4, 30, 30))
+  ref = np.stack([np.asarray(jax.image.resize(jnp.asarray(b), (201, 201),
+                                              'bicubic')) for b in bumps])
+  out = quadruped.bicubic_resize(m, torch.tensor(bumps, dtype=dtype), 201)
+  err = np.abs(out.double().numpy() - ref).max()
+  other = torch.nn.functional.interpolate(
+      torch.tensor(bumps)[:, None], size=(201, 201), mode='bicubic',
+      align_corners=False)[:, 0].numpy()
+  print(f'terrain resize {dtype}: max err {err:.2e} (torch bicubic '
+        f'{np.abs(other - ref).max():.2e})')
+  assert err <= (1e-12 if dtype == torch.float64 else 1e-6)
+  assert np.abs(other - ref).max() > 1e-3
 
 
 MANIPULATION = [('manipulator', 'bring_ball'), ('manipulator', 'bring_peg'),
@@ -450,12 +552,10 @@ MANIPULATION = [('manipulator', 'bring_ball'), ('manipulator', 'bring_peg'),
                 ('stacker', 'stack_2'), ('stacker', 'stack_4')]
 
 
-@pytest.mark.parametrize('domain,task_name', MANIPULATION)
-def test_manipulation_layout_matches_jax(domain, task_name):
-  """Each manipulation model's collision groups (geom types, condim,
-  friction, pairs, K) and efc layout (nefc, row types, the elliptic
-  groups' rows, mu and scales) equal the JAX package's: the props each
-  task prunes, and the box groups among them, give the same rows."""
+def _check_layout(domain, task_name):
+  """The task's collision groups (geom types, condim, friction, pairs, K)
+  and efc layout (nefc, row types, the elliptic groups' rows, mu and
+  scales) equal the JAX package's; returns (model, layout)."""
   from dm_control_tpu._src import collision as jcollision
   from dm_control_tpu._src import efc as jefc
   from dm_control_tpu_torch._src import collision
@@ -473,9 +573,31 @@ def test_manipulation_layout_matches_jax(domain, task_name):
   jlay, lay = jefc.layout(jm), efc.layout(m)
   assert lay.nefc == jlay.nefc
   np.testing.assert_array_equal(lay.types, jlay.types)
-  assert lay.ell_groups.keys() == jlay.ell_groups.keys() == {3}
-  for x, y in zip(lay.ell_groups[3], jlay.ell_groups[3]):
-    np.testing.assert_array_equal(x, y)
-  print(f'{domain}-{task_name}: nv {m.nv} nefc {lay.nefc} cones '
-        f'{len(lay.ell_groups[3][0])}; groups '
-        f'{[(a.t1.name, a.t2.name, a.npairs, a.K) for a in g]}')
+  assert lay.ell_groups.keys() == jlay.ell_groups.keys()
+  for k in lay.ell_groups:
+    for x, y in zip(lay.ell_groups[k], jlay.ell_groups[k]):
+      np.testing.assert_array_equal(x, y)
+  print(f'{domain}-{task_name}: nv {m.nv} nefc {lay.nefc}; groups '
+        f'{[(a.t1.name, a.t2.name, a.condim, a.npairs, a.K) for a in g]}')
+  return m, lay
+
+
+@pytest.mark.parametrize('domain,task_name', MANIPULATION)
+def test_manipulation_layout_matches_jax(domain, task_name):
+  """Each manipulation model's groups and layout equal the JAX package's
+  (`_check_layout`): the props each task prunes, and the box groups among
+  them, give the same rows, with condim-3 elliptic cones."""
+  _, lay = _check_layout(domain, task_name)
+  assert lay.ell_groups.keys() == {3}
+
+
+@pytest.mark.parametrize('what,nv,nefc', [
+    ('humanoid_CMU-run', 62, 880), ('quadruped-escape', 22, 378),
+    ('quadruped-fetch', 28, 598)])
+def test_slice_layout_matches_jax(what, nv, nefc):
+  """humanoid_CMU's (its ellipsoid pair and three top-K groups), escape's
+  (the heightfield against four partner types) and fetch's (the condim-6
+  ball against the floor, the walls and the body) groups and layouts
+  equal the JAX package's: pyramidal, at the nv and nefc K2 takes."""
+  m, lay = _check_layout(*what.split('-'))
+  assert (m.nv, lay.nefc, lay.ell_groups) == (nv, nefc, {})

@@ -2,7 +2,9 @@
 on the CPU: `forward.state_of`, the bridge, `base.select_collision_free`,
 BatchedEnv's auto-reset of fresh lanes (reacher's target `geom_pos`) and
 its reset pool (finger-turn's target `site_pos`, an expensive init;
-insert_ball's target and cup `body_pos` and `body_quat`).
+insert_ball's target and cup `body_pos` and `body_quat`; escape's
+terrain `hfield_data`, which the collider and the rangefinders read per
+lane).
 """
 
 import numpy as np
@@ -166,3 +168,51 @@ def test_reset_pool_carries_body_pose():
   for k in ('body_pos', 'body_quat'):
     new = state.data.model_var[k][:, target]
     assert bool((new[moved] != old[k][moved, target]).any(-1).all()), k
+
+
+def test_reset_pool_carries_hfield_data():
+  """quadruped-escape (expensive init): each lane draws a terrain of its
+  own (B, 201 * 201), the bowl times bumps in [0.15, 1] upsampled by a
+  cubic (whose overshoot stays well within [0, 1.25]), on which its body
+  settles clear of contact; the
+  terrain goes through the bridge at float32; with an episode limit of 2
+  control steps every lane resets from the pool at the second, holding its
+  pool entry's hfield_data with the rest of the entry and no longer its
+  own; and a lane's contacts and rangefinders read its own terrain (a
+  lane given another's terrain sees other heights)."""
+  from dm_control_tpu_torch._src import sensor
+  from dm_control_tpu_torch._src import smooth
+  task = suite.build_task('quadruped', 'escape', device='cpu')
+  m = task.model
+  B = 4
+  env = runner.BatchedEnv(task, B, time_limit=0.04, dtype=torch.float64)
+  state = env.reset(seed=6)
+  hd = state.data.model_var['hfield_data']
+  assert hd.shape == (B, int(m.hfield_nrow[0] * m.hfield_ncol[0]))
+  assert bool((hd >= 0).all() and (hd <= 1.25).all())
+  assert all(not torch.equal(hd[i], hd[j]) for i in range(B)
+             for j in range(i))
+  assert not bool(base.has_contacts(m, state.data).any())
+  fields = bridge.data_to_numpy(state.data)
+  back = bridge.data_from_numpy(fields, device='cpu', dtype=torch.float32)
+  np.testing.assert_array_equal(back.model_var['hfield_data'].double().numpy(),
+                                hd.float().double())
+  d = smooth.kinematics(m, state.data)
+  rf = sensor.sensors(m, d, 'posvel').sensordata
+  swapped = sensor.sensors(m, d.replace(
+      model_var={'hfield_data': hd.roll(1, 0)}), 'posvel').sensordata
+  assert not torch.equal(rf, swapped)
+  old = hd.clone()
+  pool = state.reset_pool
+  a = torch.zeros(B, m.nu, dtype=torch.float64)
+  for _ in range(2):
+    state, (_, _, done, _) = env.step(state, a)
+  assert done.all() and env.reset_calls == 0
+  idx = runner.pool_index(torch.zeros(B, dtype=torch.int32), torch.arange(B),
+                          B)
+  for name, x in forward.state_items(forward.state_of(state.data)):
+    assert torch.equal(x, dict(forward.state_items(pool))[name][idx]), name
+  new = state.data.model_var['hfield_data']
+  moved = idx != torch.arange(B)
+  assert moved.any()
+  assert bool((new[moved] != old[moved]).any(-1).all())

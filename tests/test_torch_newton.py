@@ -8,9 +8,9 @@ where they touch, with random joint velocities.  The port's plain version
 (the batched torch core) must land on the same optimum as the Pallas
 kernel in interpret mode and as the XLA core, to 1e-5 scaled by
 max(1, |ref|): all three stop at opt.tolerance, so their iterates may
-differ by about that (the bound of test_pallas.py); at stack_4's layout,
-past the TPU kernel's VMEM gate, against the XLA core alone.  The CUDA
-kernels run only on a card (`cuda` marker).
+differ by about that (the bound of test_pallas.py); at stack_4's and
+humanoid_CMU's layouts, past the TPU kernel's VMEM gate, against the XLA
+core alone.  The CUDA kernels run only on a card (`cuda` marker).
 """
 
 import ctypes
@@ -192,11 +192,28 @@ def test_kernel_limit_matches_source():
     ((105, 3, 34), (4, 4 * (346 + 4 * 1559))),          # finger
     ((200, 32, 0), (4, 4 * (400 + 4 * 10440))),         # nv 32
     ((400, 32, 100), (2, 4 * (1200 + 2 * 19740))),      # two warps fit
-], ids=['walker', 'finger', 'nv32', 'nv32-two-warps'])
+    # past LANE_NV J stays in device memory: 2 nv ld + 8 nefc + 11 ncg +
+    # 4 nv words per warp
+    ((880, 62, 0), (3, 4 * (1760 + 3 * 15100))),        # humanoid_CMU
+    ((200, 33, 20), (4, 4 * (480 + 4 * 4130))),         # nv 33
+], ids=['walker', 'finger', 'nv32', 'nv32-two-warps', 'humanoid_CMU',
+        'nv33'])
 def test_launch_config(shape, want):
   warps, smem = nk.launch_config(*shape)
   assert (warps, smem) == want
   assert smem <= nk.SMEM_LIMIT
+
+
+def test_launch_config_two_dof_family_holds_what_one_lane_per_dof_cannot():
+  """humanoid_CMU's layout: with J in shared memory one environment's warp
+  would need 282,160 bytes, over a block's 232,448; the two-dofs-per-lane
+  family leaves J in device memory and fits three environments per
+  block."""
+  ld = 62 | 1
+  assert 4 * (880 * ld + 2 * 62 * ld + 8 * 880 + 4 * 62) == 282160
+  assert 282160 > nk.SMEM_LIMIT
+  assert nk.launch_config(880, 62, 0) == (3, 188240)
+  assert nk.LANE_NV == 32 and nk.MAX_NV == 64
 
 
 def test_launch_config_raises_where_one_warp_cannot_fit():
@@ -338,3 +355,75 @@ def test_plain_ell_matches_xla_core_at_stack_4():
         f'{ex:.2e} force {ef:.2e}')
   assert (cones >= 4).all() and (iters >= 1).all()
   assert ex <= 1e-5 and ef <= 1e-5
+
+
+@functools.lru_cache(maxsize=None)
+def _cmu_inputs():
+  """humanoid_CMU's solver inputs (nefc 880, nv 62) at 6 lanes lying on
+  or pressed into the floor (`test_torch_domains._states`), built by the
+  JAX package's forward at float64, warm-started from qacc_smooth."""
+  from test_torch_domains import _states
+  task = jsuite.build_task('humanoid_CMU', 'run')
+  m = task.model
+  qpos, qvel, _ = _states('humanoid_CMU-run', task, np.random.RandomState(13))
+  qpos, qvel = qpos[:6], qvel[:6]
+  db = jax.jit(jax.vmap(lambda q, v: jforward.forward(
+      m, jforward.make_data(m).replace(qpos=q, qvel=v))))(
+          jax.numpy.asarray(qpos), jax.numpy.asarray(qvel))
+  args = [np.asarray(x) for x in (
+      db.efc_J, db.qM, db.efc_aref, db.efc_D, db.efc_frictionloss,
+      db.efc_active.astype(db.qpos.dtype), db.qacc_smooth, db.qacc_smooth)]
+  kw = dict(niter=int(m.opt.iterations), ls_iter=12,
+            tol=jsolver.effective_tol(float(m.opt.tolerance), db.qpos.dtype),
+            meaninertia=float(m.stat_meaninertia or 1.0))
+  return m, jefc.layout(m), args, kw
+
+
+def test_plain_matches_xla_core_at_humanoid_cmu():
+  """The plain twin at humanoid_CMU's layout (nv 62, nefc 880, pyramidal;
+  over the TPU kernel's VMEM gate, so the JAX package solves it in its
+  XLA core) on 6 lanes lying on the floor (`_cmu_inputs`), against that
+  core: qacc and forces within 1e-5 scaled, as above, and every lane takes
+  Newton steps on its live rows."""
+  m, lay, args, kw = _cmu_inputs()
+  assert (lay.nefc, m.nv, lay.ell_groups) == (880, 62, {})
+  x_ref, f_ref = jax.jit(jax.vmap(
+      lambda *a: jsolver._solve_core_xla(*a, lay=lay, **kw)))(
+          *[jax.numpy.asarray(a) for a in args])
+  x, f, iters = nk.newton_solve_plain(
+      *[torch.tensor(a) for a in args], types=lay.types, return_iters=True,
+      **kw)
+  ex = _scaled_err(x.numpy(), np.asarray(x_ref))
+  ef = _scaled_err(f.numpy(), np.asarray(f_ref))
+  live = args[5].sum(1)
+  print(f'K2 plain vs XLA core at humanoid_CMU: live rows per lane '
+        f'{live.tolist()}, iterations {iters.tolist()}; max scaled err qacc '
+        f'{ex:.2e} force {ef:.2e}')
+  assert (live >= 20).all() and (iters >= 1).all()
+  assert ex <= 1e-5 and ef <= 1e-5
+
+
+@pytest.mark.cuda
+def test_two_dof_kernel_matches_plain_on_card():
+  """K2's two-dofs-per-lane family at humanoid_CMU's layout against the
+  plain float32 solve, with K2's lane-scaled bounds; past MAX_NV (85
+  dofs) the wrapper raises and launches nothing."""
+  if not torch.cuda.is_available():
+    pytest.skip('needs a CUDA device; chip_smoke.py runs this check there')
+  m, lay, args, kw = _cmu_inputs()
+  kw = dict(kw, tol=max(kw['tol'], 1e-6))
+  dev = [torch.from_numpy(a.astype(np.float32)).cuda() for a in args]
+  x_ref, _ = nk.newton_solve_plain(*dev, types=lay.types, **kw)
+  nk.reset_launches()
+  x, _ = nk.newton_solve_batched(*dev, lay=lay, **kw)
+  assert nk.LAUNCHES['newton_solve_batched'] == 1
+  lane = x_ref.abs().amax(dim=1, keepdim=True).clamp(min=1.0)
+  err = ((x - x_ref).abs() / lane).cpu().numpy()
+  assert err.mean() <= 1e-4 and err.max() <= 5e-2
+  wide = [torch.zeros((2, lay.nefc, 85), device='cuda'),
+          torch.zeros((2, 85, 85), device='cuda')] + [
+              torch.zeros((2, lay.nefc), device='cuda')] * 4 + [
+                  torch.zeros((2, 85), device='cuda')] * 2
+  with pytest.raises(ValueError, match='1..64'):
+    nk.newton_solve_batched(*wide, lay=lay, **kw)
+  assert nk.LAUNCHES['newton_solve_batched'] == 1

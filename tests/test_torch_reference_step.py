@@ -19,7 +19,10 @@ versions, the batched torch solve) and the JAX package's float32 step
 (XLA core on the CPU) against the port's float64 step, on 16 lanes of
 walker-walk, finger-spin, cheetah-run and hopper-hop drawn with numpy,
 all three recording their choices through the same `branches`, and the
-port's counts to the JAX package's.  The port's float32 step is also
+port's counts to the JAX package's.  humanoid_CMU and fetch, whose
+float32 steps (the JAX package's too) miss float64 on some lanes by the
+gate's rule, are held by their counts and median lanes against the JAX
+package's float32 step (`FLOAT32_LIMITED`).  The port's float32 step is also
 held to the JAX package's directly: by the gate's rule where their
 choices differ, and where they are the same by the median lane and
 within K2's largest error for two float32 Newton solves.  And the gate's
@@ -159,6 +162,31 @@ def _body_states(jm, rng, n):
   return qpos, 0.3 * rng.randn(n, jm.nv), rng.uniform(-1, 1, (n, jm.nu))
 
 
+def _escape_states(jm, rng, n):
+  """n quadrupeds on escape's terrain, one per lane (`model_var`), as
+  `_body_states` draws them, half at the bowl's middle and half 2-6 m out
+  on its slope, 0.1-0.4 m over the terrain under them."""
+  from test_torch_domains import escape_terrain, terrain_height
+  qpos, qvel, ctrl = _body_states(jm, rng, n)
+  hdata = escape_terrain(jm, rng.uniform(0.15, 1.0, (n, 30, 30)))
+  ang = rng.uniform(-np.pi, np.pi, n)
+  r = np.where(np.arange(n) % 2 == 0, 0.0, rng.uniform(2.0, 6.0, n))
+  qpos[:, :2] = r[:, None] * np.stack([np.cos(ang), np.sin(ang)], -1)
+  qpos[:, 2] += np.maximum(terrain_height(jm, hdata, qpos[:, :2]), 0.0)
+  return qpos, qvel, ctrl, {'hfield_data': hdata}
+
+
+def _fetch_states(jm, rng, n):
+  """n quadrupeds as `_body_states` draws them, with fetch's ball still on
+  the floor beside the body or against a wall
+  (`test_torch_domains.ball_states`)."""
+  from test_torch_domains import ball_states
+  qpos, qvel, ctrl = _body_states(jm, rng, n)
+  ball_states(jm, rng, qpos)
+  qvel[:, -6:] = 0.0
+  return qpos, qvel, ctrl
+
+
 def _prop_states(jm, rng, n):
   """n manipulators or stackers, the props on the floor, stacked or in
   the slot on two lanes of three (`test_torch_domains.prop_states`)."""
@@ -167,21 +195,23 @@ def _prop_states(jm, rng, n):
   return qpos, qvel, rng.uniform(-1, 1, (n, jm.nu))
 
 
-def _jax_step(jm, n_sub, qpos, qvel, ctrl, warm=None, act=None):
+def _jax_step(jm, n_sub, qpos, qvel, ctrl, warm=None, act=None,
+              model_var=None):
   """The JAX package's control step at float32, in its substeps' stage
   order (step1, then per substep the acc stage, Euler, the divergence
-  check and step1), from qacc_warmstart `warm` and activations `act`
-  (default 0), returning qpos, qvel, act and each acc stage's incoming
-  warmstart and outgoing Data."""
+  check and step1), from qacc_warmstart `warm`, activations `act`
+  (default 0) and per-lane `model_var` (default none), returning qpos,
+  qvel, act and each acc stage's incoming warmstart and outgoing Data."""
   d0 = jforward.make_data(jm, jnp.float32)
   if warm is None:
     warm = np.zeros_like(qvel)
   if act is None:
     act = np.zeros((len(qpos), jm.na))
 
-  def one(q, v, u, w, a):
+  def one(q, v, u, w, a, mv):
     d = jforward.step1(jm, d0.replace(qpos=q, qvel=v, ctrl=u, act=a,
-                                      qacc_warmstart=w), skipsensor=True)
+                                      qacc_warmstart=w, model_var=mv),
+                       skipsensor=True)
 
     def sub(d, _):
       warm = d.qacc_warmstart
@@ -196,7 +226,8 @@ def _jax_step(jm, n_sub, qpos, qvel, ctrl, warm=None, act=None):
 
   f32 = lambda x: jnp.asarray(x, jnp.float32)
   return jax.jit(jax.vmap(one))(f32(qpos), f32(qvel), f32(ctrl), f32(warm),
-                                f32(act))
+                                f32(act), {k: f32(x) for k, x in
+                                           (model_var or {}).items()})
 
 
 def _jax_branches(pm, warm, after, n_sub):
@@ -210,6 +241,8 @@ def _jax_branches(pm, warm, after, n_sub):
     fields.update({'contact.' + f.name:
                    np.asarray(getattr(after.contact, f.name))[:, s]
                    for f in dataclasses.fields(after.contact)})
+    fields.update({'model_var.' + k: np.asarray(x)[:, s]
+                   for k, x in (after.model_var or {}).items()})
     d = bridge.data_from_numpy(fields, device='cpu', dtype=torch.float32)
     before = types.SimpleNamespace(
         qacc_warmstart=torch.tensor(np.asarray(warm)[:, s]))
@@ -247,7 +280,8 @@ def _lane_err(out, ref):
 def run_steps(what, n):
   """One control step of n lanes of task `what` (walker-walk, finger-spin,
   cheetah-run, hopper-hop, ..., quadruped-walk, manipulator-bring_ball,
-  manipulator-insert_peg, stacker-stack_2) drawn with
+  manipulator-insert_peg, stacker-stack_2, humanoid_CMU-run,
+  quadruped-escape, quadruped-fetch) drawn with
   numpy (seed 5):
   the port's at float32 and at
   float64 and the JAX package's at float32, each with its choices
@@ -262,17 +296,23 @@ def run_steps(what, n):
           'point_mass': _point_mass_states,
           'ball_in_cup': _ball_in_cup_states, 'swimmer': _swimmer_states,
           'fish': _fish_states, 'humanoid': _body_states,
-          'quadruped': _body_states, 'manipulator': _prop_states,
-          'stacker': _prop_states}.get(domain, _planar_states)
-  qpos, qvel, ctrl = draw(jm, rng, n)
+          'humanoid_CMU': _body_states, 'quadruped': _body_states,
+          'manipulator': _prop_states, 'stacker': _prop_states,
+          'quadruped-escape': _escape_states,
+          'quadruped-fetch': _fetch_states}
+  qpos, qvel, ctrl, *mv = draw.get(what, draw.get(domain, _planar_states))(
+      jm, rng, n)
+  model_var = mv[0] if mv else {}
   n_sub = task.n_sub_steps()
   d = forward.make_data(pm, n, torch.float64, 'cpu').replace(
       qpos=torch.tensor(qpos, dtype=torch.float64),
-      qvel=torch.tensor(qvel, dtype=torch.float64))
+      qvel=torch.tensor(qvel, dtype=torch.float64),
+      model_var={k: torch.tensor(x) for k, x in model_var.items()})
   runs = {str(dt).split('.')[1]: cs.one_step(
       pm, d, slice(0, n), torch.tensor(ctrl), n_sub, dt, 'cpu',
       record=True) for dt in (torch.float32, torch.float64)}
-  jq, jv, ja, (warm, after) = _jax_step(jm, n_sub, qpos, qvel, ctrl)
+  jq, jv, ja, (warm, after) = _jax_step(jm, n_sub, qpos, qvel, ctrl,
+                                        model_var=model_var)
   runs['jax float32'] = {
       'qpos': torch.tensor(np.asarray(jq, np.float64)),
       'qvel': torch.tensor(np.asarray(jv, np.float64)),
@@ -290,7 +330,8 @@ def run_steps(what, n):
                                         'humanoid-run', 'quadruped-walk',
                                         'manipulator-bring_ball',
                                         'manipulator-insert_peg',
-                                        'stacker-stack_2'])
+                                        'stacker-stack_2',
+                                        'quadruped-escape'])
 def steps(request):
   """`run_steps` of BATCH lanes of each task."""
   return request.param, run_steps(request.param, BATCH)[0]
@@ -362,6 +403,54 @@ def test_port_float32_step_matches_jax_under_the_gate_rule(steps):
   if lay.nefc:
     want |= {'warmstart', 'row zone', 'solve stop'}
   assert set(first_sub) >= want
+
+
+# Tasks whose float32 step misses the float64 path by the gate's rule on
+# lanes where the JAX package's float32 step misses it as well, so that
+# the rules above, calibrated on the others, cannot hold two float32 steps
+# to each other: humanoid_CMU (nv 62; over 64 lanes of `run_steps` the
+# port fails 1 lane and the JAX package 1 (a joint limit 1.46e3 bands out
+# after float32 drift; a matched lane 9.8e-2 off), and the port's median
+# lane is 1.35e-4 from float64 on the test's 16, the JAX package's
+# 9.6e-5) and fetch (the ball at rest on the floor or at a wall, its
+# direct stiffness 1e4: each fails 9 of 64, largely the same lanes, whose
+# float32 solves both stop 5.21 from the float64 optimum of their inputs;
+# `tools/reference_step_cpu.py --lanes 64`).
+FLOAT32_LIMITED = ['humanoid_CMU-run', 'quadruped-fetch']
+
+
+@pytest.mark.parametrize('what', FLOAT32_LIMITED)
+def test_float32_limited_task_fails_no_more_lanes_than_jax(what):
+  """The port's float32 step and the JAX package's, each against the
+  port's float64 step by the gate's rule, on BATCH lanes: the port fails
+  and excuses at most twice as many lanes as the JAX package's float32
+  step, plus one (the gate's rule between its two K1 routes,
+  `gate_failures`), and its median lane is no further from float64 than
+  twice the JAX package's; the steps reach the contacts, limits and
+  solves the gate records."""
+  runs = run_steps(what, BATCH)[0]
+  ref = runs['float64']
+  counts, median = {}, {}
+  for name in ('float32', 'jax float32'):
+    err = _lane_err(runs[name], ref)
+    first = cs.first_differences(runs[name]['branches'], ref['branches'],
+                                 BATCH)
+    verdicts = cs.lane_verdicts(
+        err, first, cs.BAND, cs.stop_distances(runs[name]['branches'],
+                                               BATCH))
+    counts[name] = {v: verdicts.count(v) for v in ('held', 'excused',
+                                                   'failed')}
+    median[name] = err.median().item()
+    print(f'{what}, {BATCH} lanes, {name} vs the port\'s float64: '
+          f'{counts[name]}, median lane {median[name]:.2e}, max '
+          f'{err.max().item():.2e}')
+  for v in ('failed', 'excused'):
+    assert counts['float32'][v] <= 2 * counts['jax float32'][v] + 1, counts
+  assert median['float32'] <= 2 * median['jax float32'], median
+  first_sub = runs['float32']['branches'][0]
+  assert first_sub['contact'][0].any(dim=1).float().mean() >= 0.5
+  assert set(first_sub) >= {'contact', 'contact normal', 'selection',
+                            'limit', 'warmstart', 'row zone', 'solve stop'}
 
 
 def _records(contact_port, contact_ref, value_ref):

@@ -1,5 +1,9 @@
 """The port's sensors against the JAX package's, float64 on the CPU.
 
+The rangefinder: escape's 20 at states on the terrain (a field per lane
+in model_var), and `render.raycast` alone on rays that hit the terrain,
+the floor or a geom, pass a body they exclude, or hit nothing.
+
 The velocimeter, gyro, framexaxis and frameyaxis sensors:
 
 swimmer6 reads all four (the head's x and y axes of an xbody, and a
@@ -129,3 +133,126 @@ def test_acc_sensors_match_jax(domain, task_name):
   if touch:
     cols = [int(m.sensor_adr[s]) for s in touch]
     assert (outs[0][:, cols] > 0).any()
+
+
+def _escape(n, rng):
+  """escape's models and n lanes' states in numpy: a terrain per lane
+  (`test_torch_domains.escape_terrain`), the body upright at random
+  headings and a few degrees of tilt, at the bowl's middle or out on its
+  slope, 0.3-0.8 m over the terrain."""
+  from test_torch_domains import escape_terrain, terrain_height
+  jm = jsuite.build_task('quadruped', 'escape').model
+  m = suite.build_task('quadruped', 'escape', device='cpu').model
+  hdata = escape_terrain(jm, rng.uniform(0.15, 1.0, (n, 30, 30)))
+  qpos = np.tile(m.qpos0, (n, 1))
+  yaw = rng.uniform(-np.pi, np.pi, n)
+  tilt = rng.uniform(-0.1, 0.1, (n, 2))
+  quat = np.stack([np.cos(yaw / 2), tilt[:, 0], tilt[:, 1], np.sin(yaw / 2)],
+                  -1)
+  qpos[:, 3:7] = quat / np.linalg.norm(quat, axis=1, keepdims=True)
+  r = np.where(np.arange(n) % 2 == 0, rng.uniform(0, 1, n),
+               rng.uniform(3, 9, n))
+  ang = rng.uniform(-np.pi, np.pi, n)
+  qpos[:, :2] = r[:, None] * np.stack([np.cos(ang), np.sin(ang)], -1)
+  qpos[:, 2] = (np.maximum(terrain_height(jm, hdata, qpos[:, :2]), 0.0)
+                + rng.uniform(0.3, 0.8, n))
+  return jm, m, qpos, hdata
+
+
+@pytest.fixture(scope='module')
+def escape_rays():
+  """escape's 16 lanes (`_escape`) after kinematics in the port, and the
+  JAX package's `render.raycast` of each lane's 20 rangefinder rays (from
+  its site along the site's z axis, the torso unseen) and of six more
+  rays: straight down onto the terrain or the floor, straight up into
+  nothing, at the torso from 2 m out (a geom hit) and the same ray with
+  the torso unseen (it goes on to what lies behind), level over the bowl
+  towards its rim (the heightfield's march over a long way), and straight
+  down onto the floor past the terrain's edge (the plane alone).  Rays
+  that see every body go in one vmapped cast, rays that do not see the
+  torso in another."""
+  from dm_control_tpu._src import render as jrender
+  from dm_control_tpu._src import smooth as jsmooth
+  from dm_control_tpu_torch._src import smooth
+  jm, m, qpos, hdata = _escape(B, np.random.RandomState(30))
+  torso = m.name2id('body', 'torso')
+  rf = [s for s in range(m.nsensor)
+        if SensorType(int(m.sensor_type[s])) == SensorType.RANGEFINDER]
+  sites = np.asarray([int(m.sensor_objid[s]) for s in rf])
+  assert len(rf) == 20 and (m.site_bodyid[sites] == torso).all()
+  d = smooth.kinematics(m, forward.make_data(m, B, torch.float64, 'cpu')
+                        .replace(qpos=torch.tensor(qpos),
+                                 model_var={'hfield_data':
+                                            torch.tensor(hdata)}))
+  rng = np.random.RandomState(32)
+  ang = rng.uniform(-np.pi, np.pi, B)
+  flat = np.stack([np.cos(ang), np.sin(ang), np.zeros(B)], -1)
+  high = np.concatenate([rng.uniform(-12, 12, (B, 2)), np.full((B, 1), 8.0)],
+                        -1)
+  past = high + [50.0, 0.0, 0.0]
+  down, up = np.tile([0.0, 0, -1], (B, 1)), np.tile([0.0, 0, 1], (B, 1))
+  above = np.concatenate([qpos[:, :2], qpos[:, 2:3] + 0.3], -1)
+  at = qpos[:, :3] + 2.0 * flat
+  origins = np.stack([high, high, at, at, above, past], 1)
+  dirs = np.stack([down, up, -flat, -flat, flat, down], 1)
+  excl = np.array([-1, -1, -1, torso, -1, -1])
+  d0 = jforward.make_data(jm)
+
+  def jcast(q, hd, o, v, o_t, v_t):
+    jd = jsmooth.kinematics(jm, d0.replace(qpos=q,
+                                           model_var={'hfield_data': hd}))
+    cast = lambda body: jax.vmap(lambda a, b: jrender.raycast(
+        jm, jd, a, b, exclude_body=body))
+    sx, sm = jd.site_xpos[sites], jd.site_xmat[sites][:, :, 2]
+    return (cast(-1)(o, v), cast(torso)(o_t, v_t),
+            cast(torso)(jnp.concatenate([sx]), sm))
+
+  seen, unseen, sensed = jax.jit(jax.vmap(jcast))(*[jnp.asarray(a) for a in (
+      qpos, hdata, origins[:, excl < 0], dirs[:, excl < 0],
+      origins[:, excl >= 0], dirs[:, excl >= 0])])
+  ref = np.zeros((B, len(excl)))
+  ref[:, excl < 0], ref[:, excl >= 0] = np.asarray(seen), np.asarray(unseen)
+  return dict(m=m, d=d, rf=rf, sensed=np.asarray(sensed), origins=origins,
+              dirs=dirs, excl=excl, ref=ref)
+
+
+def test_rangefinder_matches_jax(escape_rays):
+  """escape's 20 rangefinders (all rays cast at once) through the port's
+  posvel sensors: each one's distance equals the JAX package's raycast of
+  its ray (its sensor's definition, `escape_rays`) to TOL, -1 where the
+  ray hits nothing; some rays hit the terrain."""
+  from dm_control_tpu_torch._src import sensor
+  m, d, rf = escape_rays['m'], escape_rays['d'], escape_rays['rf']
+  out = sensor.sensors(m, d, 'posvel').sensordata.numpy()
+  out = out[:, [int(m.sensor_adr[s]) for s in rf]]
+  ref = escape_rays['sensed']
+  err = float((np.abs(out - ref) / np.maximum(1.0, np.abs(ref))).max())
+  print(f'rangefinder: {int((ref > 0).sum())} of {ref.size} rays hit, '
+        f'max scaled err {err:.2e}')
+  assert err <= TOL
+  assert (ref > 0).any()
+
+
+def test_raycast_hit_miss_geom_and_hfield_match_jax(escape_rays):
+  """render.raycast against the JAX package's on escape's 16 lanes and
+  six rays each (`escape_rays`): every distance agrees to TOL; the rays
+  down hit, the rays up miss (-1), the ray at the torso hits it within
+  2 m (or a leg before it), the same ray with the torso unseen hits
+  something no nearer, or nothing, some level rays reach the bowl's rim,
+  and past the terrain the ray down meets the floor 8 m below."""
+  from dm_control_tpu_torch._src import render
+  r = escape_rays
+  out = render.raycast(r['m'], r['d'], torch.tensor(r['origins']),
+                       torch.tensor(r['dirs']),
+                       exclude_body=r['excl']).numpy()
+  ref = r['ref']
+  err = float((np.abs(out - ref) / np.maximum(1.0, np.abs(ref))).max())
+  print(f'raycast: hits per ray {(ref > 0).sum(0).tolist()} of {B}; max '
+        f'scaled err {err:.2e}')
+  assert err <= TOL
+  assert (ref[:, 0] > 0).all() and (ref[:, 1] == -1).all()
+  assert ((ref[:, 2] > 0) & (ref[:, 2] < 2.0)).all()
+  assert ((ref[:, 3] >= ref[:, 2]) | (ref[:, 3] == -1)).all()
+  assert (ref[:, 3] != ref[:, 2]).any()
+  assert (ref[:, 4] > 0).any()
+  np.testing.assert_allclose(ref[:, 5], 8.0, rtol=1e-12)

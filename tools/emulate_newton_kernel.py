@@ -1,6 +1,6 @@
 """Rehearse the Newton kernel's warp logic on the CPU, where there is no nvcc.
 
-    python3 tools/emulate_newton_kernel.py [--batch 64]
+    python3 tools/emulate_newton_kernel.py [--batch 64] [--wide-batch 8]
 
 Compiles the device code of `dm_control_tpu_torch/csrc/newton_kernel.cu`
 with g++ (C++20), the CUDA keywords defined away: each lane of a warp is a
@@ -21,6 +21,9 @@ iteration without a line search only: there, contacts far from touching
 have curvatures near 1e19, and the reference line search's strict
 bracket test decides by rounding on which side of the kink alpha ends
 (plain float32 and float64 disagree the same way).
+Last, the two-dofs-per-lane family (nv > 32, J read from device memory)
+on humanoid_CMU's layout (nv 62, nefc 880) at `chip_smoke.impact_states`
+(humanoids lying on or pressed into the floor), `--wide-batch` lanes.
 The CPU's float32 arithmetic (no FMA contraction) is not the card's: this
 checks the kernel's logic, not its rounding or its speed.
 """
@@ -44,6 +47,7 @@ from dm_control_tpu_torch.ops import newton_kernel as nk  # noqa: E402
 from dm_control_tpu_torch.parallel import BatchedEnv  # noqa: E402
 
 SHIM = r'''
+#include <algorithm>
 #include <barrier>
 #include <cmath>
 #include <cstdint>
@@ -54,6 +58,7 @@ SHIM = r'''
 #define __host__
 #define __forceinline__ inline
 #define __launch_bounds__(...)
+using std::min;
 struct alignas(16) float4 { float x, y, z, w; };
 struct Dim { unsigned x; };
 thread_local Dim threadIdx, blockIdx;
@@ -112,7 +117,8 @@ extern "C" int emu_newton(const float* J, const float* M, const float* aref,
       lanes.emplace_back([&, t] {
         threadIdx.x = t;
         blockIdx.x = blk;
-        newton_kernel(q, niter, ls_iter, tol, scale);
+        if (nv <= 32) newton_kernel<1>(q, niter, ls_iter, tol, scale);
+        else newton_kernel<2>(q, niter, ls_iter, tol, scale);
       });
     for (auto& t : lanes) t.join();
     for (auto& w : ws) delete w.bar;
@@ -160,7 +166,7 @@ def emulate(emu, args, lay, niter, ls_iter, tol, meaninertia):
   return x, f, iters
 
 
-def check(emu, name, args, lay, kw, converged=True):
+def check(emu, name, args, lay, kw, converged=True, one_gates=cs.ell_gates):
   plain = dict(types=lay.types, ell_groups=lay.ell_groups)
   tol64 = dict(tol=solver.effective_tol(1e-8, torch.float64))
   if not converged:
@@ -190,9 +196,9 @@ def check(emu, name, args, lay, kw, converged=True):
                nk.newton_solve_plain(*[a.double() for a in args], **plain,
                                      **dict(kw1, **tol64))[0])
   off = cs.lane_scaled_err(one[1][2], one[0][2]).amax(dim=1) > 1e-3
-  cs.ell_gates(f'{name} emulated, one iteration, no line search,', *one[0])
-  cs.ell_gates(f'{name} emulated, one iteration, one line-search step, '
-               'alpha off 1,', *(t[off] for t in one[1]))
+  one_gates(f'{name} emulated, one iteration, no line search,', *one[0])
+  one_gates(f'{name} emulated, one iteration, one line-search step, '
+            'alpha off 1,', *(t[off] for t in one[1]))
 
 
 def solver_kw(m):
@@ -204,7 +210,9 @@ def solver_kw(m):
 def main():
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   parser.add_argument('--batch', type=int, default=64)
-  B = parser.parse_args().batch
+  parser.add_argument('--wide-batch', type=int, default=8)
+  args = parser.parse_args()
+  B = args.batch
   with tempfile.TemporaryDirectory() as tmp:
     emu = compile_emulation(tmp)
     gen = torch.Generator()
@@ -229,6 +237,15 @@ def main():
     wargs[5] = torch.ones_like(wargs[5])
     check(emu, 'walker, every row active, one iteration, no line search,',
           wargs, lay, solver_kw(m), converged=False)
+    ct = suite.build_task('humanoid_CMU', 'run', device='cpu')
+    cm, clay = ct.model, efc.layout(ct.model)
+    d = cs.impact_states('humanoid_CMU-run', cm, args.wide_batch, gen, 'cpu')
+    d = forward.fwd_acceleration(cm, forward.actuation(
+        cm, forward.step1(cm, d, skipsensor=True)))
+    cargs = [d.efc_J, d.qM, d.efc_aref, d.efc_D, d.efc_frictionloss,
+             d.efc_active.to(torch.float32), d.qacc_smooth, d.qacc_warmstart]
+    check(emu, 'humanoid_CMU (two dofs per lane)', cargs, clay, solver_kw(cm),
+          one_gates=cs.float32_gates)
   print('emulation: every check passed (CPU; no device number)')
 
 

@@ -17,7 +17,8 @@ and those of the lanes past them from a generator of the task's own
 cheetah-run, hopper-hop, pendulum-swingup, reacher-easy,
 cartpole-swingup, acrobot-swingup, finger-turn_easy, point_mass-easy,
 ball_in_cup-catch, swimmer-swimmer6, fish-swim, humanoid-run,
-quadruped-walk, the four manipulator tasks, and
+quadruped-walk, the four manipulator tasks, humanoid_CMU-run,
+quadruped-escape and quadruped-fetch, and
 `chip_smoke.STACKER_TASKS`, which chip_smoke.py holds in its kernel
 phase only) start, as in
 chip_smoke.py's phase slice, from the final states of its last rollout
@@ -29,7 +30,9 @@ it runs one control step of each task's lanes on the card at float32
 and with K1's wrappers sent to their plain versions on the card (route
 `plain`); and once on the CPU at float64.  Each run records the discrete
 choices of every substep (`chip_smoke.branches`: the top-K selection,
-the box colliders' corner and axis choices, contact and limit activity, the solve's warmstart choice, the zones of
+the box colliders' corner and axis choices, contact and limit activity,
+the heightfield cells of the live heightfield contacts, the solve's
+warmstart choice, the zones of
 its rows and cones at the solution, and, at float32, where each Newton
 solve stopped: `solve stop`).
 

@@ -168,7 +168,9 @@ def replay(what, path):
            for dt in (torch.float32, torch.float64)}
   jq, jv, ja, (warm, after) = ref_step._jax_step(
       jm, n_sub, z['qpos'], z['qvel'], z['ctrl'], warm=z['qacc_warmstart'],
-      act=z['act'] if pm.na else None)
+      act=z['act'] if pm.na else None,
+      model_var={k.split('.', 1)[1]: z[k] for k in z.files
+                 if k.startswith('model_var.')})
   runs['jax float32'] = {
       'qpos': torch.tensor(np.asarray(jq, np.float64)),
       'qvel': torch.tensor(np.asarray(jv, np.float64)),

@@ -47,7 +47,8 @@ TASKS = {what: tuple(what.split('-')) for what in (
     'ball_in_cup-catch', 'swimmer-swimmer6', 'fish-swim', 'humanoid-run',
     'quadruped-walk', 'manipulator-bring_ball', 'manipulator-bring_peg',
     'manipulator-insert_ball', 'manipulator-insert_peg', 'stacker-stack_2',
-    'stacker-stack_4')}
+    'stacker-stack_4', 'humanoid_CMU-run', 'quadruped-escape',
+    'quadruped-fetch')}
 
 
 def main():
