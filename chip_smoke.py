@@ -62,16 +62,30 @@ any failure exits non-zero and no phase catches its own failure:
      quadruped's n = 22, manipulator's n = 11, stacker's 14 and 20,
      humanoid_CMU's 62 and fetch's 28 on their initial states (drawn
      collision-free, humanoid's and the quadrupeds' settled), with the
-     same bound and bit checks;
+     same bound and bit checks; the eleventh slice's: K2-ell's C = 6
+     instantiation (elliptic cones of condim 3, 4 and 6 in one layout) at
+     the cone model's layouts (`cones_xml`: one copy nv 18, nefc 48, two
+     nv 36, nefc 180) on `cone_states` where every condim's cones are
+     live, converged (`stop_gates`: the condim-6 ball's rolling rows leave
+     the cost flat to float32 along a direction on some lanes, where any
+     float32 solve may stop far from float64; a kernel lane over K2's
+     line must have stopped within BAND * EPS32 * scale of the optimum's
+     cost, and `ell_gates` holds the other lanes) and after one Newton
+     iteration (`float32_gates`), with the launch and bit checks; K2 at
+     jaco's (4096, 145, 13) with the target sphere on a link and the
+     fingers at their limits (`jaco_states`), the top-K checks included;
+     K1 at jaco's n = 13, lqr_6_2's 6 and the cone model's 18 and 36;
   3. reference: one control step of REF_LANES = 256 walker-walk lanes,
      and of 256 finger-spin lanes in contact, on the card at float32
-     against the port's float64 CPU path (plain versions) from the same
-     state, every run recording its discrete choices at every acc stage
+     against the port's float64 path from the same state, run on the
+     card through the plain versions of every kernel (`plain_kernels`),
+     every run recording its discrete choices at every acc stage
      (contact activity and normals, limit activity, the solve's warmstart
      choice and its rows' and cones' zones, and tendon limits where the
      model has them; the box colliders' corner and axis choices,
      `box_choices`; the heightfield cell under each heightfield contact,
-     `hfield_cells`): each lane within REF_TOL =
+     `hfield_cells`; the mesh colliders' switches, `mesh_choices`, from
+     what the colliders computed): each lane within REF_TOL =
      1e-2 (max scaled error of qpos and qvel) is held; one over it is
      excused where its first differing choice stood within BAND * EPS32 *
      scale of its threshold in the float64 run, or, with every choice
@@ -81,13 +95,16 @@ any failure exits non-zero and no phase catches its own failure:
      otherwise; the kernels' run may excuse at most twice the lanes that
      the same step with K1 as plain PyTorch excuses, plus one;
   4. rollout: BatchedEnv(walker-walk, batch_size=4096) on the card, three
-     runs of reset and 50 control steps (500 physics substeps) through
+     runs of reset and 20 control steps (200 physics substeps) through
      `rollout_fn`; then
-     BatchedEnv(finger-spin, 4096), three runs of reset and 50 control
-     steps (100 substeps): every state finite, rewards in [0, 1], each
+     BatchedEnv(finger-spin, 4096), three runs of reset and 20 control
+     steps (40 substeps): every state finite, rewards in [0, 1], each
      kernel's launch count exactly its expected count per control step;
      then finger-spin with an episode limit of 3 control steps, which
-     sends every lane through the reset pool;
+     sends every lane through the reset pool; then the cone model: 4096
+     lanes dropped from 2 to 20 cm, CONES_STEPS = 200 physics steps,
+     states finite, one K2-ell launch per physics step, live cones of
+     every condim at the end, and phase 3's gate on 256 of its lanes;
   5. timing (before phase 6): each kernel and its plain version with
      CUDA events at the main path's shapes, and, for K1, the one
      torch.linalg call that
@@ -116,17 +133,21 @@ any failure exits non-zero and no phase catches its own failure:
      cartpole-swingup, acrobot-swingup (both RK4), finger-turn_easy,
      point_mass-easy, ball_in_cup-catch, swimmer-swimmer6, fish-swim,
      humanoid-run, quadruped-walk, SLICE9_TASKS: manipulator
-     bring_ball, bring_peg, insert_ball and insert_peg, and SLICE10_TASKS:
-     humanoid_CMU-run, quadruped-escape and quadruped-fetch; stacker is
+     bring_ball, bring_peg, insert_ball and insert_peg, SLICE10_TASKS:
+     humanoid_CMU-run, quadruped-escape and quadruped-fetch, and
+     SLICE11_TASKS: lqr-lqr_6_2 and jaco-position_reacher_7DOF; stacker is
      held in phase 2 only, STACKER_TASKS), SLICE_RUNS runs of reset and
-     `slice_steps` control
-     steps: states (model_var and act included) finite, rewards
-     in [0, 1], every kernel's launch count exactly `expected_launches`
+     `slice_steps` control steps each: states (model_var and act
+     included) finite, rewards in each task's range (`REWARD_RANGE`:
+     jaco's fence and action penalties go below 0, lqr's reward has no
+     lower bound; [0, 1] for the others), every kernel's launch count
+     exactly `expected_launches`
      per control step; then phase 3's gate on 256 lanes of each task's
      final states (act compared too where the model has activations, and
      under the top-K broadphase, or for plane-box pairs, the contacts
      keyed by pair or box corner, with the selection and the box
-     colliders' choices recorded: `branches`), and escape's rangefinder
+     colliders' choices recorded: `branches`; jaco's controls its
+     actions made by `before_step`), and escape's rangefinder
      observation held per lane to the float64 CPU path's from the same
      state (`rangefinder_check`); then reacher-easy, finger-turn_easy,
      cheetah-run, ball_in_cup-catch, swimmer-swimmer6, fish-swim,
@@ -138,10 +159,12 @@ any failure exits non-zero and no phase catches its own failure:
      body_pos and body_quat, escape's hfield_data included).
 
 Output: the card's name and power limit (nvidia-smi), env-steps/s of
-walker-walk@4096, finger-spin@4096 and each slice task@4096 (each the
-median of three runs; the K2-ell row carries its time at each ninth-slice
-layout, the K1 rows at n = 11, 14, 20, 62 and 28, the K2 row at the tenth
-slice's three layouts, keyed by task), one
+walker-walk@4096 and finger-spin@4096 (each the median of three runs)
+and each slice task@4096 (the median of SLICE_RUNS runs; the K2-ell row
+carries its time at each ninth-slice layout and at the cone model's two
+('cones x1', 'cones x2'), the K1 rows at n = 11, 14, 20, 62, 28, 13, 6,
+18 and 36, the K2 row at the tenth slice's three layouts and jaco's,
+keyed by task), one
 `{"kernels": [...]}` JSON line, and last the
 `{"ok": true, "device": {...}}` line.  The nvcc/ptxas log of the build
 is in dm_control_tpu_torch/_build/build.log; its register and spill lines
@@ -157,7 +180,7 @@ import sys
 import time
 
 BATCH = 4096
-CONTROL_STEPS = 50
+CONTROL_STEPS = 20
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32 FLOP/s
 # outside the tensor cores
 PEAK_BYTES = 3.35e12
@@ -172,7 +195,7 @@ SLICE9_TASKS = ('manipulator-bring_ball', 'manipulator-bring_peg',
                 'manipulator-insert_ball', 'manipulator-insert_peg')
 SLICE9_SEED = 40
 SLICE9_K1 = ('manipulator-bring_ball', 'stacker-stack_2', 'stacker-stack_4')
-SLICE9_STEPS = 10
+SLICE9_STEPS = 6
 # stacker's tasks, held in phase kernels only (K2-ell at their layouts, K1
 # at n = 14 and 20): their float32 step misses the float64 path past the
 # reference gate's rule on some lanes, as the JAX package's float32 step
@@ -186,6 +209,39 @@ SLICE10_TASKS = ('humanoid_CMU-run', 'quadruped-escape', 'quadruped-fetch')
 SLICE10_SEED = 50
 SLICE10_K1 = ('humanoid_CMU-run', 'quadruped-fetch')
 SLICE10_STEPS = 10
+# the eleventh slice's cone model: free bodies under cone="elliptic" with
+# the soccer pitch's and ball's condims and frictions
+# (dm_control_tpu/locomotion/soccer.py:75,113): a condim-6 ball, a condim-4
+# box and a condim-3 capsule on a condim-3 floor, which give K2-ell's
+# condim-6, -4 and -3 cones in one layout (`cones_xml`); its generator's
+# seed, and the physics steps of its 4096-lane run
+CONES_XML = """<mujoco model="cones">
+  <option cone="elliptic" timestep="0.002"/>
+  <worldbody>
+    <geom name="floor" type="plane" size="2 2 .1" condim="3" friction=".5 .02 .02"/>
+    <body name="ball" pos="0 0 .11"><freejoint/>
+      <geom name="ball" type="sphere" size=".117" mass=".45" condim="6" friction=".7 .005 .0001"/></body>
+    <body name="box" pos=".3 0 .05"><freejoint/>
+      <geom name="box" type="box" size=".05 .05 .05" condim="4" friction=".5 .02 .02"/></body>
+    <body name="rod" pos="-.3 0 .03"><freejoint/>
+      <geom name="rod" type="capsule" size=".03 .1" euler="0 90 0" condim="3"/></body>
+  </worldbody>
+</mujoco>"""
+SLICE11_SEED = 60
+CONES_STEPS = 200
+# the eleventh slice's tasks through BatchedEnv (jaco's other two tasks
+# differ from position_reacher_7DOF only in before_step, held on the CPU),
+# the control steps of each run (jaco: 100 RK4 physics steps per control
+# step), and each task's reward range
+SLICE11_TASKS = ('lqr-lqr_6_2', 'jaco-position_reacher_7DOF')
+SLICE11_STEPS = {'lqr-lqr_6_2': 25, 'jaco-position_reacher_7DOF': 1}
+# the tasks whose initial states give K1's n = 13 (jaco) and 6 (lqr_6_2)
+SLICE11_K1 = ('jaco-position_reacher_7DOF', 'lqr-lqr_6_2')
+# jaco: the fence subtracts 1 per extreme joint outside it (3 of them) and
+# the action penalty at most 7 x 0.1^2; lqr's reward 1 - cost is unbounded
+# below
+REWARD_RANGE = {'jaco-position_reacher_7DOF': (-3.07, 1.0),
+                'lqr-lqr_6_2': (-math.inf, 1.0)}
 # the tasks of the sixth to ninth slices, each driven through one
 # BatchedEnv of BATCH lanes (phase slice) and gated against the float64 CPU
 # path (phase reference, on the rollout's final states); a task's seeds
@@ -194,11 +250,19 @@ SLICE_TASKS = ('cheetah-run', 'hopper-hop', 'pendulum-swingup',
                'reacher-easy', 'cartpole-swingup', 'acrobot-swingup',
                'finger-turn_easy', 'point_mass-easy', 'ball_in_cup-catch',
                'swimmer-swimmer6', 'fish-swim', 'humanoid-run',
-               'quadruped-walk') + SLICE9_TASKS + SLICE10_TASKS
+               'quadruped-walk') + SLICE9_TASKS + SLICE10_TASKS + SLICE11_TASKS
+# the runs of each slice task (a run's seeds, and so its final states,
+# follow from its index; the reference gate reads the last run's)
 SLICE_RUNS = 3
 # the control steps of each run of the sixth to eighth slices' tasks (50
-# until the ninth slice cut them, to keep the script within its time)
-SLICE_STEPS = 25
+# until the ninth slice cut them, 25 until the eleventh, to keep the
+# script within its time; the eleventh slice also cut walker's and
+# finger's rollouts to 20 and the ninth slice's runs to 6).  A task's
+# reference gate runs on its last run's final states, so a depth is also
+# a choice of the gate's states: at 10 control steps (tried), humanoid-
+# run's 256-lane gate fails one lane on each K1 route, matched, on float32
+# (ROADMAP queue 3, item 1 records them)
+SLICE_STEPS = 15
 # seeds of the slice's own generators (kernel draws, K2 inputs, the
 # reference controls of each task), so that every earlier phase keeps its
 # draws
@@ -212,6 +276,76 @@ SLICE8_SEED = 30
 # the eighth slice's tasks, whose initial states also give K1's n = 27
 # and 22 and whose first impacts give K2's largest layouts
 SLICE8_TASKS = ('humanoid-run', 'quadruped-walk')
+def cones_xml(copies=1):
+  """The cone model with its three bodies repeated `copies` times, copy i
+  moved i m along x (names suffixed _i past the first): copies=1 is
+  CONES_XML (nv 18), copies=2 nv 36, the Newton kernel's two-dofs-per-lane
+  family."""
+  import xml.etree.ElementTree as ET
+  if copies == 1:
+    return CONES_XML
+  root = ET.fromstring(CONES_XML)
+  world = root.find('worldbody')
+  bodies = world.findall('body')
+  for i in range(1, copies):
+    for body in bodies:
+      twin = ET.fromstring(ET.tostring(body))
+      x, y, z = (float(v) for v in twin.get('pos').split())
+      twin.set('pos', f'{x + i} {y} {z}')
+      for el in [twin] + list(twin.iter('geom')):
+        el.set('name', f'{el.get("name")}_{i}')
+      world.append(twin)
+  return ET.tostring(root, encoding='unicode')
+
+
+def cone_states(m, B, rng):
+  """qpos (B, nq) and qvel (B, nv), numpy float64, of the cone model (any
+  `cones_xml` copies), drawn from the numpy RandomState `rng`, each copy
+  alike at its own x: by turns every body on the floor, apart, at a random
+  yaw (the floor's condim-6, -4 and -3 cones); the box on the floor with
+  the ball on top of it and the rod on the floor, across, an end against
+  its side (ball-box condim 6, box-rod condim 4); the rod on the floor
+  with the ball on it (ball-rod condim 6); each contact 0 to 1 mm deep,
+  velocities N(0, 0.3^2) so that contacts slide.  chip_smoke.py's kernel
+  phase and the CPU tests draw the same."""
+  import numpy as np
+  copies = m.nq // 21
+  qpos = np.tile(np.asarray(m.qpos0, np.float64), (B, 1))
+  kind = np.arange(B) % 3
+  u = lambda lo, hi: rng.uniform(lo, hi, B)
+
+  def yaw_quat(a):
+    return np.stack([np.cos(a / 2), 0 * a, 0 * a, np.sin(a / 2)], -1)
+
+  for i in range(copies):
+    ball, box, rod = (21 * i + 7 * j for j in range(3))
+    sink = [u(0.0, 1e-3) for _ in range(4)]
+    x_box, x_rod = i + 0.3 + u(-0.02, 0.02), i - 0.3 + u(-0.02, 0.02)
+    yaw = np.where(kind == 0, 1.0, 0.0)
+    qpos[:, box:box + 3] = np.stack([x_box, u(-0.02, 0.02),
+                                     0.05 - sink[0]], -1)
+    qpos[:, box + 3:box + 7] = yaw_quat(yaw * u(-np.pi, np.pi))
+    # kind 1: the rod along y, one end against the box's +y face
+    y_rod = np.where(kind == 1, qpos[:, box + 1] + 0.18 - sink[1],
+                     u(-0.02, 0.02))
+    x_rod = np.where(kind == 1, x_box + u(-0.03, 0.03), x_rod)
+    qpos[:, rod:rod + 3] = np.stack([x_rod, y_rod, 0.03 - sink[2]], -1)
+    qpos[:, rod + 3:rod + 7] = yaw_quat(np.where(
+        kind == 1, np.pi / 2, yaw * u(-np.pi, np.pi)))
+    ball_xyz = np.stack([
+        np.where(kind == 1, x_box, np.where(kind == 2, x_rod, i))
+        + u(-0.03, 0.03),
+        np.where(kind == 1, qpos[:, box + 1],
+                 np.where(kind == 2, y_rod, u(-0.02, 0.02))),
+        np.where(kind == 1, 0.217, np.where(kind == 2, 0.177, 0.117))
+        - sink[3]], -1)
+    qpos[:, ball:ball + 3] = ball_xyz
+    quat = rng.randn(B, 4)
+    qpos[:, ball + 3:ball + 7] = quat / np.linalg.norm(quat, axis=1,
+                                                       keepdims=True)
+  return qpos, 0.3 * rng.randn(B, m.nv)
+
+
 REPLACES = {
     'cholesky_batched': 'dm_control_tpu/ops/linalg_kernel.py:118',
     'chol_solve_batched': 'dm_control_tpu/ops/linalg_kernel.py:142',
@@ -347,23 +481,45 @@ def newton_flops(nefc, nv, ls_iter, iters, cones=None):
   per iteration the H = M + J'WJ build, the Cholesky and substitutions,
   J delta, the line search sweeps, the new cost and the gradient.
 
-  `cones` (B,), each lane's active elliptic contacts, adds K2-ell's work
-  on them: ~60 FLOPs to evaluate one contact's zone, force, cost and 3x3
-  block, done 3x at the start and end and (ls_iter + 3)x per iteration
-  (gradient, Hessian, line search, new cost); per iteration also its
-  J_c' W_c J_c (9 nv + 3 nv (nv + 1) multiply-adds), its J' f (6 nv) and
-  its line-search phi'/phi'' terms (24 per step)."""
+  `cones` {k: (B,)}, each lane's active elliptic contacts of k rows
+  (`cone_counts`), adds K2-ell's work on them, term by term: ~20 k FLOPs
+  to evaluate one cone's residuals, zone, force and cost, done 3x at the
+  start and end and (ls_iter + 3)x per iteration (gradient, Hessian, line
+  search, new cost); per iteration also its k x k block (3 k^2, the only
+  term that grows as k^2), W_c J_c through the block's rank structure
+  (6 k nv), the J_c' sweep into H (2 k nv (nv + 1)), its J' f (2 k nv) and
+  its line-search phi'/phi'' terms (8 k per step, phi'' from the rank
+  structure).  At k = 3 this is the condim-3 count of the earlier slices
+  plus the block's 27."""
   start = 3 * 2 * nefc * nv + 2 * nv * nv + 2 * 8 * nefc
   per_iter = (nefc * nv * (nv + 1) + nv ** 3 / 3 + 2 * nv * nv
               + 2 * nefc * nv + 2 * nv * nv + ls_iter * 10 * nefc
               + 2 * nv * nv + 8 * nefc + 2 * nv * nv + 2 * nefc * nv)
   total = len(iters) * start + iters.double().sum().item() * per_iter
-  if cones is not None:
-    cone_iter = (60 * (ls_iter + 3) + 18 * nv + 6 * nv * (nv + 1)
-                 + 6 * nv + 24 * ls_iter)
-    total += (cones.double() * (3 * 60 + iters.double() * cone_iter)
+  for k, count in (cones or {}).items():
+    cone_iter = (20 * k * (ls_iter + 3) + 3 * k * k + 6 * k * nv
+                 + 2 * k * nv * (nv + 1) + 2 * k * nv + 8 * k * ls_iter)
+    total += (count.double() * (3 * 20 * k + iters.double() * cone_iter)
               ).sum().item()
   return float(total)
+
+
+def cone_counts(lay, on):
+  """{k: (B,)} each lane's active elliptic contacts of k rows, from `on`
+  (B, ncg), the cones in condim order as `cone_zones` gives them."""
+  out, lo = {}, 0
+  for k, (rows, _, _) in sorted(lay.ell_groups.items()):
+    out[k] = on[:, lo:lo + len(rows)].sum(dim=1)
+    lo += len(rows)
+  return out
+
+
+def ell_bytes(lay, B, nv):
+  """Bytes K2-ell must move: K2's (`k2_bytes`) and, once per call, the
+  layout's tables: each cone's row scales (k per cone of k rows), its mu,
+  and a word per row."""
+  n_scales = sum(k * len(rows) for k, (rows, _, _) in lay.ell_groups.items())
+  return k2_bytes(B, lay.nefc, nv) + 4 * (n_scales + n_cones(lay) + lay.nefc)
 
 
 def k2_check(what, x, ref, gate, bounds=None):
@@ -431,13 +587,64 @@ def float32_gates(what, x_k, x_p, x_64):
            gate=True, bounds=bounds)
 
 
+def stop_gates(what, x_k, x_p, x_64, lay, args):
+  """K2's bounds lane by lane, for converged solves of which float32
+  stops far from the float64 optimum x_64 on some lanes, whichever
+  float32 solver it is: there the cost is flat along a direction to
+  within float32's resolution (the cone model's condim-6 ball's rolling
+  rows, row scale 0.0001 / 0.7), so two float32 solves leave K2's line
+  (a lane's lane-scaled error over 1e-3) on lanes that differ.  A float32
+  solve's lane over that line is float32-limited where the solve's cost
+  (`solve_cost`, at float64 on the solver inputs `args`) stands within
+  BAND * EPS32 * scale of the optimum's: no float32 step could find a
+  lower one.  The kernel x_k must be within K2's line or float32-limited
+  on every lane, with no more such lanes than twice plain float32's x_p,
+  plus one; every lane on which neither solve is float32-limited is held
+  by `ell_gates`.  The overlap of the two solves' limited lanes and
+  their stop distances are printed."""
+  import torch
+  a64 = [t.double() for t in args[:7]]
+  c_64, s_64 = solve_cost(lay, *a64, x_64)
+  limited, err = {}, {}
+  for name, x in (('kernel', x_k), ('plain float32', x_p)):
+    c, s = solve_cost(lay, *a64, x.double())
+    bands = (c - c_64) / (EPS32 * (s + s_64))
+    err[name] = lane_scaled_err(x.double(), x_64).amax(dim=1)
+    over = err[name] > 1e-3
+    limited[name] = over & (bands <= BAND)
+    log(f'#   {what} {name} vs plain float64: {int(over.sum())} lanes over '
+        f'1e-3 (largest {err[name].max().item():.2e}), their stop '
+        f'distances from the optimum\'s cost at most '
+        f'{bands[over].max().item() if over.any() else 0:.3g} bands; '
+        f'float32-limited {int(limited[name].sum())}')
+    if name == 'kernel':
+      assert bool((~over | limited[name]).all()), (
+          f'{what}: a kernel lane over 1e-3 whose cost is more than {BAND} '
+          f'bands above the optimum\'s')
+  k_lim, p_lim = limited['kernel'], limited['plain float32']
+  log(f'#   {what}: float32-limited lanes: kernel {int(k_lim.sum())}, plain '
+      f'float32 {int(p_lim.sum())}, both {int((k_lim & p_lim).sum())}')
+  assert int(k_lim.sum()) <= 2 * int(p_lim.sum()) + 1, (
+      f'{what}: the kernel is float32-limited on more than twice plain '
+      f'float32\'s lanes, plus one')
+  held = ~(k_lim | p_lim)
+  ell_gates(f'{what} on the {int(held.sum())} lanes neither float32 solve '
+            f'is limited on', x_k[held], x_p[held], x_64[held])
+
+
+def n_cones(lay):
+  """The layout's elliptic contacts, every condim."""
+  return sum(len(rows) for rows, _, _ in lay.ell_groups.values())
+
+
 def newton_launch(nk, what, lay, nv, B):
   """Print the Newton kernel's launch configuration for a layout."""
-  ncg = len(lay.ell_groups[3][0]) if lay.ell_groups else 0
-  warps, smem = nk.launch_config(lay.nefc, nv, ncg)
-  log(f'# phase kernels: {what} launch: {warps} warps (one environment '
-      f'each) per block, {smem} bytes of dynamic shared memory, '
-      f'{-(-B // warps)} blocks of {32 * warps} threads')
+  cmax = nk.cone_width(lay)
+  warps, smem = nk.launch_config(lay.nefc, nv, n_cones(lay), cmax)
+  log(f'# phase kernels: {what} launch: newton_kernel<{1 if nv <= 32 else 2}'
+      f', {cmax}>, {warps} warps (one environment each) per block, {smem} '
+      f'bytes of dynamic shared memory, {-(-B // warps)} blocks of '
+      f'{32 * warps} threads')
 
 
 def newton_bits(nk, what, args, lay, kw, full):
@@ -496,24 +703,53 @@ def k1_bits(lk, A, b, L, x, xc):
       f'read')
 
 
+# the mesh colliders' functions whose results `recording` keeps for
+# `mesh_choices` (each called once per pair batch of a mesh group, in group
+# order, inside `colliders.collide_all`)
+MESH_PROBES = ('mesh_witnesses', 'sphere_mesh_closest', 'plane_mesh_heights')
+
+
 @contextlib.contextmanager
 def recording(record):
   """Inside, every physics step's acc stage of the port (its contacts,
-  constraint rows, warmstart and solve) calls record(before, after) with
-  the Data going into and out of it; the step itself is unchanged."""
+  constraint rows, warmstart and solve) calls record(before, after, seen)
+  with the Data going into and out of it and `seen`, what the mesh
+  colliders computed for its contacts (each MESH_PROBES function's
+  results in call order, from the narrowphase that made them), which
+  `mesh_choices` reads instead of running Frank-Wolfe again.  The step
+  itself is unchanged."""
+  from dm_control_tpu_torch._src import colliders
   from dm_control_tpu_torch._src import forward
-  acc = forward._acc_stage
+  acc, narrow = forward._acc_stage, colliders.collide_all
+  saved = {f: getattr(colliders, f) for f in MESH_PROBES}
+  seen = {f: [] for f in MESH_PROBES}
+
+  def probe(f):
+    def run(*args):
+      out = saved[f](*args)
+      seen[f].append(out)
+      return out
+    return run
+
+  def collide_all(m, d):
+    for v in seen.values():
+      v.clear()
+    return narrow(m, d)
 
   def probed(m, d, skipsensor=False):
     out = acc(m, d, skipsensor=skipsensor)
-    record(d, out)
+    record(d, out, {f: list(v) for f, v in seen.items()})
     return out
 
-  forward._acc_stage = probed
+  forward._acc_stage, colliders.collide_all = probed, collide_all
+  for f in MESH_PROBES:
+    setattr(colliders, f, probe(f))
   try:
     yield
   finally:
-    forward._acc_stage = acc
+    forward._acc_stage, colliders.collide_all = acc, narrow
+    for f, fn in saved.items():
+      setattr(colliders, f, fn)
 
 
 def one_step(m, data, lanes, ctrl, n_sub, dtype, dev, record=False):
@@ -527,16 +763,16 @@ def one_step(m, data, lanes, ctrl, n_sub, dtype, dev, record=False):
       lambda x: x[lanes].to(dev, dtype) if x.is_floating_point()
       else x[lanes].to(dev), forward.state_of(data))
   d = forward.make_data(m, ctrl.shape[0], dtype, dev).replace(**small)
-  seen = []
+  kept = []
   lay = efc.layout(m)
-  keep = lambda before, after: seen.append(
+  keep = lambda before, after, seen: kept.append(
       {q: tuple(None if t is None else t.cpu() for t in v)
-       for q, v in branches(m, lay, before, after).items()})
+       for q, v in branches(m, lay, before, after, seen).items()})
   with recording(keep) if record else contextlib.nullcontext():
     d = forward.substeps(m, d.replace(ctrl=ctrl.to(dev, dtype)), n_sub)
   out = {f: getattr(d, f) for f in state_fields(m)}
   if record:
-    out['branches'] = seen
+    out['branches'] = kept
   return out
 
 
@@ -569,7 +805,8 @@ REF_SEED = 2                # the reference generator's seed
 # collision (and the heightfield cell of each active contact), limits,
 # then the solve's warmstart choice and the zones of its rows and cones at
 # the solution
-QUANTITIES = ('selection', 'box corners', 'box axis', 'contact',
+QUANTITIES = ('selection', 'box corners', 'box axis', 'mesh sep',
+              'mesh inside', 'mesh corners', 'contact',
               'hfield cell', 'contact core', 'contact normal', 'limit',
               'tendon limit', 'warmstart', 'row zone', 'cone top',
               'cone bottom')
@@ -611,18 +848,19 @@ def solve_cost(lay, J, M, aref, D, fl, act, a, x):
 
 def solve_stop(m, lay, d):
   """Where one acc stage's float32 Newton solve stopped: cost(x32) -
-  cost(x*), on the CPU at float64, x32 being the stage's solution d.qacc
-  and x* the plain float64 solve of the stage's own inputs (J, D, aref,
-  friction loss, active rows and cones, M, qacc_smooth) from x32, to
-  STOP_TOL64; its scale the sum of the two costs' `solve_cost` scales, as
-  the warmstart choice's.  Returns (None, value (B, 1), scale (B, 1))."""
+  cost(x*), at float64 on the run's device, x32 being the stage's
+  solution d.qacc and x* the plain float64 solve of the stage's own
+  inputs (J, D, aref, friction loss, active rows and cones, M,
+  qacc_smooth) from x32, to STOP_TOL64; its scale the sum of the two
+  costs' `solve_cost` scales, as the warmstart choice's.  Returns (None,
+  value (B, 1), scale (B, 1))."""
   import torch
   from dm_control_tpu_torch._src import solver
   from dm_control_tpu_torch.ops import newton_kernel as nk
-  cpu = lambda t: t.detach().to('cpu', torch.float64)
-  args = [cpu(t) for t in (d.efc_J, d.qM, d.efc_aref, d.efc_D,
+  f64 = lambda t: t.detach().to(torch.float64)
+  args = [f64(t) for t in (d.efc_J, d.qM, d.efc_aref, d.efc_D,
                            d.efc_frictionloss, d.efc_active, d.qacc_smooth)]
-  x32 = cpu(d.qacc)
+  x32 = f64(d.qacc)
   x64, _ = nk.newton_solve_plain(
       *args, x32, types=lay.types, ell_groups=lay.ell_groups,
       niter=STOP_ITERATIONS, ls_iter=solver.LS_ITERATIONS, tol=STOP_TOL64,
@@ -828,6 +1066,105 @@ def box_choices(m, d):
   return out
 
 
+def mesh_choices(m, d, seen=None):
+  """The mesh colliders' discrete choices (quantities of `branches`), per
+  candidate pair of each mesh group (a top-K group's where the lane
+  selected the pair: else no choice, its state False and its value inf),
+  from what the colliders computed for d's contacts where `seen` holds it
+  (`recording`: each MESH_PROBES function's results in call order, all
+  read here), else recomputed from d's geom poses at d's dtype (the same
+  arithmetic on the same inputs):
+    mesh sep     per mesh-mesh or box-mesh pair, whether its Frank-Wolfe
+                 witnesses are more than 1e-7 apart (`_mesh_mesh` then
+                 takes their distance, else minus the support overlap with
+                 the normal between the hulls' vertex means): value the
+                 separation less 1e-7
+    mesh inside  per sphere-mesh pair (a capsule-mesh pair's two ends),
+                 whether the center is within 1e-9 of the hull (its normal
+                 then from the hull's vertex mean): value the distance
+                 less 1e-9
+    mesh corners per plane-mesh pair and hull vertex, whether the pair's 3
+                 contacts hold it (the stable sort's three deepest): value
+                 the gap between the 3rd and 4th deepest heights, the
+                 padding's repeats of a hull's first vertex not counted
+  scale max(1, |the geoms' positions|).  {} where the model has no mesh
+  group."""
+  import numpy as np
+  import torch
+  from dm_control_tpu_torch._src import colliders
+  from dm_control_tpu_torch._src import collision
+  from dm_control_tpu_torch._src import math as pmath
+  from dm_control_tpu_torch._src.types import GeomType, mirror
+  con, ref = d.contact, d.qpos
+  B = ref.shape[0]
+  out, slot = {}, 0
+  for g in collision.groups(m):
+    if g.t2 != GeomType.MESH:
+      slot += g.ncon
+      continue
+    if g.dynamic:
+      pair = selected_pairs(m, con, g, slot)                   # (B, K)
+    else:
+      pair = torch.arange(g.npairs, device=ref.device).expand(B, -1)
+    g1 = mirror(m, ref, g.g1)[pair]
+    g2 = mirror(m, ref, g.g2)[pair]
+    take = lambda x, gi: torch.take_along_dim(
+        x, gi.reshape(gi.shape + (1,) * (x.dim() - 2)), dim=1)
+    pos1, mat1 = take(d.geom_xpos, g1), take(d.geom_xmat, g1)
+    pos2, mat2 = take(d.geom_xpos, g2), take(d.geom_xmat, g2)
+    size1 = mirror(m, ref, m.geom_size)[g1]
+    hulls2 = colliders._hulls(m, ref, g2)
+    scale = torch.maximum(pos1.abs().amax(-1), pos2.abs().amax(-1)).clamp(
+        min=1.0)
+    if g.t1 in (GeomType.MESH, GeomType.BOX):
+      hulls1 = (colliders._hulls(m, ref, g1) if g.t1 == GeomType.MESH
+                else size1[..., None, :] * torch.as_tensor(
+                    colliders._BOX_SIGNS, dtype=ref.dtype,
+                    device=ref.device))
+      _, _, c1, c2 = (seen['mesh_witnesses'].pop(0) if seen else
+                      colliders.mesh_witnesses(pos1, mat1, pos2, mat2,
+                                               hulls1, hulls2))
+      value = pmath.norm_safe(c2 - c1) - 1e-7
+      q, state, per = 'mesh sep', value > 0, 1
+    elif g.t1 in (GeomType.SPHERE, GeomType.CAPSULE):
+      ends = [pos1]
+      if g.t1 == GeomType.CAPSULE:
+        axis, hl = mat1[..., :, 2], size1[..., 1:2]
+        ends = [pos1 + hl * axis, pos1 - hl * axis]
+      value = torch.stack([pmath.norm_safe(
+          (seen['sphere_mesh_closest'].pop(0) if seen else
+           colliders.sphere_mesh_closest(e, pos2, mat2, hulls2))[1] - e)
+                           for e in ends], -1) - 1e-9
+      q, state, per = 'mesh inside', value < 0, len(ends)
+      scale = scale[..., None].expand(value.shape)
+    else:                                   # plane
+      _, h = (seen['plane_mesh_heights'].pop(0) if seen else
+              colliders.plane_mesh_heights(pos1, mat1, pos2, mat2, hulls2))
+      n_hull = np.array([len(v) for v in m.mesh_hull])
+      real = torch.as_tensor(
+          np.arange(colliders._HULL_PAD)[None, :] < n_hull[:, None],
+          device=ref.device)[mirror(m, ref, m.geom_dataid)[g2]]
+      held = torch.zeros_like(h, dtype=torch.bool).scatter_(
+          -1, torch.argsort(h, dim=-1, stable=True)[..., :3], True)
+      ranked = torch.sort(torch.where(real, h, float('inf')), dim=-1).values
+      value = (ranked[..., 3] - ranked[..., 2])[..., None].expand(h.shape)
+      q, state, per = 'mesh corners', held, colliders._HULL_PAD
+      scale = scale[..., None].expand(h.shape)
+    state, value, scale = (x.reshape(B, -1) for x in (state, value, scale))
+    if g.dynamic:                  # keyed by pair: unselected pairs hold none
+      keys = (pair[..., None] * per + torch.arange(per, device=ref.device)
+              ).reshape(B, -1)
+      n = g.npairs * per
+      state, value, scale = (by_key(x, keys, n, fill) for x, fill in (
+          (state, False), (value, float('inf')), (scale, 1.0)))
+    x = (state, value, scale)
+    out[q] = (tuple(torch.cat([a, b], dim=1) for a, b in zip(out[q], x))
+              if q in out else x)
+    slot += g.ncon
+  assert not seen or not any(seen.values()), 'a mesh collider call unread'
+  return out
+
+
 def hfield_cells(m, d):
   """The 'hfield cell' quantity of `branches`, per contact of the static
   heightfield groups: the grid cell (y0 * ncol + x0) under its point where
@@ -883,11 +1220,13 @@ def cone_keys(lay, ckeys, rows):
   return ckeys[:, torch.as_tensor(con, device=ckeys.device)]
 
 
-def branches(m, lay, before, after):
+def branches(m, lay, before, after, seen=None):
   """The discrete choices one physics step's acc stage made, lane by lane.
 
-  `before` / `after`: the Data going into / out of the acc stage.  For each
-  quantity of QUANTITIES the model has: (state (B, k), value (B, k),
+  `before` / `after`: the Data going into / out of the acc stage;
+  `seen`, what its mesh colliders computed (`recording`, read by
+  `mesh_choices`).  For each quantity of QUANTITIES the model has:
+  (state (B, k), value (B, k),
   scale (B, k)), state being the predicate the pipeline applies to value
   (< 0 or <= 0; for normals the direction itself), computed at the run's
   dtype, and scale the size of the terms value is computed from, so that
@@ -899,6 +1238,10 @@ def branches(m, lay, before, after):
     box corners, box axis  which corners a plane-box pair's contacts
                hold, and the axis a box-box pair's manifold is built on
                (`box_choices`)
+    mesh sep, mesh inside, mesh corners  the mesh colliders' switches:
+               witnesses 1e-7 apart, a sphere's center within 1e-9 of a
+               hull, a plane-mesh pair's three deepest vertices
+               (`mesh_choices`)
     contact    dist - margin < 0 per candidate contact (constraint.py);
                scale max(1, |contact position|)
     hfield cell  the heightfield cell under each active heightfield
@@ -921,9 +1264,11 @@ def branches(m, lay, before, after):
                loss rows D |jar| - fl <= 0 (newton_kernel._diag_terms); jar
                = J x - aref, scale sum |J| |x| + |aref| plus |J| times x's
                own rounding scale through the solve (times D, plus fl)
-    cone top / cone bottom: active elliptic contacts, mu t - n <= 0 and
+    cone top / cone bottom: active elliptic contacts of every condim
+               (3, 4 and 6, in condim order), mu t - n <= 0 and
                mu n + t <= 0 (newton_kernel._ell_terms), on the scaled
-               residuals; scale the same sums for n and t
+               residuals, t over all of a cone's friction rows; scale the
+               same sums for n and t
   and, for a float32 run with constraint rows, 'solve stop' (`solve_stop`:
   no choice, so no state; `first_differences` does not read it,
   `stop_distances` does).  Where the model has dynamic groups, the
@@ -954,15 +1299,17 @@ def branches(m, lay, before, after):
         out['selection'] = selection(m, d)
       rkeys, n_rows = row_keys(m, lay, ckeys)
     out.update(box_choices(m, d))
+    out.update(mesh_choices(m, d, seen))
     out['contact'] = (key(v < 0, False), key(v, float('inf')), scale)
     out.update(hfield_cells(m, d))
     radius = torch.as_tensor(m.geom_size[:, 0], dtype=v.dtype,
                              device=v.device)
-    # planes and boxes have no core radius: a sphere's core is then its
-    # center, which crossing a box's surface flips sphere-box's normal
+    # planes, boxes and meshes have no core radius: a sphere's core is
+    # then its center, which crossing a box's surface flips sphere-box's
+    # normal
     radius = torch.where(torch.as_tensor(
-        (m.geom_type == GeomType.PLANE) | (m.geom_type == GeomType.BOX),
-        device=v.device), 0.0, radius)
+        (m.geom_type == GeomType.PLANE) | (m.geom_type == GeomType.BOX)
+        | (m.geom_type == GeomType.MESH), device=v.device), 0.0, radius)
     sep = con.dist + radius[con.geom1.long()] + radius[con.geom2.long()]
     out['contact core'] = (key(sep < CORE_EPS, False),
                            key(sep - CORE_EPS, float('inf')), scale)
@@ -1188,18 +1535,42 @@ def plain_k1(lk):
       setattr(lk, k, fn)
 
 
-def reference_gate(what, m, m_cpu, data, ctrl, n_sub, lk):
+@contextlib.contextmanager
+def plain_kernels(lk, nk):
+  """Inside, K1's and the Newton solve's wrappers (modules `lk`, `nk`) run
+  their plain versions on any device (`plain_k1`; the Newton solve's with
+  the layout's row types and cones)."""
+  solve = nk.newton_solve_batched
+
+  def plain(*args, lay, **kw):
+    return nk.newton_solve_plain(*args, types=lay.types,
+                                 ell_groups=lay.ell_groups, **kw)
+
+  nk.newton_solve_batched = plain
+  try:
+    with plain_k1(lk):
+      yield
+  finally:
+    nk.newton_solve_batched = solve
+
+
+def reference_gate(what, m, data, ctrl, n_sub, lk):
   """Phase reference for one task: one control step of the first
   ctrl.shape[0] lanes of `data` on the card at float32 (model m), through
-  the K1 kernels and with K1 plain (`plain_k1`), each against the float64
-  CPU path (m_cpu), every run recording its discrete choices (`branches`);
-  each lane's verdict (`lane_verdicts`), and the kernels' run held to the
-  plain run's (`gate_failures`).  Returns the kernels' run's largest
-  errors {qpos, qvel[, act]}."""
+  the K1 kernels and with K1 plain (`plain_k1`), each against the port's
+  float64 path, run on the card through the plain versions of every
+  kernel (`plain_kernels`: the CPU path's arithmetic), every run
+  recording its discrete choices (`branches`); each lane's verdict
+  (`lane_verdicts`), and the kernels' run held to the plain run's
+  (`gate_failures`).  Returns the kernels' run's largest errors {qpos,
+  qvel[, act]}."""
   import torch
+  from dm_control_tpu_torch.ops import newton_kernel as nk
   lanes = slice(0, ctrl.shape[0])
-  ref = one_step(m_cpu, data, lanes, ctrl, n_sub, torch.float64, 'cpu',
-                 record=True)
+  with plain_kernels(lk, nk):
+    ref = one_step(m, data, lanes, ctrl, n_sub, torch.float64, ctrl.device,
+                   record=True)
+  ref.update({f: ref[f].cpu() for f in state_fields(m)})
   runs = {'kernels': one_step(m, data, lanes, ctrl, n_sub, torch.float32,
                               ctrl.device, record=True)}
   with plain_k1(lk):
@@ -1220,7 +1591,7 @@ def reference_gate(what, m, m_cpu, data, ctrl, n_sub, lk):
     matched = torch.tensor([f is None for f in first])
     largest[route] = {f: e.max().item() for f, e in errs.items()}
     log(f'# phase reference: {what}, K1 {route}, {len(first)} lanes, float32 '
-        f'card vs float64 CPU: max scaled err '
+        f'card vs float64 (plain versions, on the card): max scaled err '
         + ' '.join(f'{f} {e:.2e}' for f, e in largest[route].items())
         + f'; lanes whose choices all '
         f'matched {int(matched.sum())}, their largest error '
@@ -1328,6 +1699,8 @@ def finger_solver_inputs(m, lay, B, gen, dev):
 
 def slice_steps(what):
   """The control steps of each of slice task `what`'s runs."""
+  if what in SLICE11_TASKS:
+    return SLICE11_STEPS[what]
   if what in SLICE10_TASKS:
     return SLICE10_STEPS
   return (SLICE9_STEPS if what in SLICE9_TASKS + STACKER_TASKS
@@ -1360,7 +1733,8 @@ def slice_run(env, i_task, run, dev, after_reset=lambda: None):
 def row_key(what):
   """The key of task `what`'s entry in a kernel's row of the `kernels`
   line: its domain, or the whole task name where its domain has several
-  entries (the ninth slice's and the tenth's)."""
+  entries (the ninth slice's and the tenth's; the cone model's layouts
+  are 'cones x1' and 'cones x2')."""
   if what in SLICE9_K1 + SLICE10_TASKS:
     return what
   return what.split('-')[0]
@@ -1458,6 +1832,8 @@ def impact_states(what, m, B, gen, dev):
     if what == 'quadruped-fetch':
       ball_states(m, qpos, gen)
     qvel = 0.3 * torch.randn((B, m.nv), **kw)
+  elif what == 'jaco-position_reacher_7DOF':
+    qpos, qvel, d = jaco_states(m, d, gen)
   elif what in SLICE8_TASKS:
     for j in range(1, m.njnt):
       qpos[:, int(m.jnt_qposadr[j])] = u(*(float(v) for v in m.jnt_range[j]))
@@ -1477,6 +1853,46 @@ def impact_states(what, m, B, gen, dev):
     qvel[:, int(m.jnt_dofadr[m.name2id('joint', 'joint_0')])] = side
   ctrl = u(-1.0, 1.0, B, m.nu)
   return d.replace(qpos=qpos, qvel=qvel, ctrl=ctrl)
+
+
+def jaco_states(m, d, gen):
+  """jaco's impact states on d's lanes, drawn from `gen`: the arm within
+  0.3 of the home pose, each finger joint anywhere in its range or, on one
+  lane of four, at its lower limit, slow; the target sphere (a per-lane
+  `geom_pos`, `model_var`) on half the lanes within 3 cm of one link's
+  frame (a sphere-mesh contact, or its center inside the hull), far from
+  the arm on the others.  Returns (qpos, qvel, d with the targets)."""
+  import numpy as np
+  import torch
+  from dm_control_tpu_torch._src import smooth
+  from dm_control_tpu_torch._src.types import mirror
+  from dm_control_tpu_torch.suite import jaco
+  B, dev = d.qpos.shape[0], d.qpos.device
+  kw = dict(generator=gen, device=dev)
+  qpos = d.qpos.clone()
+  qpos[:, :13] = mirror(m, qpos, jaco._HOME_ANGLES)
+  qpos[:, :7] += 0.3 * (2 * torch.rand((B, 7), **kw) - 1)
+  lo = mirror(m, qpos, m.jnt_range[7:13, 0])
+  hi = mirror(m, qpos, m.jnt_range[7:13, 1])
+  fingers = lo + (hi - lo) * torch.rand((B, 6), **kw)
+  at_limit = (torch.arange(B, device=dev) % 4 == 0)[:, None]
+  qpos[:, 7:13] = torch.where(at_limit, lo, fingers)
+  qvel = 0.3 * torch.randn((B, m.nv), **kw)
+  links = np.array([m.name2id('geom', f'jaco_link_{i}') for i in range(1, 8)]
+                   + [m.name2id('geom', f'jaco_link_finger_tip_{i}')
+                      for i in (1, 2, 3)])
+  kin = smooth.kinematics(m, d.replace(qpos=qpos))
+  pick = torch.randint(0, len(links), (B,), **kw)
+  near = kin.geom_xpos[torch.arange(B, device=dev),
+                       mirror(m, qpos, links)[pick]]
+  near = near + 0.03 * (2 * torch.rand((B, 3), **kw) - 1)
+  far = mirror(m, qpos, np.array([0.6, 0.6, 0.6])).expand(B, 3)
+  target = torch.where((torch.arange(B, device=dev) % 2 == 0)[:, None],
+                       near, far)
+  geom_pos = mirror(m, qpos, m.geom_pos).expand(B, m.ngeom, 3).clone()
+  geom_pos[:, m.name2id('geom', 'target')] = target
+  mv = {'geom_pos': geom_pos, '_jaco_penalty': qpos.new_zeros(B)}
+  return qpos, qvel, d.replace(model_var=mv)
 
 
 def ball_states(m, qpos, gen):
@@ -1556,7 +1972,7 @@ def prop_states(m, qpos, gen):
   return qpos, 0.3 * torch.randn((B, m.nv), **kw)
 
 
-def k2_task_check(nk, what, m, lay, d):
+def k2_task_check(nk, what, m, lay, d, gates=None):
   """K2 on `what`'s solver inputs from the states d (the pipeline run up
   to the solve, warm-started from d's qacc_warmstart), at least a quarter
   of whose lanes must touch (an active contact row, or any active row
@@ -1570,10 +1986,12 @@ def k2_task_check(nk, what, m, lay, d):
   they fail 5e-2 for the plain float32 solve itself against float64, so
   they measure float32, not the kernel.  On an elliptic layout the
   solve is K2-ell, held by `ell_gates` (its plain versions with the
-  layout's cones), and the lanes' active elliptic contacts and their
-  zones at the float64 optimum are printed.  Returns (args, kw,
-  iterations, max |kernel - plain|, the forward Data, each lane's active
-  elliptic contacts or None)."""
+  layout's cones), or by `gates` where given (`stop_gates`, called with
+  the layout and the solver inputs too), and
+  the lanes' active elliptic contacts and their zones at the float64
+  optimum are printed.  Returns (args, kw, iterations, max |kernel -
+  plain|, the forward Data, {k: (B,)} each lane's active elliptic
+  contacts of k rows (`cone_counts`) or None)."""
   import torch
   from dm_control_tpu_torch._src import efc
   from dm_control_tpu_torch._src import forward
@@ -1606,10 +2024,11 @@ def k2_task_check(nk, what, m, lay, d):
   if lay.ell_groups:
     on, zones = cone_zones(lay, args[0].double(), args[2].double(), args[5],
                            x_64)
-    cones = on.sum(dim=1)
+    count = on.sum(dim=1)
+    cones = cone_counts(lay, on)
     extra = (f'; active elliptic contacts mean '
-             f'{cones.double().mean().item():.2f} max {int(cones.max())} '
-             f'of ncg={len(lay.ell_groups[3][0])} per lane, zones at the '
+             f'{count.double().mean().item():.2f} max {int(count.max())} '
+             f'of ncg={n_cones(lay)} per lane, zones at the '
              f'float64 optimum top {zones["top"]:.4f} bottom '
              f'{zones["bottom"]:.4f} mid {zones["mid"]:.4f}')
   log(f'# phase kernels: {name} on {what} B={B} '
@@ -1620,7 +2039,9 @@ def k2_task_check(nk, what, m, lay, d):
       f'{int(iters_p.max())})' + (extra if cones is not None else ''))
   assert active >= B // 4, f'{name} on {what}: too few lanes in contact'
   assert torch.isfinite(f_k).all() and torch.isfinite(x_k).all()
-  if lay.ell_groups:
+  if gates is not None:
+    gates(f'K2-ell on {what}', x_k, x_p, x_64, lay, args)
+  elif lay.ell_groups:
     ell_gates(f'K2-ell on {what}', x_k, x_p, x_64)
   else:
     k2_check(f'K2 on {what} kernel vs plain float32', x_k, x_p, gate=True)
@@ -1685,18 +2106,25 @@ def k2_bytes(B, nefc, nv):
   return B * 4 * (nefc * nv + nv * nv + 4 * nefc + 2 * nv + nv + nefc)
 
 
-def cone_zones(lay, J, aref, active, x):
-  """Active elliptic contacts at the solution x, and the shares of them
-  in the top, bottom and middle zones."""
+def cone_zones(lay, J, aref, active, x, condim=None):
+  """Active elliptic contacts at the solution x (every condim in condim
+  order, or those of `condim`), and the shares of them in the top, bottom
+  and middle zones."""
   import torch
-  rows, mu, scale = lay.ell_groups[3]
   jar = torch.einsum('bev,bv->be', J, x) - aref
-  rows_t = torch.as_tensor(rows, device=J.device)
-  y = jar[:, rows_t] * torch.as_tensor(scale, dtype=J.dtype, device=J.device)
-  mu_t = torch.as_tensor(mu, dtype=J.dtype, device=J.device)
-  n, t = y[..., 0], y[..., 1:].norm(dim=-1).clamp(min=1e-15)
-  on = active[:, rows_t[:, 0]] > 0
-  top, bottom = n >= mu_t * t, mu_t * n <= -t
+  parts = []
+  for k, (rows, mu, scale) in sorted(lay.ell_groups.items()):
+    if condim is not None and k != condim:
+      continue
+    rows_t = torch.as_tensor(rows, device=J.device)
+    y = jar[:, rows_t] * torch.as_tensor(scale, dtype=J.dtype,
+                                         device=J.device)
+    mu_t = torch.as_tensor(mu, dtype=J.dtype, device=J.device)
+    n, t = y[..., 0], y[..., 1:].norm(dim=-1).clamp(min=1e-15)
+    on = active[:, rows_t[:, 0]] > 0
+    top, bottom = n >= mu_t * t, mu_t * n <= -t
+    parts.append((on, top, bottom))
+  on, top, bottom = (torch.cat(x, dim=1) for x in zip(*parts))
   mid = ~top & ~bottom
   count = int(on.sum())
   return on, {z: int((mask & on).sum()) / max(count, 1)
@@ -1711,7 +2139,9 @@ def main() -> int:
           file=sys.stderr)
     return 2
   sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+  import numpy as np
   from dm_control_tpu_torch import suite
+  from dm_control_tpu_torch._src import engine
   from dm_control_tpu_torch._src import forward
   from dm_control_tpu_torch._src import solver
   from dm_control_tpu_torch._src import efc
@@ -1818,9 +2248,10 @@ def main() -> int:
   on, zones = cone_zones(f_lay, ell_args[0].double(), ell_args[2].double(),
                          ell_args[5], xe_64)
   cones = on.sum(dim=1)
+  f_cones = cone_counts(f_lay, on)
   lanes_on = float((cones > 0).double().mean())
   log(f'# phase kernels: newton_solve_ell B={BATCH} nefc={f_lay.nefc} '
-      f'nv={fm.nv} ncg={len(f_lay.ell_groups[3][0])}: lanes with an active '
+      f'nv={fm.nv} ncg={n_cones(f_lay)}: lanes with an active '
       f'elliptic row {lanes_on:.4f}; active contacts {int(cones.sum())} '
       f'(mean {cones.double().mean().item():.2f} per lane), zones at the '
       f'float64 optimum top {zones["top"]:.4f} bottom '
@@ -1889,16 +2320,21 @@ def main() -> int:
   # the floor and a wall
   s10_gen = torch.Generator(device=dev)
   s10_gen.manual_seed(SLICE10_SEED)
+  # the eleventh slice's K2 inputs (jaco with the target on a link and
+  # fingers at their limits) from a generator of its own
+  s11_gen = torch.Generator(device=dev)
+  s11_gen.manual_seed(SLICE11_SEED)
   k2_slice = {}
   for what, g in (('cheetah-run', s_gen), ('cartpole-swingup', s_gen),
                   ('point_mass-easy', s7_gen), ('ball_in_cup-catch', s7_gen),
                   ('swimmer-swimmer6', s7_gen), ('humanoid-run', s8_gen),
                   ('quadruped-walk', s8_gen), ('humanoid_CMU-run', s10_gen),
                   ('quadruped-escape', s10_gen),
-                  ('quadruped-fetch', s10_gen)):
+                  ('quadruped-fetch', s10_gen),
+                  ('jaco-position_reacher_7DOF', s11_gen)):
     tm = slice_tasks[what].model
     impacts = impact_states(what, tm, BATCH, g, dev)
-    topk = what in SLICE8_TASKS + SLICE10_TASKS
+    topk = what in SLICE8_TASKS + SLICE10_TASKS + SLICE11_TASKS
     if topk:
       broadphase_bits(what, tm, impacts)
     k2_slice[what] = k2_task_check(
@@ -1960,6 +2396,55 @@ def main() -> int:
         nk, what, tm, efc.layout(tm), impact_states(what, tm, BATCH, s9_gen,
                                                     dev))
 
+  # K2-ell's C = 6 instantiation (condim-3, -4 and -6 cones in one
+  # layout) at the cone model's layouts: one copy (nv 18, nefc 48, 11
+  # cones, one dof per lane) and two (nv 36, nefc 180, 41 cones, two dofs
+  # per lane), on `cone_states` from a numpy generator of their own, where
+  # every condim's cones are live; converged and after one Newton
+  # iteration.  The condim-6 ball's rolling friction (row scale
+  # 0.0001 / 0.7) leaves the cost flat to float32 along a direction on
+  # some lanes, where float32 solves stop far from float64 with costs
+  # float32 cannot tell from the optimum's, so the converged solves are
+  # held lane by lane (`stop_gates`: K2's bounds on every other lane), and
+  # the one-iteration ones by `float32_gates`.
+  cone_models = {f'cones x{c}': engine.load_model_from_string(cones_xml(c))
+                 for c in (1, 2)}
+  s11_rng = np.random.RandomState(SLICE11_SEED)
+  for what, cm in cone_models.items():
+    c_lay = efc.layout(cm)
+    q, v = cone_states(cm, BATCH, s11_rng)
+    d0 = forward.make_data(cm, BATCH, torch.float32, dev).replace(
+        qpos=torch.tensor(q, dtype=torch.float32, device=dev),
+        qvel=torch.tensor(v, dtype=torch.float32, device=dev))
+    ell_slice[what] = k2_task_check(nk, what, cm, c_lay, d0,
+                                    gates=stop_gates)
+    c_args, c_kw = ell_slice[what][:2]
+    for k, (rows, _, _) in sorted(c_lay.ell_groups.items()):
+      live = c_args[5][:, torch.as_tensor(rows[:, 0], device=dev)] > 0
+      log(f'# phase kernels: {what}: condim-{k} cones live on '
+          f'{float(live.any(dim=1).double().mean()):.4f} of the lanes; each '
+          f'cone\'s share '
+          f'{[round(x, 3) for x in live.double().mean(0).tolist()]}')
+      assert float(live.any(dim=1).double().mean()) >= 0.25, (
+          f'{what}: condim-{k} cones live on too few lanes')
+    p_kw = dict(types=c_lay.types, ell_groups=c_lay.ell_groups)
+    tol64 = solver.effective_tol(cm.opt.tolerance, torch.float64)
+    one = {}
+    for ls in (0, 1):
+      kw1 = dict(c_kw, niter=1, ls_iter=ls)
+      one[ls] = (nk.newton_solve_batched(*c_args, lay=c_lay, **kw1)[0],
+                 nk.newton_solve_plain(*c_args, **p_kw, **kw1)[0],
+                 nk.newton_solve_plain(*[a.double() for a in c_args], **p_kw,
+                                       **dict(kw1, tol=tol64))[0])
+    off = lane_scaled_err(one[1][2], one[0][2]).amax(dim=1) > 1e-3
+    log(f'# phase kernels: K2-ell on {what}, one Newton iteration: lanes '
+        f'whose one line-search step moves alpha off 1 '
+        f'{float(off.double().mean()):.4f}')
+    float32_gates(f'K2-ell on {what}, one iteration, no line search,',
+                  *one[0])
+    float32_gates(f'K2-ell on {what}, one iteration, one line-search step, '
+                  f'alpha off 1,', *(x[off] for x in one[1]))
+
   # K1 at humanoid's n = 27 and quadruped's 22 on their initial states
   # (reset through the tasks' collision-free draws and settling), at
   # manipulator's n = 11 and stacker's 14 and 20 on theirs, and at
@@ -1972,7 +2457,9 @@ def main() -> int:
   # error where plain float32 misses them; these are the errors their
   # timing rows report
   s8_init = {what: BatchedEnv(slice_tasks[what], BATCH).reset(seed=0).data
-             for what in SLICE8_TASKS + SLICE9_K1 + SLICE10_K1}
+             for what in SLICE8_TASKS + SLICE9_K1 + SLICE10_K1 + SLICE11_K1}
+  # the cone model's n = 18 and 36 on its kernel-phase states
+  s8_init.update({what: ell_slice[what][4] for what in cone_models})
   for what, s_d in s8_init.items():
     A, b = s_d.qM.contiguous(), s_d.qfrc_smooth.contiguous()
     n = A.shape[1]
@@ -1996,7 +2483,7 @@ def main() -> int:
             triples['chol_solve_batched'][0],
             lk.cho_solve_batched(triples['cholesky_batched'][0], b))
 
-  # -- 3. against the float64 CPU path -----------------------------------------
+  # -- 3. against the float64 path ---------------------------------------------
   # REF_LANES lanes of walker's state after the 40-step rollout, and of the
   # finger-spin lanes in contact; the first 64 lanes' controls from `gen`
   t0 = time.perf_counter()
@@ -2006,8 +2493,7 @@ def main() -> int:
       ('walker-walk', m, state.data, env.n_sub_steps),
       ('finger-spin', fm, f_d, f_task.n_sub_steps())):
     ctrl = reference_controls(gen, ref_gen, model.nu, REF_LANES, dev)
-    cpu = suite.build_task(*what.split('-'), device='cpu').model
-    reference_gate(what, model, cpu, data, ctrl, n_sub, lk)
+    reference_gate(what, model, data, ctrl, n_sub, lk)
   log(f'# phase reference: {time.perf_counter() - t0:.1f} s')
 
   # -- 4. the main path: walker-walk@4096 rollout, three runs -----------------
@@ -2103,6 +2589,49 @@ def main() -> int:
     want = finger_per_step[k] * 3
     assert n == want, f'finger pool run {k}: {n} launches, expected {want}'
 
+  # -- 4d. the cone model: 4096 lanes dropped, CONES_STEPS physics steps -------
+  # The bodies of `cone_states` (generator SLICE11_SEED + 1) raised 2 to
+  # 20 cm and dropped: every state finite, one K2-ell launch (and no K2)
+  # per physics step, each condim's cones live on some lane at the end;
+  # then the reference gate on its first REF_LANES lanes (one physics
+  # step; the model has no actuators).
+  cm = cone_models['cones x1']
+  q, v = cone_states(cm, BATCH, np.random.RandomState(SLICE11_SEED + 1))
+  drop = np.random.RandomState(SLICE11_SEED + 2)
+  for body in range(3):
+    q[:, 7 * body + 2] += drop.uniform(0.02, 0.2, BATCH)
+  c_d = forward.forward(cm, forward.make_data(cm, BATCH, torch.float32,
+                                              dev).replace(
+      qpos=torch.tensor(q, dtype=torch.float32, device=dev),
+      qvel=torch.tensor(v, dtype=torch.float32, device=dev)))
+  torch.cuda.synchronize()
+  lk.reset_launches()
+  nk.reset_launches()
+  t0 = time.perf_counter()
+  c_d = forward.substeps(cm, c_d, CONES_STEPS)
+  torch.cuda.synchronize()
+  dt = time.perf_counter() - t0
+  cone_launches = dict(lk.LAUNCHES, **nk.LAUNCHES)
+  c_lay = efc.layout(cm)
+  live = {k: float((c_d.efc_active[:, torch.as_tensor(rows[:, 0], device=dev)]
+                    .any(dim=1)).double().mean())
+          for k, (rows, _, _) in sorted(c_lay.ell_groups.items())}
+  log(f'# phase cones: cone model@{BATCH} x {CONES_STEPS} physics steps in '
+      f'{dt:.2f} s ({BATCH * CONES_STEPS / dt:.1f} lane-steps/s); launches '
+      f'{cone_launches}; lanes with a live cone at the end, by condim {live}')
+  for f, x in forward.state_items(forward.state_of(c_d)):
+    assert x.dtype == torch.bool or torch.isfinite(x).all(), (
+        f'cone model: {f} not finite')
+  want = {k: 0 for k in cone_launches}
+  want.update(cholesky_batched=CONES_STEPS + 1, cho_solve_batched=CONES_STEPS,
+              newton_solve_ell=CONES_STEPS)
+  assert cone_launches == want, (cone_launches, want)
+  assert all(share > 0 for share in live.values()) and len(live) == 3, live
+  t0 = time.perf_counter()
+  reference_gate('cones x1', cm, c_d, torch.zeros((REF_LANES, 0), device=dev),
+                 1, lk)
+  log(f'# phase reference: cones x1 {time.perf_counter() - t0:.1f} s')
+
   # -- 5. timing at the main path's shapes ----------------------------------------
   lib = build.library()
   stream = torch.cuda.current_stream().cuda_stream
@@ -2168,7 +2697,8 @@ def main() -> int:
   slice_k1 = {}
   for what in ('pendulum-swingup', 'reacher-easy', 'hopper-hop',
                'ball_in_cup-catch', 'swimmer-swimmer6', 'fish-swim',
-               'humanoid-run', 'quadruped-walk') + SLICE9_K1 + SLICE10_K1:
+               'humanoid-run', 'quadruped-walk') + SLICE9_K1 + SLICE10_K1 + (
+                   SLICE11_K1 + tuple(cone_models)):
     s_d = s8_init[what] if what in s8_init else BatchedEnv(slice_tasks[what],
                                           BATCH).reset(seed=0).data
     slice_k1[what] = k1_rows(what, s_d.qM.contiguous(),
@@ -2215,17 +2745,19 @@ def main() -> int:
   # rollout run; bytes and FLOPs as for finger's row below
   ell_sub = {}
   for what, (s_args, s_kw, s_iters, s_err, _, s_cones) in ell_slice.items():
-    s_m = slice_tasks[what].model
+    s_m = (cone_models[what] if what in cone_models
+           else slice_tasks[what].model)
     s_lay = efc.layout(s_m)
-    s_ncg = len(s_lay.ell_groups[3][0])
+    s_ncg = n_cones(s_lay)
     b_ms, b_by = bound_ms(
-        k2_bytes(BATCH, s_lay.nefc, s_m.nv)
-        + 4 * (3 * s_ncg + s_ncg + s_lay.nefc),
+        ell_bytes(s_lay, BATCH, s_m.nv),
         newton_flops(s_lay.nefc, s_m.nv, solver.LS_ITERATIONS, s_iters,
-                     cones=s_cones.to(s_iters.device)))
+                     cones={k: c.to(s_iters.device)
+                            for k, c in s_cones.items()}))
     solve = (lambda s_args=s_args, s_lay=s_lay, s_kw=s_kw:
              nk.newton_solve_batched(*s_args, lay=s_lay, **s_kw))
-    warps, smem = nk.launch_config(s_lay.nefc, s_m.nv, s_ncg)
+    warps, smem = nk.launch_config(s_lay.nefc, s_m.nv, s_ncg,
+                                   nk.cone_width(s_lay))
     ell_sub[what] = dict(
         launches=None, max_abs_err=s_err, ms=cuda_ms(solve, 5),
         plain_ms=cuda_ms(lambda: nk.newton_solve_plain(
@@ -2263,19 +2795,18 @@ def main() -> int:
       newton_flops(nefc, nv, solver.LS_ITERATIONS, iters), k2_err,
       reps=10, plain_reps=2, max_iters=int(iters.max()), **k2_sub)
   f_nv, f_nefc = fm.nv, f_lay.nefc
-  ncg = len(f_lay.ell_groups[3][0])
-  ell_bytes = k2_bytes(BATCH, f_nefc, f_nv) + 4 * (3 * ncg + ncg + f_nefc)
   row('newton_solve_ell',
       lambda: nk.newton_solve_batched(*ell_args, lay=f_lay, **ell_kw),
       lambda: nk.newton_solve_plain(*ell_args, **plain_kw, **ell_kw),
-      None, ell_bytes,
+      None, ell_bytes(f_lay, BATCH, f_nv),
       newton_flops(f_nefc, f_nv, solver.LS_ITERATIONS, ell_iters,
-                   cones=cones.to(ell_iters.device)), ell_err,
+                   cones={k: c.to(ell_iters.device)
+                          for k, c in f_cones.items()}), ell_err,
       reps=10, plain_reps=2, max_iters=int(ell_iters.max()), **ell_sub)
 
   # -- 6. the slices: eleven more tasks, reference gates, resets -------------
   # Each task: SLICE_RUNS runs of reset and `slice_steps` control steps of
-  # BATCH lanes, states finite, rewards in [0, 1], every kernel launched
+  # BATCH lanes, states finite, rewards in its range, every kernel launched
   # exactly `expected_launches` times per control step (no episode ends);
   # then the reference gate on REF_LANES lanes of the last run's final
   # states, each task's controls from a generator of its own.
@@ -2301,8 +2832,9 @@ def main() -> int:
         assert x.dtype == torch.bool or torch.isfinite(x).all(), (
             f'{what}: {f} not finite')
       assert tuple(rewards.shape) == (steps, BATCH)
-      assert bool(((rewards >= 0) & (rewards <= 1)).all()), (
-          f'{what}: reward outside [0, 1]')
+      r_lo, r_hi = REWARD_RANGE.get(what, (0.0, 1.0))
+      assert bool(((rewards >= r_lo) & (rewards <= r_hi)).all()), (
+          f'{what}: reward outside [{r_lo}, {r_hi}]')
       assert not bool(state.episode_id.any()), f'{what}: an episode ended'
       for k, n in got.items():
         assert n == want[k] * steps, (
@@ -2314,12 +2846,23 @@ def main() -> int:
         f'; launches per control step {want}')
     t0 = time.perf_counter()
     m_s = s_task.model
-    cpu = suite.build_task(*what.split('-'), device='cpu').model
-    reference_gate(what, m_s, cpu, state.data,
-                   slice_controls(i_task, m_s.nu, REF_LANES, dev),
-                   s_task.n_sub_steps(), lk)
+    if s_task.before_step is None:
+      ctrl = slice_controls(i_task, m_s.nu, REF_LANES, dev)
+    else:
+      # the task's actions, uniform in its bounds, made controls as a step
+      # makes them (jaco: joint targets within 0.1 of the current angles)
+      lo, hi = (torch.as_tensor(b, dtype=torch.float32, device=dev)
+                for b in s_task.action_bounds())
+      u = slice_controls(i_task, lo.shape[0], REF_LANES, dev)
+      head = state.data.replace(
+          qpos=state.data.qpos[:REF_LANES],
+          model_var={k: v[:REF_LANES]
+                     for k, v in (state.data.model_var or {}).items()})
+      ctrl = s_task.before_step(m_s, head, lo + (hi - lo) * (u + 1) / 2).ctrl
+    reference_gate(what, m_s, state.data, ctrl, s_task.n_sub_steps(), lk)
     if what == 'quadruped-escape':
-      rangefinder_check(m_s, cpu, state.data)
+      rangefinder_check(m_s, suite.build_task(*what.split('-'),
+                                              device='cpu').model, state.data)
     log(f'# phase reference: {what} {time.perf_counter() - t0:.1f} s')
 
   # Episode limits that end every lane's episode: reacher's, swimmer's and
@@ -2400,6 +2943,13 @@ def main() -> int:
     if what in slice_launches:
       sub['launches'] = slice_launches[what]['newton_solve_ell']
       sub['launches_per_control_step'] = sub['launches'] / slice_steps(what)
+  # the cone model's rows: the launches of its CONES_STEPS-step run (copies
+  # 2 is held in phase kernels only)
+  for k, r in slice_k1['cones x1'].items():
+    r['launches'] = cone_launches[k]
+  ell_sub['cones x1']['launches'] = cone_launches['newton_solve_ell']
+  for r in [ell_sub['cones x1']] + list(slice_k1['cones x1'].values()):
+    r['launches_per_physics_step'] = r['launches'] / CONES_STEPS
 
   log(smi)
   log(json.dumps({'kernels': rows}, allow_nan=False))

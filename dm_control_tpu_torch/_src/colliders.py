@@ -10,8 +10,9 @@ ellipsoid-ellipsoid and cylinder-cylinder colliders, the box colliders
 separating-axis test and face clipping written once over a batch of
 pairs), the heightfield against spheres, capsules, ellipsoids and
 cylinders (`hfield_height`, per lane where `model_var` carries
-`hfield_data`), the top-K broadphase score and the `collide_all`
-dispatch.  A collider returns
+`hfield_data`), convex meshes against planes, spheres, capsules, boxes
+and meshes (Frank-Wolfe over the hull vertices, `hull_table`), the top-K
+broadphase score and the `collide_all` dispatch.  A collider returns
 either one normal or a whole frame per contact; `collide_all` builds the
 frame from a normal.  Every other geom-type pair raises
 NotImplementedError naming the pair.
@@ -611,6 +612,163 @@ def _box_box(pos1, mat1, size1, pos2, mat2, size2):
   return dist, pos, nrm
 
 
+# ---------------------------------------------------------------------------
+# Convex meshes (jaco): Frank-Wolfe distance over the decimated hull
+# vertices, as the JAX package computes it (JAX colliders.py:689-823), each
+# function over a batch of lanes and pairs.
+# ---------------------------------------------------------------------------
+
+_HULL_PAD = 64
+
+
+def hull_table(m: Model) -> np.ndarray:
+  """(nmesh, _HULL_PAD, 3) hull vertices, each hull padded by repeating
+  its first vertex; cached on the model."""
+  cached = m.__dict__.get('_hull_table')
+  if cached is not None:
+    return cached
+  tab = np.zeros((max(len(m.mesh_hull or []), 1), _HULL_PAD, 3))
+  for i, hv in enumerate(m.mesh_hull or []):
+    n = min(len(hv), _HULL_PAD)
+    tab[i, :n] = hv[:n]
+    tab[i, n:] = hv[0]
+  m.__dict__['_hull_table'] = tab
+  return tab
+
+
+def _hulls(m: Model, ref: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+  """The hull vertices (g.shape + (_HULL_PAD, 3)) of mesh geoms g."""
+  tab = mirror(m, ref, hull_table(m))
+  return tab[mirror(m, ref, m.geom_dataid)[g]]
+
+
+def _to_world(pos, mat, verts):
+  """Local vertices (..., k, 3) of frames (pos (..., 3), mat (..., 3, 3))
+  in the world frame.  Elementwise, not a batched matmul: a lane's bits
+  do not depend on the batch around it."""
+  rot = (verts[..., 0:1] * mat[..., None, :, 0]
+         + verts[..., 1:2] * mat[..., None, :, 1]
+         + verts[..., 2:3] * mat[..., None, :, 2])
+  return pos[..., None, :] + rot
+
+
+def _fw_closest_point(p, verts, iters=24):
+  """Closest point to p (..., 3) in conv(verts (..., k, 3)): Frank-Wolfe
+  with an exact line search, `iters` steps from the first vertex; the
+  support vertex is the first of the lowest scores.  The scores are summed
+  over the vertices' coordinate planes (contiguous (..., k) each), which
+  is the same sum as over the last axis and several times faster."""
+  x = verts[..., 0, :]
+  vx, vy, vz = (verts[..., i].contiguous() for i in range(3))
+  for _ in range(iters):
+    g = x - p
+    scores = vx * g[..., 0:1] + vy * g[..., 1:2] + vz * g[..., 2:3]
+    idx = scores.argmin(-1)
+    s = torch.gather(verts, -2, idx[..., None, None].expand(
+        idx.shape + (1, 3)))[..., 0, :]
+    d = s - x
+    denom = (d * d).sum(-1)
+    gamma = torch.clamp(-(g * d).sum(-1) / torch.clamp(denom, min=1e-12),
+                        0.0, 1.0)
+    x = x + gamma[..., None] * d
+  return x
+
+
+def sphere_mesh_closest(s_pos, m_pos, m_mat, hulls):
+  """(world hull vertices, the hull's point closest to the sphere's
+  center) of sphere-mesh pairs."""
+  world = _to_world(m_pos, m_mat, hulls)
+  return world, _fw_closest_point(s_pos, world)
+
+
+def _sphere_mesh(s_pos, s_mat, s_size, m_pos, m_mat, m_size, hulls):
+  """Sphere vs convex hull (hulls (..., k, 3) in the mesh's frame); a
+  center within 1e-9 of the hull takes the line to the hull's vertex mean
+  as its normal."""
+  world, closest = sphere_mesh_closest(s_pos, m_pos, m_mat, hulls)
+  vec = closest - s_pos
+  dist = math.norm_safe(vec) - s_size[..., 0]
+  n = math.normalize(vec)
+  inside = math.norm_safe(vec) < 1e-9
+  ctr = world.mean(-2)
+  n = torch.where(inside[..., None], math.normalize(ctr - s_pos), n)
+  pos = s_pos + n * (s_size[..., 0:1] + dist[..., None] / 2)
+  return dist[..., None], pos[..., None, :], n[..., None, :]
+
+
+def mesh_witnesses(pos1, mat1, pos2, mat2, hulls1, hulls2):
+  """(world vertices w1, w2, witness points c1, c2) of hull-hull pairs:
+  alternating Frank-Wolfe projections, six of 8 steps each, from the
+  hulls' vertex means."""
+  w1 = _to_world(pos1, mat1, hulls1)
+  w2 = _to_world(pos2, mat2, hulls2)
+  c1 = w1.mean(-2)
+  c2 = w2.mean(-2)
+  for _ in range(6):
+    c1 = _fw_closest_point(c2, w1, iters=8)
+    c2 = _fw_closest_point(c1, w2, iters=8)
+  return w1, w2, c1, c2
+
+
+def _mesh_mesh(pos1, mat1, size1, pos2, mat2, size2, hulls1, hulls2):
+  """Hull vs hull (`mesh_witnesses`): separated past 1e-7, the witnesses'
+  distance, else minus the support overlap along the normal (the line
+  between the hulls' vertex means where the witnesses meet)."""
+  w1, w2, c1, c2 = mesh_witnesses(pos1, mat1, pos2, mat2, hulls1, hulls2)
+  vec = c2 - c1
+  sep = math.norm_safe(vec)
+  n = math.normalize(vec)
+  ctr_axis = math.normalize(w2.mean(-2) - w1.mean(-2))
+  n = torch.where((sep < 1e-7)[..., None], ctr_axis, n)
+  smax1 = (w1 * n[..., None, :]).sum(-1).amax(-1)
+  smin2 = (w2 * n[..., None, :]).sum(-1).amin(-1)
+  depth = smax1 - smin2
+  dist = torch.where(sep > 1e-7, sep, -depth)
+  pos = 0.5 * (c1 + c2)
+  return dist[..., None], pos[..., None, :], n[..., None, :]
+
+
+def _capsule_mesh(c_pos, c_mat, c_size, m_pos, m_mat, m_size, hulls):
+  """Capsule vs hull: sphere-hull at both segment ends."""
+  axis = c_mat[..., :, 2]
+  hl = c_size[..., 1:2]
+  outs = [_sphere_mesh(c_pos + s * hl * axis, c_mat, c_size, m_pos, m_mat,
+                       m_size, hulls) for s in (1.0, -1.0)]
+  return tuple(torch.cat(x, dim=-1 if i == 0 else -2)
+               for i, x in enumerate(zip(*outs)))
+
+
+_BOX_SIGNS = np.array([[sx, sy, sz] for sx in (-1., 1.) for sy in (-1., 1.)
+                       for sz in (-1., 1.)])
+
+
+def _box_mesh(b_pos, b_mat, b_size, m_pos, m_mat, m_size, hulls):
+  """Box vs hull: the box as its 8-corner hull, hull vs hull."""
+  corners = b_size[..., None, :] * torch.as_tensor(
+      _BOX_SIGNS, dtype=b_size.dtype, device=b_size.device)
+  return _mesh_mesh(b_pos, b_mat, b_size, m_pos, m_mat, m_size, corners,
+                    hulls)
+
+
+def plane_mesh_heights(p_pos, p_mat, m_pos, m_mat, hulls):
+  """(world vertices (..., k, 3), their heights over the plane (..., k))
+  of a hull against a plane."""
+  n = p_mat[..., :, 2]
+  world = _to_world(m_pos, m_mat, hulls)
+  return world, ((world - p_pos[..., None, :]) * n[..., None, :]).sum(-1)
+
+
+def _plane_mesh(p_pos, p_mat, p_size, m_pos, m_mat, m_size, hulls):
+  """Plane vs hull: the three deepest hull vertices (a stable sort)."""
+  n = p_mat[..., :, 2]
+  world, h = plane_mesh_heights(p_pos, p_mat, m_pos, m_mat, hulls)
+  idx = torch.argsort(h, dim=-1, stable=True)[..., :3]
+  dist = torch.gather(h, -1, idx)
+  pts = torch.gather(world, -2, idx[..., None].expand(idx.shape + (3,)))
+  pts = pts - n[..., None, :] * (dist / 2)[..., None]
+  return dist, pts, n[..., None, :].expand(pts.shape)
+
+
 _COLLIDERS = {
     (GeomType.PLANE, GeomType.SPHERE): _plane_sphere,
     (GeomType.PLANE, GeomType.CAPSULE): _plane_capsule,
@@ -629,6 +787,13 @@ _COLLIDERS = {
     (GeomType.SPHERE, GeomType.BOX): _sphere_box,
     (GeomType.CAPSULE, GeomType.BOX): _capsule_box,
     (GeomType.BOX, GeomType.BOX): _box_box,
+    # the mesh colliders take the mesh's hull vertices last (both hulls
+    # for mesh-mesh)
+    (GeomType.PLANE, GeomType.MESH): _plane_mesh,
+    (GeomType.SPHERE, GeomType.MESH): _sphere_mesh,
+    (GeomType.CAPSULE, GeomType.MESH): _capsule_mesh,
+    (GeomType.BOX, GeomType.MESH): _box_mesh,
+    (GeomType.MESH, GeomType.MESH): _mesh_mesh,
 }
 
 
@@ -856,6 +1021,11 @@ def collide_all(m: Model, d: Data) -> Data:
     if grp.t1 == GeomType.HFIELD:
       dist, pos, normal_or_frame = _collide_hfield(m, d, grp, pos1, mat1,
                                                    pos2, mat2, size2)
+    elif grp.t2 == GeomType.MESH:
+      hulls = [_hulls(m, ref, g) for g in (
+          (g1, g2) if grp.t1 == GeomType.MESH else (g2,))]
+      dist, pos, normal_or_frame = fn(pos1, mat1, size1, pos2, mat2, size2,
+                                      *hulls)
     else:
       dist, pos, normal_or_frame = fn(pos1, mat1, size1, pos2, mat2, size2)
     if normal_or_frame.dim() == pos.dim() + 1:

@@ -5,8 +5,9 @@ The port of the ray-casting half of `dm_control_tpu/_src/render.py`:
 cylinders, boxes and ellipsoids, and the heightfield's march and
 bisection.  Every ray of a call goes at once: rays are (B, S) (lanes by
 sensors), and the geoms of one type are one batch (B, S, G).  Mesh geoms
-raise NotImplementedError (their hull triangle table is not ported); the
-cameras, `select` and pixel rendering are not ported.
+trace their convex collision hulls (`_hull_tri_table`, Moller-Trumbore
+over the hull's triangles), as the JAX package's do; the cameras,
+`select` and pixel rendering are not ported.
 """
 
 from __future__ import annotations
@@ -98,6 +99,55 @@ def _ellipsoid_hit(ol, dl, size):
   return _quadratic(a, b, c)
 
 
+def _hull_tri_table(m: Model) -> np.ndarray:
+  """Per-mesh convex-hull triangles, oriented outward, padded to one
+  (nmesh, T, 3, 3) array by repeating each hull's last triangle; cached
+  on the model (the JAX package's render._hull_tri_table)."""
+  cached = m.__dict__.get('_hull_tri_table')
+  if cached is not None:
+    return cached
+  from scipy.spatial import ConvexHull
+  tris = []
+  for hv in (m.mesh_hull or []):
+    hv = np.asarray(hv)
+    try:
+      hull = ConvexHull(hv)
+      t = hv[hull.simplices]             # (T, 3, 3)
+      cen = hv.mean(axis=0)
+      n = np.cross(t[:, 1] - t[:, 0], t[:, 2] - t[:, 0])
+      flip = np.einsum('ij,ij->i', n, t.mean(axis=1) - cen) < 0
+      t[flip] = t[flip][:, ::-1]
+    except Exception:                    # a flat or degenerate hull
+      t = np.zeros((1, 3, 3))
+    tris.append(t)
+  tmax = max((t.shape[0] for t in tris), default=1)
+  tab = np.zeros((max(len(tris), 1), tmax, 3, 3))
+  for i, t in enumerate(tris):
+    tab[i, :t.shape[0]] = t
+    tab[i, t.shape[0]:] = t[-1] if t.shape[0] else 0.0
+  m.__dict__['_hull_tri_table'] = tab
+  return tab
+
+
+def _mesh_hit(ol, dl, tris):
+  """Moller-Trumbore against each geom's hull triangles: ol, dl (..., G,
+  3) in the geoms' frames, tris (G, T, 3, 3); the nearest hit (..., G)."""
+  v0, e1, e2 = tris[:, :, 0], tris[:, :, 1] - tris[:, :, 0], (
+      tris[:, :, 2] - tris[:, :, 0])                           # (G, T, 3)
+  d = dl[..., None, :].expand(dl.shape[:-1] + e2.shape[1:])
+  h = torch.linalg.cross(d, e2.expand_as(d))                  # (..., G, T, 3)
+  a = (e1 * h).sum(-1)
+  f = torch.where(a.abs() < 1e-12, float('inf'), 1.0 / a)
+  s = ol[..., None, :] - v0
+  u = f * (s * h).sum(-1)
+  q = torch.linalg.cross(s, e1.expand_as(s))
+  v = f * (d * q).sum(-1)
+  t = f * (e2 * q).sum(-1)
+  ok = ((u >= 0) & (v >= 0) & (u + v <= 1) & (t > 1e-9)
+        & torch.isfinite(t))
+  return torch.where(ok, t, _BIG).amin(-1)
+
+
 def _plane_hit(ol, dl):
   dz = dl[..., 2]
   safe_dz = torch.where(dz.abs() < 1e-12, 1e-12, dz)
@@ -151,10 +201,6 @@ def raycast(m: Model, d: Data, origin: torch.Tensor, direction: torch.Tensor,
   for gt in sorted(set(int(t) for t in gtype)):
     gt = GeomType(gt)
     gids = np.flatnonzero(gtype == gt)
-    if gt == GeomType.MESH:
-      raise NotImplementedError(
-          'ray casting against meshes is not ported yet: it waits on the '
-          'mesh hull triangle table')
     pos = d.geom_xpos[:, mirror(m, ref, gids)]                 # (B, G, 3)
     mat = d.geom_xmat[:, mirror(m, ref, gids)]                 # (B, G, 3, 3)
     # the rays in each geom's frame: (B, S, G, 3)
@@ -174,6 +220,10 @@ def raycast(m: Model, d: Data, origin: torch.Tensor, direction: torch.Tensor,
       t = _box_hit(ol, dl, size)
     elif gt == GeomType.ELLIPSOID:
       t = _ellipsoid_hit(ol, dl, size)
+    elif gt == GeomType.MESH:
+      tris = mirror(m, ref, _hull_tri_table(m))[
+          mirror(m, ref, m.geom_dataid[gids])]                 # (G, T, 3, 3)
+      t = _mesh_hit(ol, dl, tris)
     elif gt == GeomType.HFIELD:
       t = torch.stack([_hfield_ray(m, d, int(m.geom_dataid[g]),
                                    ol[:, :, i], dl[:, :, i])

@@ -24,9 +24,19 @@
 // the same matrix.  Rows of type ELLIPTIC give nothing in row_terms, so
 // no row counts twice.
 //
+// Cones of condim 4 and 6 (the TPU kernel's _Static flattens every condim
+// into one list of contacts, ell_terms sums their friction rows): the
+// kernel is also a template on C, the largest condim of the layout's
+// elliptic contacts.  C = 3 is the code above.  C = 6 takes contacts of 3,
+// 4 and 6 rows in one layout, each with its own row count k: n = y_0, t =
+// |y_1..k-1|, and the same zones, forces and k x k blocks with u = y_1..k-1
+// / t and P = diag(0, 1, .., 1); every per-contact table and block is
+// carved C or C^2 words wide, and a row past a contact's k is never read.
+//
 // Layout: batch-first, the port's own: J (B, nefc, nv), M (B, nv, nv),
 // row vectors (B, nefc), dof vectors (B, nv); outputs x (B, nv), f
-// (B, nefc), iterations (B,).  The contacts' rows (ncg, 3), mu (ncg) and
+// (B, nefc), iterations (B,).  The contacts' rows (ncg, C, padded past
+// each contact's k with its normal row), row counts (ncg), mu (ncg) and
 // the row scales (nefc) are the same for every environment.
 //
 // What bounds it on an H100: the inputs are read once, ~2.5 KB per walker
@@ -105,18 +115,20 @@ constexpr int ONESIDED = 2;
 constexpr unsigned FULL = 0xffffffffu;
 
 // Shared-memory carve, in 4-byte words (the wrapper's launch_config
-// mirrors these three functions).  J is in it only where nv <= 32.
+// mirrors these three functions).  J is in it only where nv <= 32; C is
+// the layout's largest condim (3 or 6).
 __host__ __device__ inline int row_stride(int nv) { return nv | 1; }
-__host__ __device__ inline int block_words(int nefc, int ncg) {
-  return 2 * nefc + 4 * ncg;      // types, scales; cone rows, mu
+__host__ __device__ inline int block_words(int nefc, int ncg, int C) {
+  // types, scales; cone rows, mu and, where C > 3, each cone's row count
+  return 2 * nefc + (C + 1) * ncg + (C > 3 ? ncg : 0);
 }
-__host__ __device__ inline int warp_words(int nefc, int nv, int ncg) {
+__host__ __device__ inline int warp_words(int nefc, int nv, int ncg, int C) {
   const int ld = row_stride(nv);
   // J, M and H; jar, djar, D, fl, active, f, w and the live-row list;
   // cone blocks, flags and the live-cone list; x, a, delta and a scratch
   // vector
-  return (nv <= 32 ? nefc * ld : 0) + 2 * nv * ld + 8 * nefc + 11 * ncg
-         + 4 * nv;
+  return (nv <= 32 ? nefc * ld : 0) + 2 * nv * ld + 8 * nefc
+         + (C * C + 2) * ncg + 4 * nv;
 }
 
 // Force, quadratic-zone weight and cost of one row (solver._diag_terms).
@@ -173,7 +185,8 @@ struct Problem {
   const float* a;
   const float* warm;
   const int* types;
-  const int* ell_rows;   // (ncg, 3): normal, t1, t2 row of each contact
+  const int* ell_rows;   // (ncg, C): normal, then friction rows per contact
+  const int* ell_k;      // (ncg,) rows of each contact (read where C > 3)
   const float* ell_mu;   // (ncg,)
   const float* s_row;    // (nefc,) elliptic row scales
   float* x_out;
@@ -192,10 +205,13 @@ struct Problem {
 // inactive one adds nothing to any cost, force, gradient or Hessian.  The
 // lists are built once per environment, in row order.  They are items
 // 0..nr-1 (rows) and nr..nr+nc-1 (contacts), item i on lane i mod 32; the
-// lane that owns a contact also owns its three rows' residuals.
+// lane that owns a contact also owns its rows' residuals.  C is the
+// layout's largest condim.
+template <int C>
 struct Env {
   const int* types;      // per block
-  const int* rows;
+  const int* rows;       // (ncg, C)
+  const int* kr;         // (ncg,) rows of each contact (C > 3)
   const float* mu;
   const float* scale;
   const float* J;        // per warp (S = 1), or in device memory (S = 2)
@@ -209,7 +225,7 @@ struct Env {
   float* f;
   float* w;
   int* rl;               // live rows
-  float* W;              // (nc, 3, 3) blocks of the live contacts at jar
+  float* W;              // (nc, C, C) blocks of the live contacts at jar
   float* on;             // (nc,) 1 where the live contact adds a block
   int* cl;               // live contacts
   float* x;
@@ -231,11 +247,12 @@ struct Env {
                         float* c_) const {
     row_terms(types[e], jar_e, D[e], fl[e], act[e], f_, w_, c_);
   }
-  // residuals jar + alpha * djar of contact c's three rows
-  __device__ void cone_res(int c, float alpha, float jr[3]) const {
+  // residuals jar + alpha * djar of contact c's C rows (past its own row
+  // count, its normal row's: padding, never used)
+  __device__ void cone_res(int c, float alpha, float jr[C]) const {
 #pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      const int k = rows[3 * c + i];
+    for (int i = 0; i < C; ++i) {
+      const int k = rows[C * c + i];
       jr[i] = alpha == 0.0f ? jar[k] : jar[k] + alpha * djar[k];
     }
   }
@@ -244,10 +261,15 @@ struct Env {
   __device__ void own_rows(Fn fn) const {
     for (int i = lane; i < nr; i += 32) fn(rl[i]);
     for (int k = cone0; k < nc; k += 32) {
-      const int* r = rows + 3 * cl[k];
-      fn(r[0]);
-      fn(r[1]);
-      fn(r[2]);
+      const int* r = rows + C * cl[k];
+      if constexpr (C == 3) {
+        fn(r[0]);
+        fn(r[1]);
+        fn(r[2]);
+      } else {
+        const int n = kr[cl[k]];
+        for (int i = 0; i < n; ++i) fn(r[i]);
+      }
     }
   }
 };
@@ -292,24 +314,89 @@ __device__ __forceinline__ void warp_load(float* dst, const float* src, int n,
     dst[(k / ncols) * ld + k % ncols] = src[k];
 }
 
-// One condim-3 elliptic contact's constants: its rows' scales, the
-// normal row's D and active flag, and mu.
+// One elliptic contact's constants: its rows' scales (0 past its row
+// count), the normal row's D and active flag, mu and, where C > 3, its
+// row count n.
+template <int C>
 struct Cone {
-  float s[3];
+  float s[C];
   float dn;
   float ac;
   float mu;
+  int n;
 };
 
-__device__ __forceinline__ Cone cone_of(const Env& p, int c) {
-  const int* r = p.rows + 3 * c;
-  Cone k;
+template <int C>
+__device__ __forceinline__ Cone<C> cone_of(const Env<C>& p, int c) {
+  const int* r = p.rows + C * c;
+  Cone<C> k;
+  if constexpr (C == 3) {
 #pragma unroll
-  for (int i = 0; i < 3; ++i) k.s[i] = p.scale[r[i]];
+    for (int i = 0; i < 3; ++i) k.s[i] = p.scale[r[i]];
+    k.n = 3;
+  } else {
+    k.n = p.kr[c];
+#pragma unroll
+    for (int i = 0; i < C; ++i) k.s[i] = i < k.n ? p.scale[r[i]] : 0.0f;
+  }
   k.dn = p.D[r[0]];
   k.ac = p.act[r[0]];
   k.mu = p.mu[c];
   return k;
+}
+
+// The same for a contact of k.n <= C rows (C = 6: condim 3, 4 or 6): n =
+// y_0, t = |y_1..n-1|, u = y_1..n-1 / t, v = (1, -mu u), e = (0, u), P =
+// diag(0, 1, .., 1).  Entries past k.n come out 0 (their scales are 0)
+// and are never read.
+template <int C>
+__device__ __forceinline__ bool cone_eval_k(const Cone<C>& k,
+                                            const float jr[C], float f[C],
+                                            float W[C][C], float* cost) {
+  const float ac = k.ac;
+  if (ac == 0.0f) return false;
+  const float dn = k.dn, mu = k.mu;
+  float y[C];
+  float t2 = 0.0f;
+#pragma unroll
+  for (int i = 0; i < C; ++i) {
+    y[i] = i < k.n ? jr[i] * k.s[i] : 0.0f;
+    if (i > 0) t2 += y[i] * y[i];
+  }
+  const float n = y[0];
+  const float t = sqrtf(fmaxf(t2, 1e-30f));
+  if (n >= mu * t) return false;                      // top
+  if (mu * n <= -t) {                                  // bottom
+#pragma unroll
+    for (int i = 0; i < C; ++i) {
+      f[i] = -dn * y[i] * k.s[i] * ac;
+#pragma unroll
+      for (int j = 0; j < C; ++j)
+        W[i][j] = i == j ? dn * k.s[i] * k.s[i] * ac : 0.0f;
+    }
+    *cost = 0.5f * dn * (n * n + t2) * ac;
+  } else {                                             // middle
+    const float mu2p1 = 1.0f + mu * mu;
+    const float fn = dn * (mu * t - n) / mu2p1;
+    const float cv = dn / mu2p1, ce = mu * fn / t;
+    float u[C], v[C];
+#pragma unroll
+    for (int i = 0; i < C; ++i) {
+      u[i] = i > 0 ? y[i] / t : 0.0f;
+      v[i] = i > 0 ? -mu * u[i] : 1.0f;
+      f[i] = (i > 0 ? -mu * fn * u[i] : fn) * k.s[i] * ac;
+    }
+#pragma unroll
+    for (int i = 0; i < C; ++i)
+#pragma unroll
+      for (int j = 0; j < C; ++j)
+        W[i][j] = (cv * v[i] * v[j]
+                   + ce * ((i == j && i > 0 ? 1.0f : 0.0f) - u[i] * u[j]))
+                  * k.s[i] * k.s[j] * ac;
+    const float g = mu * t - n;
+    *cost = 0.5f * dn * g * g / mu2p1 * ac;
+  }
+  return true;
 }
 
 // Row forces f, cost and Hessian block W (in the raw residuals jr) of a
@@ -317,9 +404,13 @@ __device__ __forceinline__ Cone cone_of(const Env& p, int c) {
 // Returns false, with nothing written, where the contact is inactive or
 // in the top zone: it then adds nothing.  (The solve itself visits only
 // active contacts; the check keeps the function whole.)
-__device__ __forceinline__ bool cone_eval(const Cone& k, const float jr[3],
-                                          float f[3], float W[3][3],
+template <int C>
+__device__ __forceinline__ bool cone_eval(const Cone<C>& k, const float jr[C],
+                                          float f[C], float W[C][C],
                                           float* cost) {
+  if constexpr (C > 3) {
+    return cone_eval_k<C>(k, jr, f, W, cost);
+  } else {
   const float ac = k.ac;
   if (ac == 0.0f) return false;
   const float dn = k.dn, mu = k.mu;
@@ -367,12 +458,14 @@ __device__ __forceinline__ bool cone_eval(const Cone& k, const float jr[3],
     for (int j = 0; j < 3; ++j) W[i][j] = Ws[i][j] * s[i] * s[j] * ac;
   }
   return true;
+  }
 }
 
-__device__ __forceinline__ bool cone_terms(const Env& p, int c,
-                                           const float jr[3], float f[3],
-                                           float W[3][3], float* cost) {
-  return cone_eval(cone_of(p, c), jr, f, W, cost);
+template <int C>
+__device__ __forceinline__ bool cone_terms(const Env<C>& p, int c,
+                                           const float jr[C], float f[C],
+                                           float W[C][C], float* cost) {
+  return cone_eval<C>(cone_of<C>(p, c), jr, f, W, cost);
 }
 
 // A live row or contact as the line search sees it: constants, residual
@@ -386,23 +479,26 @@ struct RowReg {
   float dj;
 };
 
+template <int C>
 struct ConeReg {
-  Cone k;
-  float jar[3];
-  float dj[3];
+  Cone<C> k;
+  float jar[C];
+  float dj[C];
 };
 
-__device__ __forceinline__ RowReg row_reg(const Env& p, int e) {
+template <int C>
+__device__ __forceinline__ RowReg row_reg(const Env<C>& p, int e) {
   return {p.types[e], p.D[e], p.fl[e], p.act[e], p.jar[e], p.djar[e]};
 }
 
-__device__ __forceinline__ ConeReg cone_reg(const Env& p, int c) {
-  ConeReg r;
-  r.k = cone_of(p, c);
+template <int C>
+__device__ __forceinline__ ConeReg<C> cone_reg(const Env<C>& p, int c) {
+  ConeReg<C> r;
+  r.k = cone_of<C>(p, c);
 #pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    r.jar[i] = p.jar[p.rows[3 * c + i]];
-    r.dj[i] = p.djar[p.rows[3 * c + i]];
+  for (int i = 0; i < C; ++i) {
+    r.jar[i] = p.jar[p.rows[C * c + i]];
+    r.dj[i] = p.djar[p.rows[C * c + i]];
   }
   return r;
 }
@@ -417,23 +513,38 @@ __device__ __forceinline__ void row_phi(const RowReg& r, float alpha,
   *pw += w * r.dj * r.dj;
 }
 
-__device__ __forceinline__ void cone_phi(const ConeReg& r, float alpha,
+template <int C>
+__device__ __forceinline__ void cone_phi(const ConeReg<C>& r, float alpha,
                                          float* pf, float* pw) {
-  float jr[3], f[3], W[3][3], cost;
+  float jr[C], f[C], W[C][C], cost;
 #pragma unroll
-  for (int i = 0; i < 3; ++i)
+  for (int i = 0; i < C; ++i)
     jr[i] = alpha == 0.0f ? r.jar[i] : r.jar[i] + alpha * r.dj[i];
-  if (!cone_eval(r.k, jr, f, W, &cost)) return;
+  if (!cone_eval<C>(r.k, jr, f, W, &cost)) return;
   const float* dj = r.dj;
+  if constexpr (C == 3) {
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
     *pf += f[i] * dj[i];
     *pw += dj[i] * (W[i][0] * dj[0] + W[i][1] * dj[1] + W[i][2] * dj[2]);
   }
+  } else {
+#pragma unroll
+    for (int i = 0; i < C; ++i) {
+      if (i >= r.k.n) break;
+      float wd = 0.0f;
+#pragma unroll
+      for (int j = 0; j < C; ++j)
+        if (j < r.k.n) wd += W[i][j] * dj[j];
+      *pf += f[i] * dj[i];
+      *pw += dj[i] * wd;
+    }
+  }
 }
 
 // This lane's share of the row and cone costs at jar + alpha * djar.
-__device__ __forceinline__ float cost_part(const Env& p, float alpha) {
+template <int C>
+__device__ __forceinline__ float cost_part(const Env<C>& p, float alpha) {
   float total = 0.0f;
   for (int i = p.lane; i < p.nr; i += 32) {
     const int e = p.rl[i];
@@ -442,17 +553,17 @@ __device__ __forceinline__ float cost_part(const Env& p, float alpha) {
     total += c;
   }
   for (int k = p.cone0; k < p.nc; k += 32) {
-    float jr[3], f[3], W[3][3], cost;
+    float jr[C], f[C], W[C][C], cost;
     p.cone_res(p.cl[k], alpha, jr);
-    if (cone_terms(p, p.cl[k], jr, f, W, &cost)) total += cost;
+    if (cone_terms<C>(p, p.cl[k], jr, f, W, &cost)) total += cost;
   }
   return total;
 }
 
 // 0.5 vec' M vec over the warp (vec in shared memory); for each of its
 // dofs u = lane + 32 k < nv a lane gets (M vec)[u] in mv[k] (0 past nv).
-template <int S>
-__device__ __forceinline__ float quad(const Env& p, const float* vec,
+template <int S, int C>
+__device__ __forceinline__ float quad(const Env<C>& p, const float* vec,
                                       float mv[S]) {
   float q = 0.0f;
 #pragma unroll
@@ -472,7 +583,8 @@ __device__ __forceinline__ float quad(const Env& p, const float* vec,
 
 // Row forces f and weights w, and the live contacts' blocks, at jar.
 // Rows that are not live keep the force 0 they were given at the start.
-__device__ __forceinline__ void eval_terms(const Env& p) {
+template <int C>
+__device__ __forceinline__ void eval_terms(const Env<C>& p) {
   __syncwarp();
   for (int i = p.lane; i < p.nr; i += 32) {
     const int e = p.rl[i];
@@ -483,22 +595,25 @@ __device__ __forceinline__ void eval_terms(const Env& p) {
   }
   for (int k = p.cone0; k < p.nc; k += 32) {
     const int c = p.cl[k];
-    const int* r = p.rows + 3 * c;
-    float jr[3], f[3], W[3][3], cost;
+    const int* r = p.rows + C * c;
+    const int n = C == 3 ? 3 : p.kr[c];
+    float jr[C], f[C], W[C][C], cost;
     p.cone_res(c, 0.0f, jr);
-    float* Wk = p.W + 9 * k;
-    if (cone_terms(p, c, jr, f, W, &cost)) {
+    float* Wk = p.W + C * C * k;
+    if (cone_terms<C>(p, c, jr, f, W, &cost)) {
       p.on[k] = 1.0f;
 #pragma unroll
-      for (int i = 0; i < 3; ++i) {
+      for (int i = 0; i < C; ++i) {
+        if (i >= n) break;
         p.f[r[i]] = f[i];
 #pragma unroll
-        for (int j = 0; j < 3; ++j) Wk[3 * i + j] = W[i][j];
+        for (int j = 0; j < C; ++j) Wk[C * i + j] = W[i][j];
       }
     } else {                    // top zone: no force, no block
       p.on[k] = 0.0f;
 #pragma unroll
-      for (int i = 0; i < 3; ++i) p.f[r[i]] = 0.0f;
+      for (int i = 0; i < C; ++i)
+        if (i < n) p.f[r[i]] = 0.0f;
     }
   }
   __syncwarp();
@@ -509,8 +624,8 @@ __device__ __forceinline__ void eval_terms(const Env& p) {
 // in list order; needs eval_terms at x's jar.  A lane's second dof (S = 2)
 // reads column min(lane + 32, nv - 1), kept only where it is below nv, so
 // that every lane runs the same loop.
-template <int S>
-__device__ __forceinline__ void gradient(const Env& p, float mxa[S],
+template <int S, int C>
+__device__ __forceinline__ void gradient(const Env<C>& p, float mxa[S],
                                          float grad[S]) {
   __syncwarp();
 #pragma unroll
@@ -520,7 +635,7 @@ __device__ __forceinline__ void gradient(const Env& p, float mxa[S],
   }
   __syncwarp();
   float m[S];
-  quad<S>(p, p.t, m);
+  quad<S, C>(p, p.t, m);
   float jf[S];
 #pragma unroll
   for (int k = 0; k < S; ++k) jf[k] = 0.0f;
@@ -534,7 +649,8 @@ __device__ __forceinline__ void gradient(const Env& p, float mxa[S],
       if (S == 2) jf[S - 1] += p.j(e, v1) * p.f[e];
     }
     for (int k = 0; k < p.nc; ++k) {
-      const int* r = p.rows + 3 * p.cl[k];
+      const int* r = p.rows + C * p.cl[k];
+      if constexpr (C == 3) {
       jf[0] += p.j(r[0], v) * p.f[r[0]];
       jf[0] += p.j(r[1], v) * p.f[r[1]];
       jf[0] += p.j(r[2], v) * p.f[r[2]];
@@ -542,6 +658,13 @@ __device__ __forceinline__ void gradient(const Env& p, float mxa[S],
         jf[S - 1] += p.j(r[0], v1) * p.f[r[0]];
         jf[S - 1] += p.j(r[1], v1) * p.f[r[1]];
         jf[S - 1] += p.j(r[2], v1) * p.f[r[2]];
+      }
+      } else {
+        const int n = p.kr[p.cl[k]];
+        for (int i = 0; i < n; ++i) {
+          jf[0] += p.j(r[i], v) * p.f[r[i]];
+          if (S == 2) jf[S - 1] += p.j(r[i], v1) * p.f[r[i]];
+        }
       }
     }
   }
@@ -563,7 +686,8 @@ __device__ __forceinline__ void tri_index(int k, int* u, int* v) {
 // H = M + J' diag(w) J + sum_c J_c' W_c J_c, lower triangle, the
 // nv (nv + 1) / 2 entries spread over the lanes: each lane sums entries k
 // and k + 32 in one pass over the live rows and contacts.
-__device__ __forceinline__ void build_h(const Env& p) {
+template <int C>
+__device__ __forceinline__ void build_h(const Env<C>& p) {
   const int nt = p.nv * (p.nv + 1) / 2, ld = p.ld, ldj = p.ldj;
   for (int k = p.lane; k < nt; k += 64) {
     const bool two = k + 32 < nt;
@@ -581,8 +705,24 @@ __device__ __forceinline__ void build_h(const Env& p) {
     }
     for (int c = 0; c < p.nc; ++c) {
       if (p.on[c] == 0.0f) continue;
-      const int* r = p.rows + 3 * p.cl[c];
-      const float* W = p.W + 9 * c;
+      const int* r = p.rows + C * p.cl[c];
+      const float* W = p.W + C * C * c;
+      if constexpr (C > 3) {
+        // (W J_c)[:, u] over the contact's n rows, then J_c[:, v]' of it
+        const int n = p.kr[p.cl[c]];
+        for (int i = 0; i < n; ++i) {
+          float wj = 0.0f, wk = 0.0f;
+          for (int j = 0; j < n; ++j) {
+            const float* Jj = p.J + r[j] * ldj;
+            wj += W[C * i + j] * Jj[u0];
+            wk += W[C * i + j] * Jj[u1];
+          }
+          const float* Ji = p.J + r[i] * ldj;
+          h0 += Ji[v0] * wj;
+          h1 += Ji[v1] * wk;
+        }
+        continue;
+      }
       const float* J0 = p.J + r[0] * ldj;
       const float* J1 = p.J + r[1] * ldj;
       const float* J2 = p.J + r[2] * ldj;
@@ -607,8 +747,8 @@ __device__ __forceinline__ void build_h(const Env& p) {
 // same order, as the right-looking loop), the pivot goes from row j's lane
 // to the others by shuffle, and one __syncwarp publishes the column.  A
 // lane owns rows lane + 32 k, k < S.
-template <int S>
-__device__ __forceinline__ void cholesky(const Env& p) {
+template <int S, int C>
+__device__ __forceinline__ void cholesky(const Env<C>& p) {
   const int ld = p.ld;
   for (int j = 0; j < p.nv; ++j) {
     float s[S];
@@ -639,8 +779,8 @@ __device__ __forceinline__ void cholesky(const Env& p) {
 // before, and an IEEE division is a long instruction sequence, so each lane
 // takes the reciprocal of its own pivots once, all lanes at a time, and the
 // steps multiply by it (within ~1.5 ulp of the quotient).
-template <int S>
-__device__ __forceinline__ void newton_step(const Env& p, const float grad[S],
+template <int S, int C>
+__device__ __forceinline__ void newton_step(const Env<C>& p, const float grad[S],
                                             float d[S]) {
   const int ld = p.ld;
   float inv[S];
@@ -681,7 +821,7 @@ __device__ __forceinline__ float sum_sq(const float v[S]) {
   return s;
 }
 
-template <int S>
+template <int S, int C>
 __global__ void __launch_bounds__(MAX_WARPS * 32)
 newton_kernel(Problem q, int niter, int ls_iter, float tol, float scale) {
   extern __shared__ float smem[];
@@ -690,23 +830,28 @@ newton_kernel(Problem q, int niter, int ls_iter, float tol, float scale) {
   int* s_types = reinterpret_cast<int*>(smem);
   float* s_scale = smem + nefc;
   int* s_rows = reinterpret_cast<int*>(s_scale + nefc);
-  float* s_mu = smem + 2 * nefc + 3 * ncg;
+  float* s_mu = smem + 2 * nefc + C * ncg;
+  int* s_k = reinterpret_cast<int*>(s_mu + ncg);    // C > 3 only
   for (int k = threadIdx.x; k < nefc; k += blockDim.x) {
     s_types[k] = q.types[k];
     s_scale[k] = ncg > 0 ? q.s_row[k] : 1.0f;
   }
-  for (int k = threadIdx.x; k < 3 * ncg; k += blockDim.x)
+  for (int k = threadIdx.x; k < C * ncg; k += blockDim.x)
     s_rows[k] = q.ell_rows[k];
-  for (int k = threadIdx.x; k < ncg; k += blockDim.x) s_mu[k] = q.ell_mu[k];
+  for (int k = threadIdx.x; k < ncg; k += blockDim.x) {
+    s_mu[k] = q.ell_mu[k];
+    if (C > 3) s_k[k] = q.ell_k[k];
+  }
   __syncthreads();
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long long b = (long long)blockIdx.x * (blockDim.x >> 5) + warp;
   if (b >= q.B) return;            // the whole warp: its environment is past B
 
-  Env p;
+  Env<C> p;
   p.types = s_types;
   p.rows = s_rows;
+  p.kr = s_k;
   p.mu = s_mu;
   p.scale = s_scale;
   p.nefc = nefc;
@@ -714,8 +859,8 @@ newton_kernel(Problem q, int niter, int ls_iter, float tol, float scale) {
   p.ncg = ncg;
   p.ld = row_stride(nv);
   p.lane = lane;
-  float* const base = smem + block_words(nefc, ncg)
-                      + warp * warp_words(nefc, nv, ncg);
+  float* const base = smem + block_words(nefc, ncg, C)
+                      + warp * warp_words(nefc, nv, ncg, C);
   if (S == 1) {
     p.J = base;
     p.ldj = p.ld;
@@ -735,7 +880,7 @@ newton_kernel(Problem q, int niter, int ls_iter, float tol, float scale) {
   p.w = p.f + nefc;
   p.rl = reinterpret_cast<int*>(p.w + nefc);
   p.W = p.w + 2 * nefc;
-  p.on = p.W + 9 * ncg;
+  p.on = p.W + C * C * ncg;
   p.cl = reinterpret_cast<int*>(p.on + ncg);
   p.x = p.on + 2 * ncg;
   p.a = p.x + nv;
@@ -766,7 +911,7 @@ newton_kernel(Problem q, int niter, int ls_iter, float tol, float scale) {
     return p.act[e] != 0.0f && s_types[e] <= ONESIDED;
   });
   p.nc = warp_compact(ncg, lane, p.cl, [&](int c) {
-    return p.act[s_rows[3 * c]] != 0.0f;
+    return p.act[s_rows[C * c]] != 0.0f;
   });
   p.cone0 = (lane - p.nr % 32 + 32) % 32;
   __syncwarp();
@@ -794,19 +939,19 @@ newton_kernel(Problem q, int niter, int ls_iter, float tol, float scale) {
   }
   for (int k = p.cone0; k < p.nc; k += 32) {
     const int c = p.cl[k];
-    float jr[3], f[3], W[3][3], cost;
+    float jr[C], f[C], W[C][C], cost;
     p.cone_res(c, 0.0f, jr);
-    if (cone_terms(p, c, jr, f, W, &cost)) part_a += cost;
+    if (cone_terms<C>(p, c, jr, f, W, &cost)) part_a += cost;
 #pragma unroll
-    for (int i = 0; i < 3; ++i) jr[i] = p.djar[p.rows[3 * c + i]];
-    if (cone_terms(p, c, jr, f, W, &cost)) part_w += cost;
+    for (int i = 0; i < C; ++i) jr[i] = p.djar[p.rows[C * c + i]];
+    if (cone_terms<C>(p, c, jr, f, W, &cost)) part_w += cost;
   }
 #pragma unroll
   for (int k = 0; k < S; ++k)
     if (lane + 32 * k < nv) p.t[lane + 32 * k] = w_v[k] - a_v[k];
   __syncwarp();
   float tmp[S];
-  const float quad_w = quad<S>(p, p.t, tmp);
+  const float quad_w = quad<S, C>(p, p.t, tmp);
   warp_sum2(&part_a, &part_w);
   const float cost_a = part_a, cost_w = part_w + quad_w;
   const bool use_warm = cost_w < cost_a;
@@ -821,17 +966,17 @@ newton_kernel(Problem q, int niter, int ls_iter, float tol, float scale) {
     for (int k = 0; k < S; ++k)
       if (lane + 32 * k < nv) p.x[lane + 32 * k] = a_v[k];
   }
-  eval_terms(p);
+  eval_terms<C>(p);
   float mxa[S], grad[S];
-  gradient<S>(p, mxa, grad);
+  gradient<S, C>(p, mxa, grad);
   bool done = !(scale * sqrtf(warp_sum(sum_sq<S>(grad))) >= tol);
 
   int it = 0;
   while (it < niter && !done) {
-    build_h(p);
-    cholesky<S>(p);
+    build_h<C>(p);
+    cholesky<S, C>(p);
     float d_v[S];
-    newton_step<S>(p, grad, d_v);
+    newton_step<S, C>(p, grad, d_v);
 #pragma unroll
     for (int k = 0; k < S; ++k)
       if (lane + 32 * k < nv) p.d[lane + 32 * k] = d_v[k];
@@ -842,7 +987,7 @@ newton_kernel(Problem q, int niter, int ls_iter, float tol, float scale) {
       for (int v = 0; v < nv; ++v) s += p.j(e, v) * p.d[v];
       p.djar[e] = s;
     });
-    float dmd = 2.0f * quad<S>(p, p.d, tmp);
+    float dmd = 2.0f * quad<S, C>(p, p.d, tmp);
     float gma = d_v[0] * mxa[0];
     if (S == 2) gma += d_v[S - 1] * mxa[S - 1];
     gma = warp_sum(gma);
@@ -853,17 +998,17 @@ newton_kernel(Problem q, int niter, int ls_iter, float tol, float scale) {
     float alpha = 1.0f, lo = 0.0f, hi = 4.0f;
     const bool has_row = lane < p.nr, has_cone = p.cone0 < p.nc;
     RowReg row0;
-    ConeReg cone0;
-    if (has_row) row0 = row_reg(p, p.rl[lane]);
-    if (has_cone) cone0 = cone_reg(p, p.cl[p.cone0]);
+    ConeReg<C> cone0;
+    if (has_row) row0 = row_reg<C>(p, p.rl[lane]);
+    if (has_cone) cone0 = cone_reg<C>(p, p.cl[p.cone0]);
     for (int s = 0; s < ls_iter; ++s) {
       float pf = 0.0f, pw = 0.0f;
       if (has_row) row_phi(row0, alpha, &pf, &pw);
       for (int i = lane + 32; i < p.nr; i += 32)
-        row_phi(row_reg(p, p.rl[i]), alpha, &pf, &pw);
-      if (has_cone) cone_phi(cone0, alpha, &pf, &pw);
+        row_phi(row_reg<C>(p, p.rl[i]), alpha, &pf, &pw);
+      if (has_cone) cone_phi<C>(cone0, alpha, &pf, &pw);
       for (int k = p.cone0 + 32; k < p.nc; k += 32)
-        cone_phi(cone_reg(p, p.cl[k]), alpha, &pf, &pw);
+        cone_phi<C>(cone_reg<C>(p, p.cl[k]), alpha, &pf, &pw);
       warp_sum2(&pf, &pw);
       const float dp = gma + alpha * dmd - pf;
       const float ddp = dmd + pw;
@@ -880,7 +1025,7 @@ newton_kernel(Problem q, int niter, int ls_iter, float tol, float scale) {
       if (lane + 32 * k < nv)
         p.t[lane + 32 * k] = x_v[k] + alpha * d_v[k] - a_v[k];
     __syncwarp();
-    float q_new = 0.0f, part = cost_part(p, alpha);
+    float q_new = 0.0f, part = cost_part<C>(p, alpha);
 #pragma unroll
     for (int k = 0; k < S; ++k) {
       const int u = lane + 32 * k;
@@ -904,8 +1049,8 @@ newton_kernel(Problem q, int niter, int ls_iter, float tol, float scale) {
       improvement = scale * (cost - new_cost);
       cost = new_cost;
     }
-    eval_terms(p);
-    gradient<S>(p, mxa, grad);
+    eval_terms<C>(p);
+    gradient<S, C>(p, mxa, grad);
     const float grad_norm = scale * sqrtf(warp_sum(sum_sq<S>(grad)));
     // NaN-robust: a diverged environment stops
     done = !(improvement >= tol && grad_norm >= tol);
@@ -919,7 +1064,7 @@ newton_kernel(Problem q, int niter, int ls_iter, float tol, float scale) {
     for (int v = 0; v < nv; ++v) s += p.j(e, v) * p.x[v];
     p.jar[e] = s;
   });
-  eval_terms(p);
+  eval_terms<C>(p);
   for (int e = lane; e < nefc; e += 32) q.f_out[b * nefc + e] = p.f[e];
 #pragma unroll
   for (int k = 0; k < S; ++k)
@@ -929,45 +1074,51 @@ newton_kernel(Problem q, int niter, int ls_iter, float tol, float scale) {
 
 }  // namespace
 
-template <int S>
+template <int S, int C>
 static int launch(const Problem& q, int niter, int ls_iter, float tol,
                   float scale, int warps, int smem_bytes,
                   cudaStream_t stream) {
   if (smem_bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        newton_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        newton_kernel<S, C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem_bytes);
     if (err != cudaSuccess) return (int)err;
   }
   const unsigned blocks = (unsigned)((q.B + warps - 1) / warps);
-  newton_kernel<S><<<blocks, warps * 32, smem_bytes, stream>>>(
+  newton_kernel<S, C><<<blocks, warps * 32, smem_bytes, stream>>>(
       q, niter, ls_iter, tol, scale);
   return (int)cudaGetLastError();
 }
 
+// cmax: the layout's largest elliptic condim (3 or 6; 3 where it has none)
 extern "C" int dmc_newton_solve(const float* J, const float* M,
                                 const float* aref, const float* D,
                                 const float* fl, const float* active,
                                 const float* a, const float* warm,
                                 const int* types, const int* ell_rows,
-                                const float* ell_mu, const float* s_row,
-                                float* x_out, float* f_out, int* iters_out,
-                                int nefc, int nv, int ncg, int batch,
+                                const int* ell_k, const float* ell_mu,
+                                const float* s_row, float* x_out,
+                                float* f_out, int* iters_out, int nefc,
+                                int nv, int ncg, int cmax, int batch,
                                 int niter, int ls_iter, float tol,
                                 float scale, int warps, int smem_bytes,
                                 void* stream) {
   if (nv < 1 || nv > MAX_NV || nefc < 1 || ncg < 0 || batch < 1 ||
-      warps < 1 || warps > MAX_WARPS)
+      warps < 1 || warps > MAX_WARPS || (cmax != 3 && cmax != 6))
     return (int)cudaErrorInvalidValue;
-  const long long words = block_words(nefc, ncg)
-                          + (long long)warps * warp_words(nefc, nv, ncg);
+  const long long words = block_words(nefc, ncg, cmax)
+                          + (long long)warps * warp_words(nefc, nv, ncg, cmax);
   if (4 * words != smem_bytes || smem_bytes > SMEM_LIMIT)
     return (int)cudaErrorInvalidValue;
-  Problem q{J, M, aref, D, fl, active, a, warm, types, ell_rows, ell_mu,
-            s_row, x_out, f_out, iters_out, nefc, nv, ncg, (long long)batch};
+  Problem q{J, M, aref, D, fl, active, a, warm, types, ell_rows, ell_k,
+            ell_mu, s_row, x_out, f_out, iters_out, nefc, nv, ncg,
+            (long long)batch};
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (cmax == 3)
+    return nv <= 32
+        ? launch<1, 3>(q, niter, ls_iter, tol, scale, warps, smem_bytes, st)
+        : launch<2, 3>(q, niter, ls_iter, tol, scale, warps, smem_bytes, st);
   return nv <= 32
-      ? launch<1>(q, niter, ls_iter, tol, scale, warps, smem_bytes,
-                  (cudaStream_t)stream)
-      : launch<2>(q, niter, ls_iter, tol, scale, warps, smem_bytes,
-                  (cudaStream_t)stream);
+      ? launch<1, 6>(q, niter, ls_iter, tol, scale, warps, smem_bytes, st)
+      : launch<2, 6>(q, niter, ls_iter, tol, scale, warps, smem_bytes, st);
 }

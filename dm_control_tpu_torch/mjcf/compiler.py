@@ -1,7 +1,7 @@
 """MJCF-subset XML -> `Model` compiler (host-side, numpy, build-time only).
 
 The port's own copy of `dm_control_tpu/mjcf/compiler.py`, emitting the
-port's `Model`; mesh assets are not supported yet and raise.
+port's `Model`, mesh assets included (`meshes.py`).
 
 Covers the MJCF feature surface exercised by the reference Control Suite
 models (SURVEY.md section 2.6): bodies/joints/geoms/sites, nested defaults
@@ -448,13 +448,18 @@ class MJCFCompiler:
     self._parse_mesh_assets()
 
   def _parse_mesh_assets(self):
+    from dm_control_tpu_torch.mjcf import meshes
     self._hfields = {}      # name -> dict(size, nrow, ncol)
     self._hfield_order = []
     for asset in self.root.findall('asset'):
       for me in asset.findall('mesh'):
-        # the mesh loader is not part of the port yet
-        raise NotImplementedError(
-            f'mesh asset {me.attrib.get("name", me.attrib.get("file"))!r}')
+        a = self._attrs(me, me.attrib.get('class', 'main'))
+        fname = a['file']
+        name = a.get('name', os.path.splitext(os.path.basename(fname))[0])
+        path = os.path.join(self.base_dir, self.meshdir, fname)
+        scale = _floats(a['scale']) if 'scale' in a else None
+        self._mesh_assets[name] = meshes.MeshAsset(name, path, scale)
+        self._mesh_order.append(name)
       for hf in asset.findall('hfield'):
         a = dict(hf.attrib)
         name = a['name']

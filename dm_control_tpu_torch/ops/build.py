@@ -40,11 +40,12 @@ _SIGNATURES = {
     'dmc_chol_solve': (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     # (l, b, x, n, batch, envs, threads, smem_bytes, stream)
     'dmc_cho_solve': (_P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # (J, M, aref, D, fl, active, a, warm, types, ell_rows, ell_mu, s_row,
-    #  x, f, iters, nefc, nv, ncg, batch, niter, ls_iter, tol, scale,
-    #  warps, smem_bytes, stream)
+    # (J, M, aref, D, fl, active, a, warm, types, ell_rows, ell_k, ell_mu,
+    #  s_row, x, f, iters, nefc, nv, ncg, cmax, batch, niter, ls_iter, tol,
+    #  scale, warps, smem_bytes, stream)
     'dmc_newton_solve': (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                         _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _P),
+                         _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I,
+                         _I, _P),
 }
 
 _lib = None

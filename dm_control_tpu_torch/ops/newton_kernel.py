@@ -13,11 +13,13 @@ on layouts without elliptic cones and as K2-ell (the TPU kernel's
 `ell_terms` branch) on layouts with them.  The kernel runs one warp per
 environment with its problem in shared memory and reads the batch-first
 tensors as they are: one dof per lane and J in shared memory up to nv 32,
-two dofs per lane and J read from device memory past it.  Its own limits
-replace the TPU kernel's VMEM gate: nv <= MAX_NV (the TPU kernel's own
-limit), condim-3 elliptic contacts, and one environment's problem within a
-block's shared memory (`launch_config`); anything else raises on the
-card.
+two dofs per lane and J read from device memory past it.  Elliptic
+contacts of every condim the TPU kernel takes (3, 4 and 6, mixed in one
+layout) go to one instantiation per layout's largest condim (C = 3, or 6
+where any contact has 4 or 6 rows).  Its own limits replace the TPU
+kernel's VMEM gate: nv <= MAX_NV (the TPU kernel's own limit) and one
+environment's problem within a block's shared memory (`launch_config`);
+anything else raises on the card.
 """
 
 from __future__ import annotations
@@ -37,6 +39,9 @@ LANE_NV = 32
 MAX_WARPS = 4
 # dynamic shared memory one block may use on sm_90 (227 KB)
 SMEM_LIMIT = 232448
+# the largest elliptic condims the kernel is instantiated for
+# (csrc/newton_kernel.cu newton_kernel<S, C>)
+CONE_WIDTHS = (3, 6)
 
 # launches of each kernel since the last reset_launches() (plain-version
 # calls do not count): K2 and K2-ell
@@ -267,26 +272,31 @@ def newton_solve_plain(J, M, aref, d_, fl, active, a, warm, *, types, niter,
 # ---------------------------------------------------------------------------
 
 
-def launch_config(nefc: int, nv: int, ncg: int) -> tuple[int, int]:
+def launch_config(nefc: int, nv: int, ncg: int,
+                  cmax: int = 3) -> tuple[int, int]:
   """(warps per block, dynamic shared bytes) of the kernel for a layout.
 
   Mirrors the kernel's shared-memory carve (`block_words`, `warp_words`
   in csrc/newton_kernel.cu, which checks the bytes again): per block the
-  row types and scales and the contact table; per warp J (only where nv
-  <= LANE_NV; past it J stays in device memory), M and H with rows padded
+  row types and scales and the contact table (cmax rows, mu and, where
+  cmax > 3, the row count per contact); per warp J (only where nv <=
+  LANE_NV; past it J stays in device memory), M and H with rows padded
   to an odd stride, seven row vectors and the live-row list, the contact
-  blocks, flags and live-contact list, and four dof vectors, all 4-byte
-  words.  Takes MAX_WARPS environments per block, fewer where they do not
-  fit, and raises where one does not.
+  blocks (cmax^2 each), flags and live-contact list, and four dof
+  vectors, all 4-byte words.  Takes MAX_WARPS environments per block,
+  fewer where they do not fit, and raises where one does not.
   """
+  if cmax not in CONE_WIDTHS:
+    raise ValueError(f'cmax={cmax}: the kernel takes {CONE_WIDTHS}')
   ld = nv | 1
-  block = 2 * nefc + 4 * ncg
+  block = 2 * nefc + (cmax + 1) * ncg + (ncg if cmax > 3 else 0)
   warp = ((nefc * ld if nv <= LANE_NV else 0) + 2 * nv * ld + 8 * nefc
-          + 11 * ncg + 4 * nv)
+          + (cmax * cmax + 2) * ncg + 4 * nv)
   fit = (SMEM_LIMIT // 4 - block) // warp
   if fit < 1:
     raise ValueError(
-        f'newton kernel: one environment (nefc={nefc}, nv={nv}, ncg={ncg}) '
+        f'newton kernel: one environment (nefc={nefc}, nv={nv}, ncg={ncg}, '
+        f'cmax={cmax}) '
         f'needs {4 * (block + warp)} bytes of shared memory, over the '
         f'{SMEM_LIMIT} a block has')
   warps = min(MAX_WARPS, fit)
@@ -302,24 +312,39 @@ def _types_on(lay: efc.Layout, device) -> torch.Tensor:
   return t
 
 
+def cone_width(lay: efc.Layout) -> int:
+  """The kernel's C for a layout: 3, or 6 where an elliptic contact has
+  more than 3 rows."""
+  return 3 if max(lay.ell_groups, default=3) <= 3 else 6
+
+
+def cone_tables(lay: efc.Layout):
+  """K2-ell's per-layout tables in numpy: the elliptic contacts of every
+  condim flattened in condim order (the TPU kernel's `_Static`), each
+  contact's rows (ncg, C) int32 (normal row first, padded past its own
+  row count with its normal row), its row count (ncg,) int32, mu (ncg,)
+  and the (nefc,) row scales (1 outside elliptic rows), float32."""
+  C = cone_width(lay)
+  rows_c, k_c, mu_c = [], [], []
+  s_row = np.ones(lay.nefc, np.float32)
+  for k, (rows, mu, scale) in sorted(lay.ell_groups.items()):
+    padded = np.repeat(rows[:, :1], C, axis=1)
+    padded[:, :k] = rows
+    rows_c.append(padded)
+    k_c.append(np.full(len(rows), k))
+    mu_c.append(mu)
+    s_row[rows] = scale
+  cat = lambda x, shape: np.concatenate(x) if x else np.zeros(shape)
+  return (cat(rows_c, (0, C)).astype(np.int32), cat(k_c, 0).astype(np.int32),
+          cat(mu_c, 0).astype(np.float32), s_row)
+
+
 def _cones_on(lay: efc.Layout, device):
-  """K2-ell's per-layout inputs on `device`: each contact's normal and
-  friction rows (ncg, 3) int32, mu (ncg,) and the (nefc,) row scales
-  (1 outside elliptic rows), all float32."""
+  """`cone_tables` as tensors on `device`."""
   key = ('cones', str(device))
   t = lay._cache.get(key)
   if t is None:
-    bad = sorted(k for k in lay.ell_groups if k != 3)
-    if bad:
-      raise NotImplementedError(
-          f'K2-ell takes condim-3 elliptic contacts only; this layout has '
-          f'condim {bad}')
-    rows, mu, scale = lay.ell_groups[3]
-    s_row = np.ones(lay.nefc, np.float32)
-    s_row[rows] = scale
-    t = (torch.as_tensor(rows, dtype=torch.int32, device=device),
-         torch.as_tensor(mu, dtype=torch.float32, device=device),
-         torch.as_tensor(s_row, device=device))
+    t = tuple(torch.as_tensor(x, device=device) for x in cone_tables(lay))
     lay._cache[key] = t
   return t
 
@@ -364,20 +389,21 @@ def newton_solve_batched(J, M, aref, d_, fl, active, a, warm, *, lay,
 
   cones = _cones_on(lay, J.device) if lay.ell_groups else None
   ncg = cones[0].shape[0] if cones else 0
-  warps, smem = launch_config(nefc, nv, ncg)
+  cmax = cone_width(lay)
+  warps, smem = launch_config(nefc, nv, ncg, cmax)
   # batch-first as the port holds them: no transposing copy
   ins = [t.contiguous() for t in (J, M, aref, d_, fl, active, a, warm)]
   x = torch.empty((B, nv), dtype=torch.float32, device=J.device)
   f = torch.empty((B, nefc), dtype=torch.float32, device=J.device)
   iters = torch.empty((B,), dtype=torch.int32, device=J.device)
   scale = 1.0 / (max(meaninertia, 1e-12) * max(nv, 1))
-  ptrs = [t.data_ptr() for t in cones] if cones else [None, None, None]
+  ptrs = [t.data_ptr() for t in cones] if cones else [None] * 4
   lib = build.library()
   err = lib.dmc_newton_solve(
       *[t.data_ptr() for t in ins], _types_on(lay, J.device).data_ptr(),
-      *ptrs, x.data_ptr(), f.data_ptr(), iters.data_ptr(), nefc, nv, ncg, B,
-      int(niter), int(ls_iter), float(tol), float(scale), warps, smem,
-      torch.cuda.current_stream().cuda_stream)
+      *ptrs, x.data_ptr(), f.data_ptr(), iters.data_ptr(), nefc, nv, ncg,
+      cmax, B, int(niter), int(ls_iter), float(tol), float(scale), warps,
+      smem, torch.cuda.current_stream().cuda_stream)
   build.check(err, 'dmc_newton_solve')
   LAUNCHES['newton_solve_ell' if ncg else 'newton_solve_batched'] += 1
   if return_iters:

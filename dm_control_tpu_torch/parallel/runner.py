@@ -3,7 +3,8 @@
 The port of `dm_control_tpu/parallel/runner.py`.  One `step` advances B
 environments in lockstep:
 
-  actions (B, nu) -> physics substeps -> obs/reward/done -> auto-reset lanes
+  actions (B, na) -> [task.before_step] -> physics substeps ->
+  obs/reward/done -> auto-reset lanes
 
 Auto-reset keeps the reference's episode semantics: a lane whose episode
 ends (time limit, task termination, divergence) returns its terminal
@@ -17,7 +18,10 @@ initial batch's integration states, of which a done lane takes entry
 `pool_index(episode_id, lane, B)`, the JAX package's lane permutation.
 A lane's per-episode model overrides (`Data.model_var`, e.g. reacher's
 target `geom_pos`) are part of its integration state: the pool and the
-auto-reset carry them per lane with the rest.
+auto-reset carry them per lane with the rest.  A task's `before_step`
+(jaco's) maps the actions to controls first, as the JAX package's
+single-environment `control.Environment` does; its batched runner passes
+actions on as controls and has no such adapter beside it.
 """
 
 from __future__ import annotations
@@ -98,8 +102,11 @@ class BatchedEnv:
     Returns (new_state, (obs, reward, done, discount)); obs is the
     pre-reset observation of each lane."""
     m, task = self.model, self.task
-    d = _forward.substeps(m, state.data.replace(ctrl=actions),
-                          self.n_sub_steps)
+    if task.before_step is not None:
+      d = task.before_step(m, state.data, actions)
+    else:
+      d = state.data.replace(ctrl=actions)
+    d = _forward.substeps(m, d, self.n_sub_steps)
     reward = task.get_reward(m, d)
     obs = task.get_observation(m, d)
     step_count = state.step_count + 1
@@ -134,20 +141,26 @@ class BatchedEnv:
   def rollout_fn(self, n_steps: int):
     """A (state, generator) -> (state, rewards (n_steps, B)) loop.
 
-    Actions are drawn uniformly in the control range (throughput
-    benchmarking); learners call `step` with their policy's actions."""
+    Actions are drawn uniformly in the control range, or in the task's
+    `action_bounds` (throughput benchmarking); learners call `step` with
+    their policy's actions."""
     m = self.model
     B, dtype = self.batch_size, self.dtype
     ref = torch.empty(0, dtype=dtype, device=self.device)
-    lo = mirror(m, ref, np.where(m.actuator_ctrllimited,
-                                 m.actuator_ctrlrange[:, 0], -1.0))
-    hi = mirror(m, ref, np.where(m.actuator_ctrllimited,
-                                 m.actuator_ctrlrange[:, 1], 1.0))
+    if self.task.action_bounds is not None:
+      lo, hi = (mirror(m, ref, np.asarray(b, np.float64))
+                for b in self.task.action_bounds())
+    else:
+      lo = mirror(m, ref, np.where(m.actuator_ctrllimited,
+                                   m.actuator_ctrlrange[:, 0], -1.0))
+      hi = mirror(m, ref, np.where(m.actuator_ctrllimited,
+                                   m.actuator_ctrlrange[:, 1], 1.0))
+    na = lo.shape[0]
 
     def run(state: RunnerState, generator: torch.Generator):
       rewards = []
       for _ in range(n_steps):
-        u = torch.rand((B, m.nu), generator=generator, dtype=dtype,
+        u = torch.rand((B, na), generator=generator, dtype=dtype,
                        device=self.device)
         state, (_, reward, _, _) = self.step(state, lo + (hi - lo) * u)
         rewards.append(reward)

@@ -23,6 +23,12 @@ class TaskDef:
     get_observation(model, data) -> dict[str, (B, ...) tensor]
     get_reward(model, data) -> (B,) tensor
     get_termination(model, data) -> (B,) bool tensor (optional)
+    before_step(model, data, action) -> Data      (optional) the agent's
+        action (B, na) to controls and per-lane task state (the reference
+        Task.before_step); without it the action is the controls
+    action_bounds() -> (minimum (na,), maximum (na,)) numpy (optional)
+        the action's range where before_step takes another than the
+        controls' (jaco's 7 arm joints, its relative steps)
 
   `init_episode` draws its randomness from the torch.Generator it is
   given, on the data's device.
@@ -33,6 +39,8 @@ class TaskDef:
   get_observation: Callable[[Model, Data], dict]
   get_reward: Callable[[Model, Data], torch.Tensor]
   get_termination: Optional[Callable[[Model, Data], torch.Tensor]] = None
+  before_step: Optional[Callable[[Model, Data, torch.Tensor], Data]] = None
+  action_bounds: Optional[Callable[[], tuple]] = None
   control_timestep: Optional[float] = None  # default: physics timestep
   # True when init_episode is expensive (finger's collision-free
   # rejection sampling): BatchedEnv then auto-resets done lanes from a

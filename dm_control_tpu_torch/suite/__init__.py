@@ -7,8 +7,10 @@ swingup_sparse, two_poles, three_poles), acrobot (swingup,
 swingup_sparse), point_mass (easy, hard), ball_in_cup (catch), swimmer
 (swimmer6, swimmer15), fish (upright, swim), humanoid (stand, walk, run,
 run_pure_state), humanoid_CMU (stand, run), quadruped (walk, run, escape,
-fetch), manipulator (bring_ball, bring_peg, insert_ball, insert_peg) and
-stacker (stack_2, stack_4); the other domains (dog, lqr) raise.
+fetch), manipulator (bring_ball, bring_peg, insert_ball, insert_peg),
+stacker (stack_2, stack_4), lqr (lqr_2_1, lqr_6_2) and jaco
+(position_reacher_7DOF, relative_position_reacher_7DOF,
+configurable_reacher); the one other domain (dog) raises.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from dm_control_tpu_torch.rl import control
 DOMAINS = ('walker', 'finger', 'cheetah', 'hopper', 'pendulum', 'reacher',
            'cartpole', 'acrobot', 'point_mass', 'ball_in_cup', 'swimmer',
            'fish', 'humanoid', 'humanoid_CMU', 'quadruped', 'manipulator',
-           'stacker')
+           'stacker', 'lqr', 'jaco')
 
 
 def build_task(domain_name: str, task_name: str,

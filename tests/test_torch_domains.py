@@ -601,3 +601,220 @@ def test_slice_layout_matches_jax(what, nv, nefc):
   equal the JAX package's: pyramidal, at the nv and nefc K2 takes."""
   m, lay = _check_layout(*what.split('-'))
   assert (m.nv, lay.nefc, lay.ell_groups) == (nv, nefc, {})
+
+
+# -- the eleventh slice: the cone model, jaco, lqr ---------------------------
+
+
+def test_cone_model_matches_jax():
+  """The cone model (`chip_smoke.cones_xml`: elliptic cones of condim 6,
+  4 and 3 on free bodies) through `engine.load_model_from_string` on both
+  sides: its layout equals the JAX package's, and 5 physics steps of 8
+  lanes of `chip_smoke.cone_states` (bodies on the floor, stacked, the rod
+  against the box) keep qpos and qvel within TOL of the JAX package's
+  substeps, step by step, with live cones of every condim."""
+  import chip_smoke
+  from dm_control_tpu._src import efc as jefc
+  from dm_control_tpu._src import engine as jengine
+  from dm_control_tpu_torch._src import efc
+  from dm_control_tpu_torch._src import engine
+  xml = chip_smoke.cones_xml(1)
+  jm = jengine.load_model_from_string(xml)
+  m = engine.load_model_from_string(xml, device='cpu')
+  jlay, lay = jefc.layout(jm), efc.layout(m)
+  assert (m.nv, lay.nefc) == (jm.nv, jlay.nefc) == (18, 48)
+  np.testing.assert_array_equal(lay.types, jlay.types)
+  assert lay.ell_groups.keys() == jlay.ell_groups.keys() == {3, 4, 6}
+  for k in lay.ell_groups:
+    for a, b in zip(lay.ell_groups[k], jlay.ell_groups[k]):
+      np.testing.assert_array_equal(a, b)
+  qpos, qvel = chip_smoke.cone_states(jm, BATCH, np.random.RandomState(8))
+  jd = _jax_batch(lambda q, v: jforward.make_data(jm).replace(qpos=q, qvel=v))(
+      jnp.asarray(qpos), jnp.asarray(qvel))
+  ctrl = jnp.zeros((BATCH, 0))
+  jsub = _jax_substeps(jm, 1)
+  d = forward.make_data(m, BATCH, torch.float64, 'cpu').replace(
+      qpos=torch.tensor(qpos), qvel=torch.tensor(qvel))
+  err, live = 0.0, set()
+  for _ in range(STEPS):
+    jd = jsub(jd, ctrl)
+    d = forward.substeps(m, d, 1)
+    err = max(err, _scaled(d.qpos.numpy(), jd.qpos),
+              _scaled(d.qvel.numpy(), jd.qvel))
+    for k, (rows, _, _) in lay.ell_groups.items():
+      if bool(d.efc_active[:, rows[:, 0]].any()):
+        live.add(k)
+  print(f'cone model: {STEPS} physics steps, max scaled err {err:.2e}')
+  assert err <= TOL and live == {3, 4, 6}
+
+
+_JACO_HOME = np.array([4.92, 2.839, 0.0, .758, 4.6366, 4.493, 5.0249, 1.1,
+                       0.1, 1.1, 0.1, 1.1, 0.1])
+
+
+@pytest.mark.parametrize('task_name', ['position_reacher_7DOF',
+                                       'relative_position_reacher_7DOF',
+                                       'configurable_reacher'])
+def test_jaco_matches_jax(task_name):
+  """jaco's tasks: `before_step` on 8 lanes near home with numpy actions
+  in the task's bounds (and beyond them, and at a pose whose DH extremes
+  leave the fence) gives the JAX package's controls and penalty; then 3
+  RK4 physics steps (not a whole control step: 100 of them) from those
+  controls with the target per lane, and the reward (penalty included)
+  and observations there, within TOL of the JAX package's."""
+  jtask = jsuite.build_task('jaco', task_name)
+  task = suite.build_task('jaco', task_name, device='cpu')
+  jm, m = jtask.model, task.model
+  assert task.n_sub_steps() == jtask.n_sub_steps() == 100
+  rng = np.random.RandomState(9)
+  qpos = _JACO_HOME + 0.3 * rng.randn(BATCH, m.nq)
+  qpos[0, 1] = 5.2                       # the arm down: past the fence
+  qvel = 0.3 * rng.randn(BATCH, m.nv)
+  target = rng.uniform(-0.5, 0.5, (BATCH, 3)) + [0.0, 0.0, 0.5]
+  geom_pos = np.tile(jm.geom_pos, (BATCH, 1, 1))
+  geom_pos[:, jm.name2id('geom', 'target')] = target
+  lo, hi = task.action_bounds()
+  spec = jtask.action_spec_fn()
+  np.testing.assert_array_equal(lo, spec.minimum)
+  np.testing.assert_array_equal(hi, spec.maximum)
+  action = rng.uniform(lo, hi, (BATCH, len(lo)))
+  action[1] = 2 * hi                     # beyond the bounds: clipped
+  mv = {'geom_pos': geom_pos, '_jaco_penalty': np.zeros(BATCH)}
+  d0 = jforward.make_data(jm)
+  jd = _jax_batch(lambda q, v, g, p: d0.replace(
+      qpos=q, qvel=v, model_var={'geom_pos': g, '_jaco_penalty': p}))(
+          *map(jnp.asarray, (qpos, qvel, geom_pos, mv['_jaco_penalty'])))
+  jd = _jax_batch(lambda d, a: jtask.before_step(jm, d, a))(
+      jd, jnp.asarray(action))
+  d = forward.make_data(m, BATCH, torch.float64, 'cpu').replace(
+      qpos=torch.tensor(qpos), qvel=torch.tensor(qvel),
+      model_var={k: torch.tensor(x) for k, x in mv.items()})
+  d = task.before_step(m, d, torch.tensor(action))
+  penalty = d.model_var['_jaco_penalty'].numpy()
+  err = {'ctrl': _scaled(d.ctrl.numpy(), jd.ctrl),
+         'penalty': _scaled(penalty, jd.model_var['_jaco_penalty'])}
+  assert (penalty <= -2).any() and (penalty < 0).all(), penalty
+  jsub = _jax_substeps(jm, 1)
+  for _ in range(3):
+    jd = jsub(jd, jd.ctrl)
+    d = forward.substeps(m, d, 1)
+  err['qpos'] = _scaled(d.qpos.numpy(), jd.qpos)
+  err['qvel'] = _scaled(d.qvel.numpy(), jd.qvel)
+  jrew, jobs = _jax_batch(lambda dd: (jtask.get_reward(jm, dd),
+                                      jtask.get_observation(jm, dd)))(jd)
+  err['reward'] = _scaled(task.get_reward(m, d).numpy(), jrew)
+  obs = task.get_observation(m, d)
+  assert obs.keys() == jobs.keys()
+  for k in obs:
+    err['obs.' + k] = _scaled(obs[k].numpy(), jobs[k])
+  print(f'jaco {task_name}: before_step and 3 RK4 physics steps, max '
+        f'scaled err ' + ', '.join(f'{k} {e:.2e}' for k, e in err.items()))
+  assert all(e <= TOL for e in err.values()), err
+
+
+def test_jaco_rejects_other_models():
+  from dm_control_tpu_torch.suite import jaco
+  with pytest.raises(NotImplementedError, match='jaco_j2s6s300'):
+    jaco.configurable_reacher('cpu', xml_name='jaco_j2s6s300_position.xml')
+
+
+@pytest.mark.parametrize('task_name', ['lqr_2_1', 'lqr_6_2'])
+def test_lqr_matches_jax(task_name):
+  """lqr's model equals the JAX package's field for field (its numpy
+  RandomState stiffnesses included); 5 steps of BatchedEnv from 8 states
+  on the sphere |qpos| = sqrt(2) keep qpos, reward and observations
+  within TOL of the JAX package's; a lane at rest at the origin ends its
+  episode at the first step, as the JAX package's termination says
+  (discount 0), and restarts on the sphere."""
+  from test_torch_model import SETCONST_FIELDS, _assert_same
+  jtask = jsuite.build_task('lqr', task_name)
+  task = suite.build_task('lqr', task_name, device='cpu')
+  jm, m = jtask.model, task.model
+  for f in dataclasses.fields(jm):
+    if f.name in SETCONST_FIELDS:
+      assert _scaled(getattr(m, f.name), getattr(jm, f.name)) <= 1e-12
+    else:
+      _assert_same(f.name, getattr(jm, f.name), getattr(m, f.name))
+  rng = np.random.RandomState(10)
+  unit = rng.randn(BATCH, m.nq)
+  qpos = np.sqrt(2) * unit / np.linalg.norm(unit, axis=1, keepdims=True)
+  qvel = rng.randn(BATCH, m.nv)
+  qpos[0], qvel[0] = 0.0, 0.0
+  actions = rng.uniform(-1, 1, (STEPS, BATCH, m.nu))
+  actions[:, 0] = 0.0
+  d0 = jforward.make_data(jm)
+  jd = _jax_batch(lambda q, v: d0.replace(qpos=q, qvel=v))(
+      jnp.asarray(qpos), jnp.asarray(qvel))
+  jsub = _jax_substeps(jm, 1)
+  jout = _jax_batch(lambda d: (jtask.get_reward(jm, d),
+                               jtask.get_observation(jm, d),
+                               jtask.get_termination(jm, d)))
+  env = runner.BatchedEnv(task, BATCH, dtype=torch.float64)
+  state = env.reset(seed=0)
+  state = runner.RunnerState(
+      data=forward.forward(m, state.data.replace(
+          qpos=torch.tensor(qpos), qvel=torch.tensor(qvel))),
+      step_count=state.step_count, episode_id=state.episode_id)
+  errs = {}
+  for t in range(STEPS):
+    jd = jsub(jd, jnp.asarray(actions[t]))
+    jrew, jobs, jterm = jout(jd)
+    state, (obs, rew, done, discount) = env.step(state,
+                                                 torch.tensor(actions[t]))
+    # lane 0 follows the JAX package's lane only to its reset
+    on = slice(0, BATCH) if t == 0 else slice(1, BATCH)
+    jterm = np.asarray(jterm)
+    np.testing.assert_array_equal(done.numpy()[on], jterm[on])
+    np.testing.assert_array_equal(discount.numpy()[on],
+                                  np.where(jterm[on], 0.0, 1.0))
+    assert bool(done[0]) == (t == 0)
+    errs['reward'] = max(errs.get('reward', 0.0),
+                         _scaled(rew.numpy()[on], np.asarray(jrew)[on]))
+    for k in obs:
+      errs['obs.' + k] = max(errs.get('obs.' + k, 0.0), _scaled(
+          obs[k].numpy()[on], np.asarray(jobs[k])[on]))
+    errs['qpos'] = max(errs.get('qpos', 0.0), _scaled(
+        state.data.qpos.numpy()[1:], np.asarray(jd.qpos)[1:]))
+  print(f'lqr {task_name}: {STEPS} steps, max scaled err '
+        + ', '.join(f'{k} {e:.2e}' for k, e in errs.items()))
+  assert all(e <= TOL for e in errs.values()), errs
+  # lane 0 rested at the origin: its first step ended its episode, and it
+  # restarted on the sphere
+  assert int(state.episode_id[0]) == 1
+  assert int(state.step_count[0]) == STEPS - 1
+  assert not bool(state.episode_id[1:].any())
+
+
+def test_batched_env_maps_actions_through_before_step():
+  """BatchedEnv with a task's `before_step` (jaco's) steps the Data it
+  returns, not the raw actions; `rollout_fn` draws actions of the task's
+  `action_bounds` shape inside them.  (lqr_2_1 with a before_step that
+  doubles the action into the controls and records it in `model_var`.)"""
+  base = suite.build_task('lqr', 'lqr_2_1', device='cpu')
+  seen = []
+
+  def before_step(m_, d, action):
+    seen.append(action)
+    return d.replace(ctrl=2 * action[:, :1],
+                     model_var=dict(d.model_var or {}, last=action))
+
+  task = dataclasses.replace(base, before_step=before_step,
+                             action_bounds=lambda: ([-0.5, 0.0], [0.5, 0.25]))
+  env = runner.BatchedEnv(task, 4, dtype=torch.float64)
+  plain = runner.BatchedEnv(base, 4, dtype=torch.float64)
+  state, ref = env.reset(seed=1), plain.reset(seed=1)
+  action = torch.tensor([[0.1, 0.2], [-0.3, 0.0], [0.4, 0.1], [0.0, 0.05]],
+                        dtype=torch.float64)
+  state, (_, rew, _, _) = env.step(state, action)
+  ref, (_, ref_rew, _, _) = plain.step(ref, 2 * action[:, :1])
+  torch.testing.assert_close(state.data.qpos, ref.data.qpos, rtol=0, atol=0)
+  torch.testing.assert_close(rew, ref_rew, rtol=0, atol=0)
+  assert torch.equal(state.data.model_var['last'], action)
+  gen = torch.Generator()
+  gen.manual_seed(0)
+  seen.clear()
+  env.rollout_fn(3)(state, gen)
+  drawn = torch.stack(seen)
+  assert drawn.shape == (3, 4, 2)
+  assert bool((drawn[..., 0].abs() <= 0.5).all())
+  assert bool(((drawn[..., 1] >= 0) & (drawn[..., 1] <= 0.25)).all())

@@ -427,3 +427,201 @@ def test_two_dof_kernel_matches_plain_on_card():
   with pytest.raises(ValueError, match='1..64'):
     nk.newton_solve_batched(*wide, lay=lay, **kw)
   assert nk.LAUNCHES['newton_solve_batched'] == 1
+
+
+# -- the cone model: elliptic cones of condim 3, 4 and 6 in one layout ------
+
+
+@functools.lru_cache(maxsize=None)
+def _cone_inputs(copies):
+  """The cone model's (`chip_smoke.cones_xml`) solver inputs at BATCH
+  lanes of `chip_smoke.cone_states` (every condim's cones live on some
+  lanes), built by the JAX package's forward at float64, warm-started
+  from qacc_smooth."""
+  import chip_smoke
+  from dm_control_tpu._src import engine as jengine
+  m = jengine.load_model_from_string(chip_smoke.cones_xml(copies))
+  qpos, qvel = chip_smoke.cone_states(m, BATCH, np.random.RandomState(3))
+  db = jax.jit(jax.vmap(lambda q, v: jforward.forward(
+      m, jforward.make_data(m).replace(qpos=q, qvel=v))))(
+          jax.numpy.asarray(qpos), jax.numpy.asarray(qvel))
+  args = [np.asarray(x) for x in (
+      db.efc_J, db.qM, db.efc_aref, db.efc_D, db.efc_frictionloss,
+      db.efc_active.astype(db.qpos.dtype), db.qacc_smooth, db.qacc_smooth)]
+  kw = dict(niter=int(m.opt.iterations), ls_iter=12,
+            tol=jsolver.effective_tol(float(m.opt.tolerance), db.qpos.dtype),
+            meaninertia=float(m.stat_meaninertia or 1.0))
+  return m, jefc.layout(m), args, kw
+
+
+@pytest.mark.parametrize('copies,niter,ls_iter,refs', [
+    (1, None, 12, ('pallas', 'xla')), (2, None, 12, ('pallas',)),
+    (1, 1, 0, ('pallas', 'xla')), (1, 1, 1, ('pallas', 'xla')),
+    (2, 1, 1, ('pallas', 'xla'))],
+    ids=['x1', 'x2', 'x1-one-step-ls0', 'x1-one-step-ls1', 'x2-one-step-ls1'])
+def test_plain_matches_jax_at_cone_model(copies, niter, ls_iter, refs):
+  """K2-ell's plain twin at the cone model's layouts (condim-6, -4 and -3
+  cones flattened in condim order: one copy nv 18, nefc 48; two nv 36,
+  nefc 180) against the Pallas kernel in interpret mode and the XLA core,
+  converged and after one Newton iteration of 0 or 1 line-search steps
+  (the cone blocks of the Hessian and of the line search's second
+  derivative): qacc and forces within 1e-5 scaled, as above; the lanes
+  hold live cones of every condim.  Two copies converged: against the
+  Pallas kernel alone, the TPU kernel that K2-ell ports.  There the XLA
+  core stops on one lane at a higher cost than the Pallas kernel and the
+  plain twin, which agree, reach, past 1e-5 from them scaled."""
+  m, lay, args, kw = _cone_inputs(copies)
+  assert sorted(lay.ell_groups) == [3, 4, 6]
+  assert (m.nv, lay.nefc) == ((18, 48) if copies == 1 else (36, 180))
+  kw = dict(kw, ls_iter=ls_iter, **({} if niter is None else
+                                    dict(niter=niter)))
+  for k, (rows, _, _) in lay.ell_groups.items():
+    assert args[5][:, rows[:, 0]].any(), f'no live condim-{k} cone'
+  jargs = [jax.numpy.asarray(a) for a in args]
+  solvers = {'xla': lambda: jax.jit(jax.vmap(
+      lambda *a: jsolver._solve_core_xla(*a, lay=lay, **kw)))(*jargs),
+             'pallas': lambda: jnk.newton_solve_batched(
+                 *jargs, lay=lay, interpret=True, **kw)}
+  x, f, iters = nk.newton_solve_plain(
+      *[torch.tensor(a) for a in args], types=lay.types,
+      ell_groups=lay.ell_groups, return_iters=True, **kw)
+  for name in refs:
+    x_ref, f_ref = solvers[name]()
+    ex = _scaled_err(x.numpy(), np.asarray(x_ref))
+    ef = _scaled_err(f.numpy(), np.asarray(f_ref))
+    print(f'K2-ell plain vs {name} at the cone model x{copies} (niter '
+          f'{kw["niter"]}, ls {ls_iter}, tol {kw["tol"]:.0e}): iterations '
+          f'{iters.tolist()}; max scaled err qacc {ex:.2e} force {ef:.2e}')
+    assert ex <= 1e-5 and ef <= 1e-5
+  assert (iters >= 1).any()
+  moved = _scaled_err(x.numpy(), args[6])
+  assert moved > 1e-3
+
+
+@pytest.mark.parametrize('copies', [1, 2], ids=['x1', 'x2'])
+def test_stop_gates_hold_two_float32_solves_at_cone_model(copies):
+  """`chip_smoke.stop_gates`, which holds K2-ell's converged solves at the
+  cone model on the card, holds the JAX package's float32 solve (its XLA
+  core) in the kernel's place against the port's plain twin at float32,
+  and the other way round, on 256 lanes of `chip_smoke.cone_states`
+  whose solver inputs the port builds at float32: the two float32 solves
+  leave K2's line (1e-3 lane-scaled from float64) on lanes that differ in
+  part, each within BAND bands of the optimum's cost there.  A solve cut
+  to one Newton iteration in the kernel's place fails it."""
+  import chip_smoke
+  from dm_control_tpu._src import engine as jengine
+  from dm_control_tpu_torch._src import efc, engine, forward, solver
+  m = engine.load_model_from_string(chip_smoke.cones_xml(copies),
+                                    device='cpu')
+  lay = efc.layout(m)
+  jlay = jefc.layout(jengine.load_model_from_string(
+      chip_smoke.cones_xml(copies)))
+  q, v = chip_smoke.cone_states(m, 256, np.random.RandomState(60))
+  d = forward.make_data(m, 256, torch.float32, 'cpu').replace(
+      qpos=torch.tensor(q, dtype=torch.float32),
+      qvel=torch.tensor(v, dtype=torch.float32))
+  d = forward.fwd_acceleration(m, forward.actuation(
+      m, forward.step1(m, d, skipsensor=True)))
+  args = (d.efc_J, d.qM, d.efc_aref, d.efc_D, d.efc_frictionloss,
+          d.efc_active.to(torch.float32), d.qacc_smooth, d.qacc_warmstart)
+  kw = dict(niter=int(m.opt.iterations), ls_iter=solver.LS_ITERATIONS,
+            tol=solver.effective_tol(m.opt.tolerance, torch.float32),
+            meaninertia=float(m.stat_meaninertia))
+  plain = dict(types=lay.types, ell_groups=lay.ell_groups)
+  x_p, _ = nk.newton_solve_plain(*args, **plain, **kw)
+  x_64, _ = nk.newton_solve_plain(
+      *[a.double() for a in args], **plain,
+      **dict(kw, tol=solver.effective_tol(m.opt.tolerance, torch.float64)))
+  x_j, _ = jax.jit(jax.vmap(lambda *a: jsolver._solve_core_xla(
+      *a, lay=jlay, **kw)))(*[jax.numpy.asarray(a.numpy()) for a in args])
+  x_j = torch.tensor(np.asarray(x_j))
+  off = [chip_smoke.lane_scaled_err(x.double(), x_64).amax(dim=1) > 1e-3
+         for x in (x_p, x_j)]
+  print(f'cone model x{copies}: float32 lanes over 1e-3 from float64: port '
+        f'{int(off[0].sum())}, JAX package {int(off[1].sum())}, both '
+        f'{int((off[0] & off[1]).sum())}')
+  assert off[0].any() and off[1].any()
+  chip_smoke.stop_gates(f'x{copies} JAX package as the kernel', x_j, x_p,
+                        x_64, lay, args)
+  chip_smoke.stop_gates(f'x{copies} port as the kernel', x_p, x_j, x_64, lay,
+                        args)
+  x_1, _ = nk.newton_solve_plain(*args, **plain, **dict(kw, niter=1))
+  with pytest.raises(AssertionError):
+    chip_smoke.stop_gates(f'x{copies} one iteration as the kernel', x_1,
+                          x_p, x_64, lay, args)
+
+
+def test_cone_tables_flatten_every_condim():
+  """The kernel's per-layout tables at the cone model's layout: cones in
+  condim order (3, 4, 6), each padded to C = 6 rows with its normal row,
+  its row count, mu and the row scales as the layout gives them."""
+  m, lay, _, _ = _cone_inputs(1)
+  rows, k, mu, s_row = nk.cone_tables(lay)
+  assert nk.cone_width(lay) == 6 and rows.shape == (11, 6)
+  assert k.tolist() == [3] * 2 + [4] * 6 + [6] * 3
+  at = 0
+  for cd, (r, mu_g, scale) in sorted(lay.ell_groups.items()):
+    n = len(r)
+    np.testing.assert_array_equal(rows[at:at + n, :cd], r)
+    assert (rows[at:at + n, cd:] == r[:, :1]).all()
+    np.testing.assert_allclose(mu[at:at + n], mu_g, rtol=1e-7)
+    np.testing.assert_allclose(s_row[r], scale, rtol=1e-7)
+    at += n
+  finger = jsuite.build_task('finger', 'spin').model
+  flay = jefc.layout(finger)
+  assert nk.cone_width(flay) == 3
+  np.testing.assert_array_equal(nk.cone_tables(flay)[0], flay.ell_groups[3][0])
+
+
+# (nefc, nv, ncg, cmax) -> (warps per block, dynamic shared bytes) at C =
+# 6: per block 2 nefc + 8 ncg words; per warp nefc ld (nv <= 32) + 2 nv ld
+# + 8 nefc + 38 ncg + 4 nv words, ld = nv | 1.
+@pytest.mark.parametrize('shape,want', [
+    ((48, 18, 11, 6), (4, 4 * (184 + 4 * 2470))),         # cone model x1
+    ((180, 36, 41, 6), (4, 4 * (688 + 4 * 5806))),        # cone model x2
+    ((48, 18, 11, 3), (4, 4 * (140 + 4 * 2173))),         # as if condim 3
+    ((1200, 20, 200, 6), (1, 4 * (4000 + 43320))),        # one per block
+], ids=['cones-x1', 'cones-x2', 'cones-x1-C3', 'one-per-block'])
+def test_launch_config_at_c6(shape, want):
+  warps, smem = nk.launch_config(*shape)
+  assert (warps, smem) == want
+  assert smem <= nk.SMEM_LIMIT
+
+
+def test_launch_config_largest_condim6_layout():
+  """The most condim-6 cones (6 rows each, nothing else) one environment
+  per block holds at C = 6: 260 at nv 18 (J in shared memory), 521 at nv
+  36 (J in device memory); one more raises."""
+  def fits(ncg, nv):
+    try:
+      nk.launch_config(6 * ncg, nv, ncg, 6)
+      return True
+    except ValueError:
+      return False
+  for nv, most in ((18, 260), (36, 521)):
+    assert fits(most, nv) and not fits(most + 1, nv), nv
+  with pytest.raises(ValueError, match='cmax'):
+    nk.launch_config(48, 18, 11, 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('copies', [1, 2], ids=['x1', 'x2'])
+def test_ell_kernel_matches_plain_on_card_at_cone_model(copies):
+  """K2-ell's C = 6 instantiation (condim-3, -4 and -6 cones; one and two
+  dofs per lane) against the plain float32 solve, one Newton iteration
+  without a line search (the converged solve is float32-limited on some
+  lanes of the condim-6 ball: chip_smoke.py holds it with
+  `float32_gates`), with K2's lane-scaled bounds."""
+  if not torch.cuda.is_available():
+    pytest.skip('needs a CUDA device; chip_smoke.py runs this check there')
+  m, lay, args, kw = _cone_inputs(copies)
+  kw = dict(kw, tol=max(kw['tol'], 1e-6), niter=1, ls_iter=0)
+  dev = [torch.from_numpy(a.astype(np.float32)).cuda() for a in args]
+  x_ref, _ = nk.newton_solve_plain(*dev, types=lay.types,
+                                   ell_groups=lay.ell_groups, **kw)
+  nk.reset_launches()
+  x, _ = nk.newton_solve_batched(*dev, lay=lay, **kw)
+  assert nk.LAUNCHES == {'newton_solve_batched': 0, 'newton_solve_ell': 1}
+  lane = x_ref.abs().amax(dim=1, keepdim=True).clamp(min=1.0)
+  err = ((x - x_ref).abs() / lane).cpu().numpy()
+  assert err.mean() <= 1e-4 and err.max() <= 5e-2

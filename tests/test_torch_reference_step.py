@@ -547,7 +547,7 @@ def test_solve_stop_off_the_optimum_fails_the_lane():
   d = forward.make_data(pm, BATCH, torch.float64, 'cpu').replace(
       qpos=torch.tensor(qpos), qvel=torch.tensor(qvel))
   caught = []
-  with cs.recording(lambda before, after: caught.append(after)):
+  with cs.recording(lambda before, after, _: caught.append(after)):
     cs.one_step(pm, d, slice(0, BATCH), torch.tensor(ctrl), 1,
                 torch.float32, 'cpu')
   after = caught[0]
@@ -649,7 +649,7 @@ def test_a_reorder_inside_the_selection_records_nothing():
   d = forward.make_data(pm, BATCH, torch.float64, 'cpu').replace(
       qpos=torch.tensor(qpos), qvel=torch.tensor(qvel))
   caught = []
-  with cs.recording(lambda before, after: caught.append((before, after))):
+  with cs.recording(lambda before, after, _: caught.append((before, after))):
     cs.one_step(pm, d, slice(0, BATCH), torch.tensor(ctrl), 1,
                 torch.float64, 'cpu')
   before, after = caught[0]
@@ -690,3 +690,171 @@ def test_a_reorder_inside_the_selection_records_nothing():
       [{'contact': (con.dist < con.includemargin, con.dist,
                     torch.ones_like(con.dist))}], BATCH)
   assert any(f is not None for f in slotwise)
+
+
+# -- the mesh colliders' choices (jaco; a plane, a hull and a sphere) -------
+
+_MESH_XML = """<mujoco model="mesh choices">
+  <compiler meshdir="common/kinova_meshes/"/>
+  <asset><mesh name="hand" file="hand_3finger.stl"/></asset>
+  <worldbody>
+    <geom name="floor" type="plane" size="1 1 .1"/>
+    <body name="hand" pos="0 0 .05"><freejoint/>
+      <geom name="hand" type="mesh" mesh="hand"/></body>
+    <body name="ball" pos="0 0 .3"><freejoint/>
+      <geom name="ball" type="sphere" size=".02"/></body>
+  </worldbody>
+</mujoco>"""
+
+
+def test_mesh_choices_record_plane_and_sphere_switches():
+  """A hull on the floor and a sphere: `branches` records, per plane-mesh
+  pair and hull vertex, which three vertices its contacts hold (the three
+  deepest heights, the padding's repeats not counted in the gap), and per
+  sphere-mesh pair whether the center lies within 1e-9 of the hull (the
+  sphere inside the hand on lanes 0-3, apart on 4-7), each agreeing with
+  the contacts the colliders made."""
+  from dm_control_tpu_torch._src import colliders
+  from dm_control_tpu_torch._src import engine
+  from dm_control_tpu_torch.suite import common
+  pm = engine.load_model_from_string(_MESH_XML, common.ASSETS_DIR,
+                                     device='cpu')
+  lay = efc.layout(pm)
+  n = 8
+  rng = np.random.RandomState(6)
+  qpos = np.tile(pm.qpos0, (n, 1))
+  qpos[:, 2] = rng.uniform(0.0, 0.05, n)              # the hand's height
+  hand_ctr = colliders.hull_table(pm)[0].mean(0)
+  qpos[:, 7:10] = np.where((np.arange(n) < 4)[:, None],
+                           qpos[:, :3] + hand_ctr, [0.5, 0.5, 0.3])
+  d = forward.make_data(pm, n, torch.float64, 'cpu').replace(
+      qpos=torch.tensor(qpos))
+  caught = []
+  with cs.recording(lambda before, after, _: caught.append((before, after))):
+    cs.one_step(pm, d, slice(0, n), torch.zeros((n, 0), dtype=torch.float64),
+                1, torch.float64, 'cpu')
+  before, after = caught[0]
+  rec = cs.branches(pm, lay, before, after)
+  held, gap, _ = rec['mesh corners']
+  assert held.shape == (n, colliders._HULL_PAD)
+  assert (held.sum(1) == 3).all() and bool((gap >= 0).all())
+  inside, value, _ = rec['mesh inside']
+  assert inside.tolist() == [[True]] * 4 + [[False]] * 4
+  con = after.contact
+  g = pm.name2id('geom', 'ball')
+  sm = (con.geom1 == g) & (con.geom2 == pm.name2id('geom', 'hand'))
+  dist = con.dist[sm].reshape(n)
+  # the contact's distance is |center - closest| - radius; the record's
+  # value the same distance less 1e-9, from the same Frank-Wolfe steps
+  torch.testing.assert_close(value[:, 0] + 1e-9 - 0.02, dist, rtol=0,
+                             atol=1e-15)
+
+
+def test_mesh_sep_is_keyed_by_pair_under_the_top_k():
+  """jaco's first acc stage at float64 (16 lanes of chip_smoke.jaco_states:
+  the target on a link on even lanes): `mesh sep` holds one entry per
+  candidate mesh-mesh pair (79), recorded where the lane selected the
+  pair (the top-K 20) and inf elsewhere, and where the witnesses are more
+  than 1e-7 apart its value plus 1e-7 is the pair's contact distance; the
+  target's 13 sphere-mesh pairs record `mesh inside`."""
+  task = suite.build_task('jaco', 'position_reacher_7DOF', device='cpu')
+  pm = task.model
+  lay = efc.layout(pm)
+  gen = torch.Generator()
+  gen.manual_seed(4)
+  d = cs.impact_states('jaco-position_reacher_7DOF', pm, BATCH, gen, 'cpu')
+  d = d.replace(qpos=d.qpos.double(), qvel=d.qvel.double(),
+                ctrl=d.ctrl.double(),
+                model_var={k: v.double() for k, v in d.model_var.items()})
+  caught = []
+  with cs.recording(lambda before, after, _: caught.append((before, after))):
+    cs.one_step(pm, d, slice(0, BATCH), d.ctrl, 1, torch.float64, 'cpu')
+  before, after = caught[0]
+  rec = cs.branches(pm, lay, before, after)
+  sep, value, _ = rec['mesh sep']
+  grp = [g for g in collision.groups(pm) if g.dynamic][0]
+  assert sep.shape == (BATCH, grp.npairs) == (BATCH, 79)
+  chosen = torch.isfinite(value)
+  assert (chosen.sum(1) == grp.K).all()
+  assert not bool(sep[~chosen].any())
+  ckeys, _ = cs.contact_keys(pm, after.contact, after)
+  start = sum(g.ncon for g in collision.groups(pm) if not g.dynamic)
+  keyed = torch.full((BATCH, grp.npairs), float('nan'), dtype=torch.float64)
+  keyed.scatter_(1, ckeys[:, start:] - start, after.contact.dist[:, start:])
+  torch.testing.assert_close(value[sep] + 1e-7, keyed[sep], rtol=0,
+                             atol=1e-15)
+  assert rec['mesh inside'][0].shape == (BATCH, 13)
+  print(f'jaco mesh sep: pairs apart {int(sep.sum())}, touching '
+        f'{int((chosen & ~sep).sum())} of {int(chosen.sum())} selected')
+
+
+def _mesh_model_states(which, dtype):
+  """(model, Data) for the mesh-choice tests: the hand on the floor with a
+  sphere (`_MESH_XML`, 8 lanes) or jaco at chip_smoke.jaco_states (BATCH
+  lanes), at dtype on the CPU."""
+  from dm_control_tpu_torch._src import engine
+  from dm_control_tpu_torch.suite import common
+  if which == 'hand':
+    pm = engine.load_model_from_string(_MESH_XML, common.ASSETS_DIR,
+                                       device='cpu')
+    qpos = np.tile(pm.qpos0, (8, 1))
+    qpos[:, 2] = np.random.RandomState(6).uniform(0.0, 0.05, 8)
+    qpos[:4, 7:10] = qpos[:4, :3] + 0.01
+    return pm, forward.make_data(pm, 8, dtype, 'cpu').replace(
+        qpos=torch.tensor(qpos, dtype=dtype))
+  pm = suite.build_task('jaco', 'position_reacher_7DOF', device='cpu').model
+  gen = torch.Generator()
+  gen.manual_seed(4)
+  d = cs.impact_states('jaco-position_reacher_7DOF', pm, BATCH, gen, 'cpu')
+  return pm, d.replace(qpos=d.qpos.to(dtype), qvel=d.qvel.to(dtype),
+                       ctrl=d.ctrl.to(dtype),
+                       model_var={k: v.to(dtype)
+                                  for k, v in d.model_var.items()})
+
+
+@pytest.mark.parametrize('which,dtype', [
+    ('hand', torch.float64), ('jaco', torch.float32),
+    ('jaco', torch.float64)], ids=['hand-f64', 'jaco-f32', 'jaco-f64'])
+def test_mesh_choices_from_the_colliders_equal_recomputed(which, dtype):
+  """`recording` hands each acc stage what the mesh
+  colliders computed for its contacts; `mesh_choices` reading it gives
+  the bits of `mesh_choices` running Frank-Wolfe again from the stage's
+  geom poses, at every acc stage of one physics step (jaco's four RK4
+  stages: its top-K mesh-mesh pairs and its static sphere-mesh pairs;
+  the hand's plane-mesh and sphere-mesh pairs), and reads every call."""
+  pm, d = _mesh_model_states(which, dtype)
+  n = d.qpos.shape[0]
+  caught = []
+  with cs.recording(lambda *a: caught.append(a)):
+    cs.one_step(pm, d, slice(0, n), d.ctrl, 1, dtype, 'cpu')
+  assert len(caught) == (4 if which == 'jaco' else 1)
+  for before, after, seen in caught:
+    assert sum(len(v) for v in seen.values()) > 0
+    got = cs.mesh_choices(pm, after, seen)
+    want = cs.mesh_choices(pm, after)
+    assert sorted(got) == sorted(want) and got
+    for q in want:
+      for x, y in zip(got[q], want[q]):
+        assert torch.equal(x, y), q
+    assert not any(seen.values())
+
+
+@pytest.mark.parametrize('distance,verdict', [(0.5, 'excused'),
+                                              (2.0, 'failed')])
+def test_gate_excuses_a_mesh_sep_flip_only_inside_the_band(distance,
+                                                           verdict):
+  """Lane 0's witnesses came out 1e-7 apart in one run and not in the
+  other, its separation `distance` bands from 1e-7 in the reference:
+  2.5e-2 off, it is excused inside the band and fails outside it; lane
+  1's matched."""
+  band = cs.BAND * cs.EPS32
+  ref = [{'mesh sep': (torch.tensor([[True], [True]]),
+                       torch.full((2, 1), distance * band,
+                                  dtype=torch.float64),
+                       torch.ones((2, 1), dtype=torch.float64))}]
+  run = [{'mesh sep': (torch.tensor([[False], [True]]),) + ref[0][
+      'mesh sep'][1:]}]
+  first = cs.first_differences(run, ref)
+  assert first[0][:3] == (0, 'mesh sep', 0) and first[1] is None
+  verdicts = cs.lane_verdicts(torch.tensor([2.5e-2, 9e-3]), first, cs.BAND)
+  assert verdicts == [verdict, 'held']

@@ -21,9 +21,13 @@ iteration without a line search only: there, contacts far from touching
 have curvatures near 1e19, and the reference line search's strict
 bracket test decides by rounding on which side of the kink alpha ends
 (plain float32 and float64 disagree the same way).
-Last, the two-dofs-per-lane family (nv > 32, J read from device memory)
+Then the two-dofs-per-lane family (nv > 32, J read from device memory)
 on humanoid_CMU's layout (nv 62, nefc 880) at `chip_smoke.impact_states`
 (humanoids lying on or pressed into the floor), `--wide-batch` lanes.
+Last, the kernel's C = 6 instantiation (elliptic contacts of condim 3, 4
+and 6 in one layout) on the cone model (`chip_smoke.cones_xml`) at
+`chip_smoke.cone_states`: one copy (nv 18, one dof per lane) and two
+(nv 36, two dofs per lane), `--batch` lanes.
 The CPU's float32 arithmetic (no FMA contraction) is not the card's: this
 checks the kernel's logic, not its rounding or its speed.
 """
@@ -94,13 +98,15 @@ LAUNCHER = r'''
 extern "C" int emu_newton(const float* J, const float* M, const float* aref,
     const float* D, const float* fl, const float* active, const float* a,
     const float* warm, const int* types, const int* ell_rows,
-    const float* ell_mu, const float* s_row, float* x_out, float* f_out,
-    int* iters_out, int nefc, int nv, int ncg, int batch, int niter,
-    int ls_iter, float tol, float scale, int warps, int smem_bytes) {
-  Problem q{J, M, aref, D, fl, active, a, warm, types, ell_rows, ell_mu,
-            s_row, x_out, f_out, iters_out, nefc, nv, ncg, (long long)batch};
-  const long long words = block_words(nefc, ncg)
-                          + (long long)warps * warp_words(nefc, nv, ncg);
+    const int* ell_k, const float* ell_mu, const float* s_row, float* x_out,
+    float* f_out, int* iters_out, int nefc, int nv, int ncg, int cmax,
+    int batch, int niter, int ls_iter, float tol, float scale, int warps,
+    int smem_bytes) {
+  Problem q{J, M, aref, D, fl, active, a, warm, types, ell_rows, ell_k,
+            ell_mu, s_row, x_out, f_out, iters_out, nefc, nv, ncg,
+            (long long)batch};
+  const long long words = block_words(nefc, ncg, cmax)
+                          + (long long)warps * warp_words(nefc, nv, ncg, cmax);
   if (4 * words != smem_bytes) return 1;
   blockDim.x = warps * 32;
   std::vector<float> shared(words);
@@ -117,8 +123,13 @@ extern "C" int emu_newton(const float* J, const float* M, const float* aref,
       lanes.emplace_back([&, t] {
         threadIdx.x = t;
         blockIdx.x = blk;
-        if (nv <= 32) newton_kernel<1>(q, niter, ls_iter, tol, scale);
-        else newton_kernel<2>(q, niter, ls_iter, tol, scale);
+        if (cmax == 3) {
+          if (nv <= 32) newton_kernel<1, 3>(q, niter, ls_iter, tol, scale);
+          else newton_kernel<2, 3>(q, niter, ls_iter, tol, scale);
+        } else {
+          if (nv <= 32) newton_kernel<1, 6>(q, niter, ls_iter, tol, scale);
+          else newton_kernel<2, 6>(q, niter, ls_iter, tol, scale);
+        }
       });
     for (auto& t : lanes) t.join();
     for (auto& w : ws) delete w.bar;
@@ -143,7 +154,7 @@ def compile_emulation(out_dir: str) -> ctypes.CDLL:
                   '-Wno-unknown-pragmas', '-o', lib, cpp], check=True)
   emu = ctypes.CDLL(lib)
   P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-  emu.emu_newton.argtypes = [P] * 15 + [I] * 6 + [F, F, I, I]
+  emu.emu_newton.argtypes = [P] * 16 + [I] * 7 + [F, F, I, I]
   emu.emu_newton.restype = ctypes.c_int
   return emu
 
@@ -154,14 +165,16 @@ def emulate(emu, args, lay, niter, ls_iter, tol, meaninertia):
   ins = [t.contiguous() for t in args]
   cones = nk._cones_on(lay, 'cpu') if lay.ell_groups else None
   ncg = cones[0].shape[0] if cones else 0
-  warps, smem = nk.launch_config(nefc, nv, ncg)
+  cmax = nk.cone_width(lay)
+  warps, smem = nk.launch_config(nefc, nv, ncg, cmax)
   x, f = torch.empty(B, nv), torch.empty(B, nefc)
   iters = torch.empty(B, dtype=torch.int32)
-  ptrs = [t.data_ptr() for t in cones] if cones else [None] * 3
+  ptrs = [t.data_ptr() for t in cones] if cones else [None] * 4
   err = emu.emu_newton(
       *[t.data_ptr() for t in ins], nk._types_on(lay, 'cpu').data_ptr(),
-      *ptrs, x.data_ptr(), f.data_ptr(), iters.data_ptr(), nefc, nv, ncg, B,
-      niter, ls_iter, tol, 1.0 / (max(meaninertia, 1e-12) * nv), warps, smem)
+      *ptrs, x.data_ptr(), f.data_ptr(), iters.data_ptr(), nefc, nv, ncg,
+      cmax, B, niter, ls_iter, tol, 1.0 / (max(meaninertia, 1e-12) * nv),
+      warps, smem)
   assert err == 0, 'shared-memory size disagrees with the kernel'
   return x, f, iters
 
@@ -207,6 +220,23 @@ def solver_kw(m):
               meaninertia=float(m.stat_meaninertia))
 
 
+def cone_args(copies, B):
+  """The cone model's float32 solver inputs on the CPU at
+  `chip_smoke.cone_states` (generator SLICE11_SEED)."""
+  import numpy as np
+  from dm_control_tpu_torch._src import engine
+  m = engine.load_model_from_string(cs.cones_xml(copies), device='cpu')
+  q, v = cs.cone_states(m, B, np.random.RandomState(cs.SLICE11_SEED))
+  d = forward.make_data(m, B, torch.float32, 'cpu').replace(
+      qpos=torch.tensor(q, dtype=torch.float32),
+      qvel=torch.tensor(v, dtype=torch.float32))
+  d = forward.fwd_acceleration(m, forward.actuation(
+      m, forward.step1(m, d, skipsensor=True)))
+  args = [d.efc_J, d.qM, d.efc_aref, d.efc_D, d.efc_frictionloss,
+          d.efc_active.to(torch.float32), d.qacc_smooth, d.qacc_warmstart]
+  return m, efc.layout(m), args
+
+
 def main():
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   parser.add_argument('--batch', type=int, default=64)
@@ -246,6 +276,11 @@ def main():
              d.efc_active.to(torch.float32), d.qacc_smooth, d.qacc_warmstart]
     check(emu, 'humanoid_CMU (two dofs per lane)', cargs, clay, solver_kw(cm),
           one_gates=cs.float32_gates)
+    for copies in (1, 2):
+      km, klay, kargs = cone_args(copies, B)
+      assert nk.cone_width(klay) == 6
+      check(emu, f'cone model x{copies} (C = 6, nv {km.nv})', kargs, klay,
+            solver_kw(km))
   print('emulation: every check passed (CPU; no device number)')
 
 

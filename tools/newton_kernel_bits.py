@@ -8,11 +8,13 @@ Run on a machine with one CUDA device:
     python3 tools/newton_kernel_bits.py compare FILE OUT [OUT ...]
 
 `make`, from the root of a checkout, draws 4096 lanes of solver inputs at
-every layout the kernel took before it took nv > 32 (walker after a
-40-step rollout, finger-spin's contact-rich inputs, and
+every layout the kernel took before it took condim-4 and -6 cones
+(walker after a 40-step rollout, finger-spin's contact-rich inputs, and
 `chip_smoke.impact_states` of cheetah, cartpole, point_mass, ball_in_cup,
 swimmer6, humanoid, quadruped, the four manipulator and the two stacker
-tasks: K2 and K2-ell, one to four environments per block), solves them
+tasks, humanoid_CMU, quadruped escape and fetch: K2 and its two-dofs-per-
+lane family, and K2-ell at its seven condim-3 layouts, one to four
+environments per block), solves them
 with that checkout's kernel and writes inputs and results to FILE.
 `solve` loads FILE and solves the same inputs with the kernel of the
 checkout it runs from (its working directory comes first on the import
@@ -32,7 +34,8 @@ TASKS = ('walker-walk', 'finger-spin', 'cheetah-run', 'cartpole-swingup',
          'point_mass-easy', 'ball_in_cup-catch', 'swimmer-swimmer6',
          'humanoid-run', 'quadruped-walk', 'manipulator-bring_ball',
          'manipulator-bring_peg', 'manipulator-insert_ball',
-         'manipulator-insert_peg', 'stacker-stack_2', 'stacker-stack_4')
+         'manipulator-insert_peg', 'stacker-stack_2', 'stacker-stack_4',
+         'humanoid_CMU-run', 'quadruped-escape', 'quadruped-fetch')
 
 
 def _solver_args(m, d):

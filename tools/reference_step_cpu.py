@@ -78,7 +78,7 @@ def first_acc_stage(pm, d, ctrl, n_sub):
   """The Data into and out of the first substep's acc stage of the port's
   float32 step of all of `d`'s lanes."""
   caught = []
-  with cs.recording(lambda before, after: caught.append((before, after))):
+  with cs.recording(lambda before, after, _: caught.append((before, after))):
     cs.one_step(pm, d, slice(0, ctrl.shape[0]), ctrl, n_sub, torch.float32,
                 'cpu')
   return caught[0]
@@ -141,7 +141,7 @@ def stalls(what, pm, d, ctrl, n_sub, lanes):
 def stage_qaccs(pm, d, ctrl, n_sub, dtype):
   """qacc of every acc stage of the port's control step of d's lanes."""
   seen = []
-  with cs.recording(lambda before, after: seen.append(after.qacc.double())):
+  with cs.recording(lambda before, after, _: seen.append(after.qacc.double())):
     cs.one_step(pm, d, slice(0, ctrl.shape[0]), ctrl, n_sub, dtype, 'cpu')
   return seen
 

@@ -3,10 +3,13 @@
 Run on a machine with one CUDA device, from the root of a checkout:
 
     python3 tools/torch_profile_step.py [--task walker-walk|finger-spin|humanoid-run|...]
+        [--steps 3] [--warm 30]
 
 Builds the task (walker-walk by default) at batch 4096 (bench.py's batch)
-on the card, warms it up, then runs the same window of 3 control steps
-three ways and prints, per control step:
+on the card, warms it up (`--warm` control steps), then runs the same
+window of `--steps` control steps three ways and prints, per control step
+(jaco's control step is 100 RK4 physics steps of ~1M CUDA kernels:
+`--steps 1 --warm 1`):
 
   * untraced: wall time, with the stream synchronised at both ends;
   * torch.profiler: CUDA kernels launched and summed kernel time, then the
@@ -48,13 +51,16 @@ TASKS = {what: tuple(what.split('-')) for what in (
     'quadruped-walk', 'manipulator-bring_ball', 'manipulator-bring_peg',
     'manipulator-insert_ball', 'manipulator-insert_peg', 'stacker-stack_2',
     'stacker-stack_4', 'humanoid_CMU-run', 'quadruped-escape',
-    'quadruped-fetch')}
+    'quadruped-fetch', 'lqr-lqr_6_2', 'jaco-position_reacher_7DOF')}
 
 
 def main():
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   parser.add_argument('--task', choices=sorted(TASKS), default='walker-walk')
-  task = parser.parse_args().task
+  parser.add_argument('--steps', type=int, default=STEPS)
+  parser.add_argument('--warm', type=int, default=30)
+  args = parser.parse_args()
+  task, steps = args.task, args.steps
   if not torch.cuda.is_available():
     sys.exit('needs a CUDA device')
   print(subprocess.run(
@@ -66,8 +72,8 @@ def main():
   gen = torch.Generator(device='cuda')
   gen.manual_seed(0)
   state = env.reset()
-  state, _ = env.rollout_fn(30)(state, gen)       # warm; walkers on the floor
-  run = env.rollout_fn(STEPS)
+  state, _ = env.rollout_fn(args.warm)(state, gen)   # walkers on the floor
+  run = env.rollout_fn(steps)
 
   torch.cuda.synchronize()
   t0 = time.perf_counter()
@@ -83,10 +89,10 @@ def main():
   kernels = [e for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA]
   busy_us = sum(e.device_time for e in kernels)
-  print(f'{task}@{BATCH}: {wall / STEPS * 1e3:.2f} ms per control step '
-        f'(wall, untraced), {wall_traced / STEPS * 1e3:.2f} ms (wall, '
-        f'traced), {len(kernels) / STEPS:.0f} CUDA kernels per control step, '
-        f'{busy_us / STEPS / 1e3:.2f} ms kernel time per control step, '
+  print(f'{task}@{BATCH}: {wall / steps * 1e3:.2f} ms per control step '
+        f'(wall, untraced), {wall_traced / steps * 1e3:.2f} ms (wall, '
+        f'traced), {len(kernels) / steps:.0f} CUDA kernels per control step, '
+        f'{busy_us / steps / 1e3:.2f} ms kernel time per control step, '
         f'device idle share {1 - busy_us / 1e6 / wall:.3f} (of untraced wall)')
   by_name = {}
   for e in kernels:
@@ -94,16 +100,16 @@ def main():
     by_name[e.name] = (t + e.device_time, c + 1)
   print('kernel time per control step, top 15:')
   for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
-    print(f'  {t / STEPS / 1e3:8.3f} ms  {c / STEPS:7.0f} calls  {name[:90]}')
+    print(f'  {t / steps / 1e3:8.3f} ms  {c / steps:7.0f} calls  {name[:90]}')
   for what, mark in (('newton_kernel', 'newton_kernel'),
                      ('K1 kernels', 'k1_kernel')):
     hits = {name: tc for name, tc in by_name.items() if mark in name}
     t_hit = sum(t for t, _ in hits.values())
-    print(f'{what}: {t_hit / STEPS / 1e3:.3f} ms per control step in '
-          f'{sum(c for _, c in hits.values()) / STEPS:.0f} launches, '
+    print(f'{what}: {t_hit / steps / 1e3:.3f} ms per control step in '
+          f'{sum(c for _, c in hits.values()) / steps:.0f} launches, '
           f'{t_hit / max(busy_us, 1e-9):.3f} of the kernel time'
-          + ''.join(f'; {name[:60]} {t / STEPS / 1e3:.4f} ms in '
-                    f'{c / STEPS:.0f}' for name, (t, c) in sorted(
+          + ''.join(f'; {name[:60]} {t / steps / 1e3:.4f} ms in '
+                    f'{c / steps:.0f}' for name, (t, c) in sorted(
                         hits.items()) if len(hits) > 1))
 
   prof_host = cProfile.Profile()
@@ -114,15 +120,15 @@ def main():
   prof_host.disable()
   stats = pstats.Stats(prof_host)
   total = stats.total_tt
-  print(f'host under cProfile: {total / STEPS * 1e3:.2f} ms per control step; '
+  print(f'host under cProfile: {total / steps * 1e3:.2f} ms per control step; '
         'top 12 functions by own time (share of that):')
   rows = sorted(stats.stats.items(), key=lambda kv: -kv[1][2])
   for (path, line, fn), (_, ncalls, tottime, cumtime, _) in rows[:12]:
-    print(f'  {tottime / total:6.3f}  {ncalls / STEPS:7.0f} calls  '
+    print(f'  {tottime / total:6.3f}  {ncalls / steps:7.0f} calls  '
           f'{os.path.basename(path)}:{line}({fn})')
   for (path, line, fn), (_, ncalls, _, cumtime, _) in rows:
     if fn == 'mirror' and path.endswith('types.py'):
-      print(f'types.mirror: {ncalls / STEPS:.0f} calls per control step, '
+      print(f'types.mirror: {ncalls / steps:.0f} calls per control step, '
             f'{cumtime / total:.3f} of host time (cumulative)')
 
 
