@@ -74,7 +74,17 @@ any failure exits non-zero and no phase catches its own failure:
      iteration (`float32_gates`), with the launch and bit checks; K2 at
      jaco's (4096, 145, 13) with the target sphere on a link and the
      fingers at their limits (`jaco_states`), the top-K checks included;
-     K1 at jaco's n = 13, lqr_6_2's 6 and the cone model's 18 and 36;
+     K1 at jaco's n = 13, lqr_6_2's 6 and the cone model's 18 and 36; the
+     twelfth slice's: the route past the Newton kernel's 64 dofs (the core,
+     `newton_kernel.newton_solve_core`, with K1b as each iteration's
+     factor-and-solve: the JAX package's own route there) at dog-stand's
+     (4096, 1912, 79) and dog-fetch's (4096, 3822, 85), dogs standing or
+     lying, fetch's ball beside the head, in the mouth or on the target
+     (`dog_states`): K1b launched exactly once per iteration of the loop
+     the core reports, held converged by `stop_gates` and after one Newton
+     iteration by `float32_gates` against the plain float32 core and the
+     float64 one (`core_task_check`), the top-K selection bit for bit; and
+     K1 at dog's n = 79 and 85 on its initial states;
   3. reference: one control step of REF_LANES = 256 walker-walk lanes,
      and of 256 finger-spin lanes in contact, on the card at float32
      against the port's float64 path from the same state, run on the
@@ -135,14 +145,19 @@ any failure exits non-zero and no phase catches its own failure:
      humanoid-run, quadruped-walk, SLICE9_TASKS: manipulator
      bring_ball, bring_peg, insert_ball and insert_peg, SLICE10_TASKS:
      humanoid_CMU-run, quadruped-escape and quadruped-fetch, and
-     SLICE11_TASKS: lqr-lqr_6_2 and jaco-position_reacher_7DOF; stacker is
-     held in phase 2 only, STACKER_TASKS), SLICE_RUNS runs of reset and
-     `slice_steps` control steps each: states (model_var and act
-     included) finite, rewards in each task's range (`REWARD_RANGE`:
-     jaco's fence and action penalties go below 0, lqr's reward has no
-     lower bound; [0, 1] for the others), every kernel's launch count
-     exactly `expected_launches`
-     per control step; then phase 3's gate on 256 lanes of each task's
+     SLICE11_TASKS: lqr-lqr_6_2 and jaco-position_reacher_7DOF, and
+     SLICE12_TASKS: dog stand, walk, trot, run and fetch; stacker is held
+     in phase 2 only, STACKER_TASKS), one run each (run SLICE_RUN) of
+     reset and `slice_steps` control steps: states (model_var and act
+     included) finite, rewards in each task's range (`REWARD_RANGE`: jaco's fence and action penalties go
+     below 0, lqr's reward has no lower bound; [0, 1] for the others),
+     every kernel's launch count exactly `expected_launches` per control
+     step, plus, for dog, K1b once per iteration of the core's loops (the
+     count the core reports) and one core call per physics step; then
+     (but for UNGATED_TASKS, dog's five, whose float32 steps miss float64
+     past the gate's rule on some lanes as the JAX package's and the
+     port's CPU float32 steps do: `tools/float32_step_probe.py`)
+     phase 3's gate on 256 lanes of each task's
      final states (act compared too where the model has activations, and
      under the top-K broadphase, or for plane-box pairs, the contacts
      keyed by pair or box corner, with the selection and the box
@@ -160,11 +175,13 @@ any failure exits non-zero and no phase catches its own failure:
 
 Output: the card's name and power limit (nvidia-smi), env-steps/s of
 walker-walk@4096 and finger-spin@4096 (each the median of three runs)
-and each slice task@4096 (the median of SLICE_RUNS runs; the K2-ell row
+and each slice task@4096 (its one run; the K2-ell row
 carries its time at each ninth-slice layout and at the cone model's two
 ('cones x1', 'cones x2'), the K1 rows at n = 11, 14, 20, 62, 28, 13, 6,
-18 and 36, the K2 row at the tenth slice's three layouts and jaco's,
-keyed by task), one
+18, 36, 79 and 85, the K1b row also the core's route at dog's two
+layouts ('core': ms per call of the whole route, its K1b launches per
+call and in the slice run, its bound), the K2 row at the tenth slice's
+three layouts and jaco's, keyed by task), one
 `{"kernels": [...]}` JSON line, and last the
 `{"ok": true, "device": {...}}` line.  The nvcc/ptxas log of the build
 is in dm_control_tpu_torch/_build/build.log; its register and spill lines
@@ -242,6 +259,30 @@ SLICE11_K1 = ('jaco-position_reacher_7DOF', 'lqr-lqr_6_2')
 # below
 REWARD_RANGE = {'jaco-position_reacher_7DOF': (-3.07, 1.0),
                 'lqr-lqr_6_2': (-math.inf, 1.0)}
+# the twelfth slice's tasks (dog: nv 79 for stand, walk, trot and run, 85
+# for fetch, past the Newton kernel's 64 dofs, so that their solve takes
+# the core with K1b, the JAX package's own route for such layouts; noslip;
+# the ellipsoid-box, ellipsoid-cylinder and cylinder-box colliders), their
+# kernel-phase generator's seed, the tasks whose initial states give K1's
+# n = 79 and 85, and the control steps of each run
+SLICE12_TASKS = ('dog-stand', 'dog-walk', 'dog-trot', 'dog-run', 'dog-fetch')
+SLICE12_SEED = 70
+SLICE12_K1 = ('dog-stand', 'dog-fetch')
+SLICE12_STEPS = 2
+# the tasks that run in phase slice (exact launch counts) without the
+# reference gate: dog's 256-lane gates fail lanes on both K1 routes (row
+# zones and limits flipped by float32 drift at the second or third physics
+# step, and lanes whose choices all matched past STOP_TOL).  The float32
+# Newton solve is the cause (with it at float64 no lane passes REF_TOL),
+# and other lanes of the same states fail the port's CPU float32 step
+# (`tools/float32_step_probe.py`) and the JAX package's float32 step
+# (`tools/reference_step_cpu.py --states`; PERF.md, ROADMAP queue 3);
+# `tools/k1_reference_step.py --tasks dog-stand,dog-fetch --lanes 256`
+# prints their gates
+UNGATED_TASKS = SLICE12_TASKS
+# lanes per float64 solve where the kernel phase holds dog's route (its
+# (4096, 3822, 85) J is 10.6 GB at float64)
+CHUNK = 1024
 # the tasks of the sixth to ninth slices, each driven through one
 # BatchedEnv of BATCH lanes (phase slice) and gated against the float64 CPU
 # path (phase reference, on the rollout's final states); a task's seeds
@@ -250,10 +291,15 @@ SLICE_TASKS = ('cheetah-run', 'hopper-hop', 'pendulum-swingup',
                'reacher-easy', 'cartpole-swingup', 'acrobot-swingup',
                'finger-turn_easy', 'point_mass-easy', 'ball_in_cup-catch',
                'swimmer-swimmer6', 'fish-swim', 'humanoid-run',
-               'quadruped-walk') + SLICE9_TASKS + SLICE10_TASKS + SLICE11_TASKS
-# the runs of each slice task (a run's seeds, and so its final states,
-# follow from its index; the reference gate reads the last run's)
-SLICE_RUNS = 3
+               'quadruped-walk') + (SLICE9_TASKS + SLICE10_TASKS
+                                    + SLICE11_TASKS + SLICE12_TASKS)
+# the index of each slice task's one run: a run's seeds, and so its final
+# states, follow from its index, and the reference gate reads its final
+# states.  Until the twelfth slice every task took runs 0, 1 and 2 and
+# the gate read run 2's; runs 0 and 1 went (a third of the script's
+# time) to keep it within its time limit on a slower host, and run 2
+# stayed, so every gate holds the states it held before
+SLICE_RUN = 2
 # the control steps of each run of the sixth to eighth slices' tasks (50
 # until the ninth slice cut them, 25 until the eleventh, to keep the
 # script within its time; the eleventh slice also cut walker's and
@@ -376,14 +422,19 @@ def expected_launches(task):
   model's contacts are elliptic, if it has constraint rows) n times, and
   Euler's implicit damping (K1b) n times where a dof is damped.  Under
   RK4 each physics step runs three more pipelines (`forward._forward_core`:
-  K1a, K1c, K2) and no K1b."""
+  K1a, K1c, K2) and no K1b.  Past the Newton kernel's dofs (dog) the acc
+  stage's solve is the core, which launches no Newton kernel and K1b once
+  per iteration of its batch loop: those launches, the loop iterations the
+  core reports (`newton_kernel.CORE_LOOPS`), come on top of K1b's count
+  here."""
   import numpy as np
   from dm_control_tpu_torch._src import efc
   from dm_control_tpu_torch._src.types import Integrator
+  from dm_control_tpu_torch.ops import newton_kernel as nk
   m, n = task.model, task.n_sub_steps()
   lay = efc.layout(m)
   rk4 = m.opt.integrator == Integrator.RK4
-  solves = (4 if rk4 else 1) * n if lay.nefc else 0
+  solves = (4 if rk4 else 1) * n if lay.nefc and m.nv <= nk.MAX_NV else 0
   ell = bool(lay.ell_groups)
   return {'cholesky_batched': n + 1 + (3 * n if rk4 else 0),
           'cho_solve_batched': (4 if rk4 else 1) * n,
@@ -393,17 +444,31 @@ def expected_launches(task):
           'newton_solve_ell': solves if ell else 0}
 
 
+def core_calls(task):
+  """The core's calls per control step of `task`: one per acc stage where
+  the model is past the Newton kernel's dofs, else none."""
+  from dm_control_tpu_torch._src import efc
+  from dm_control_tpu_torch.ops import newton_kernel as nk
+  m = task.model
+  return (task.n_sub_steps() if efc.layout(m).nefc and m.nv > nk.MAX_NV
+          else 0)
+
+
 def reset_launches(task):
   """Each kernel's launches in one `forward.forward` of `task` (an
   auto-reset of done lanes by a fresh init: K1a in step1, K1c and K2, or
-  K2-ell, in the acc stage where the model has constraint rows)."""
+  K2-ell, in the acc stage where the model has constraint rows; past the
+  Newton kernel's dofs the core's K1b launches, which `expected_launches`
+  counts from its loops)."""
   from dm_control_tpu_torch._src import efc
+  from dm_control_tpu_torch.ops import newton_kernel as nk
   lay = efc.layout(task.model)
   ell = bool(lay.ell_groups)
+  kernel = bool(lay.nefc) and task.model.nv <= nk.MAX_NV
   return {'cholesky_batched': 1, 'cho_solve_batched': 1,
           'chol_solve_batched': 0,
-          'newton_solve_batched': int(bool(lay.nefc) and not ell),
-          'newton_solve_ell': int(bool(lay.nefc) and ell)}
+          'newton_solve_batched': int(kernel and not ell),
+          'newton_solve_ell': int(kernel and ell)}
 
 
 def scaled_err(x, ref):
@@ -603,11 +668,18 @@ def stop_gates(what, x_k, x_p, x_64, lay, args):
   by `ell_gates`.  The overlap of the two solves' limited lanes and
   their stop distances are printed."""
   import torch
-  a64 = [t.double() for t in args[:7]]
-  c_64, s_64 = solve_cost(lay, *a64, x_64)
+
+  def cost(x):
+    """`solve_cost` at float64, CHUNK lanes at a time."""
+    parts = [solve_cost(lay, *[t[i:i + CHUNK].double() for t in args[:7]],
+                        x[i:i + CHUNK].double())
+             for i in range(0, x.shape[0], CHUNK)]
+    return tuple(torch.cat(p) for p in zip(*parts))
+
+  c_64, s_64 = cost(x_64)
   limited, err = {}, {}
   for name, x in (('kernel', x_k), ('plain float32', x_p)):
-    c, s = solve_cost(lay, *a64, x.double())
+    c, s = cost(x)
     bands = (c - c_64) / (EPS32 * (s + s_64))
     err[name] = lane_scaled_err(x.double(), x_64).amax(dim=1)
     over = err[name] > 1e-3
@@ -716,13 +788,16 @@ def recording(record):
   with the Data going into and out of it and `seen`, what the mesh
   colliders computed for its contacts (each MESH_PROBES function's
   results in call order, from the narrowphase that made them), which
-  `mesh_choices` reads instead of running Frank-Wolfe again.  The step
-  itself is unchanged."""
+  `mesh_choices` reads instead of running Frank-Wolfe again, and, where
+  the model runs noslip, the Newton solve's qacc before it ('newton x',
+  which `solve_stop` reads).  The step itself is unchanged."""
   from dm_control_tpu_torch._src import colliders
   from dm_control_tpu_torch._src import forward
-  acc, narrow = forward._acc_stage, colliders.collide_all
+  from dm_control_tpu_torch._src import solver
+  acc, narrow, noslip = (forward._acc_stage, colliders.collide_all,
+                         solver._noslip)
   saved = {f: getattr(colliders, f) for f in MESH_PROBES}
-  seen = {f: [] for f in MESH_PROBES}
+  seen = {f: [] for f in MESH_PROBES + ('newton x',)}
 
   def probe(f):
     def run(*args):
@@ -732,22 +807,29 @@ def recording(record):
     return run
 
   def collide_all(m, d):
-    for v in seen.values():
-      v.clear()
+    for f in MESH_PROBES:
+      seen[f].clear()
     return narrow(m, d)
+
+  def noslip_probe(m, lay, d, x, force):
+    seen['newton x'].append(x)
+    return noslip(m, lay, d, x, force)
 
   def probed(m, d, skipsensor=False):
     out = acc(m, d, skipsensor=skipsensor)
     record(d, out, {f: list(v) for f, v in seen.items()})
+    seen['newton x'].clear()
     return out
 
   forward._acc_stage, colliders.collide_all = probed, collide_all
+  solver._noslip = noslip_probe
   for f in MESH_PROBES:
     setattr(colliders, f, probe(f))
   try:
     yield
   finally:
     forward._acc_stage, colliders.collide_all = acc, narrow
+    solver._noslip = noslip
     for f, fn in saved.items():
       setattr(colliders, f, fn)
 
@@ -846,10 +928,11 @@ def solve_cost(lay, J, M, aref, D, fl, act, a, x):
   return quad + c, scale + (f.abs() * jscale).sum(-1)
 
 
-def solve_stop(m, lay, d):
+def solve_stop(m, lay, d, x=None):
   """Where one acc stage's float32 Newton solve stopped: cost(x32) -
   cost(x*), at float64 on the run's device, x32 being the stage's
-  solution d.qacc and x* the plain float64 solve of the stage's own
+  solution (d.qacc, or `x`, the Newton solve's own where noslip moved
+  d.qacc off it) and x* the plain float64 solve of the stage's own
   inputs (J, D, aref, friction loss, active rows and cones, M,
   qacc_smooth) from x32, to STOP_TOL64; its scale the sum of the two
   costs' `solve_cost` scales, as the warmstart choice's.  Returns (None,
@@ -860,7 +943,7 @@ def solve_stop(m, lay, d):
   f64 = lambda t: t.detach().to(torch.float64)
   args = [f64(t) for t in (d.efc_J, d.qM, d.efc_aref, d.efc_D,
                            d.efc_frictionloss, d.efc_active, d.qacc_smooth)]
-  x32 = f64(d.qacc)
+  x32 = f64(d.qacc if x is None else x)
   x64, _ = nk.newton_solve_plain(
       *args, x32, types=lay.types, ell_groups=lay.ell_groups,
       niter=STOP_ITERATIONS, ls_iter=solver.LS_ITERATIONS, tol=STOP_TOL64,
@@ -915,8 +998,9 @@ def contact_keys(m, con, d=None):
   index * k + j), so that two runs' contacts of one pair meet whatever
   order their selections took; a plane-box slot takes its box corner's
   place (pair index * 8 + corner, the corners `plane_box_corners` reads
-  off d), so that two runs' contacts of one corner meet whatever order
-  their 4 equally deep corners took.  Keys are None where the model has
+  off d; in a top-K plane-box group, of the pair its lane selected), so
+  that two runs' contacts of one corner meet whatever order their 4
+  equally deep corners took.  Keys are None where the model has
   no such group: then slots are keys."""
   import torch
   from dm_control_tpu_torch._src import collision
@@ -928,7 +1012,13 @@ def contact_keys(m, con, d=None):
   keys, slot, key = [], 0, 0
   for g in groups:
     k, kp = g.ncon_per_pair, keys_per_pair(g)
-    if g.dynamic:
+    if g.dynamic and kp != k:
+      # a top-K plane-box group: each selected pair's slots by box corner
+      pair = selected_pairs(m, con, g, slot)
+      corner = torch.take_along_dim(plane_box_corners(m, d, g)[1],
+                                    pair[..., None], dim=1)
+      keys.append(key + (pair[..., None] * kp + corner).reshape(B, -1))
+    elif g.dynamic:
       pair = selected_pairs(m, con, g, slot)
       keys.append(key + (pair[..., None] * k + torch.arange(k, device=dev)
                          ).reshape(B, -1))
@@ -1007,8 +1097,10 @@ def selection(m, d):
 
 def box_choices(m, d):
   """The box colliders' discrete choices (quantities of `branches`), per
-  pair of the static box groups, each recorded only where it can matter
-  and its value the nearer of the choice's own margin and that reach's:
+  pair of the box groups (of a top-K plane-box group, dog-fetch's, where
+  the lane selected the pair: else no choice, its state False and its
+  value inf), each recorded only where it can matter and its value the
+  nearer of the choice's own margin and that reach's:
     box corners  per plane-box pair and box corner, whether the pair's
                  4 contacts hold it, where the 4th deepest corner is
                  within its contact margin (else no corner): value the
@@ -1030,13 +1122,11 @@ def box_choices(m, d):
   for g in collision.groups(m):
     if GeomType.BOX in (g.t1, g.t2) and g.t1 in (GeomType.PLANE,
                                                  GeomType.BOX):
-      assert not g.dynamic, 'a top-K box group'
+      assert not g.dynamic or g.t1 == GeomType.PLANE, 'a top-K box-box group'
       g1, g2 = mirror(m, ref, g.g1), mirror(m, ref, g.g2)
       scale = torch.maximum(d.geom_xpos[:, g1].abs().amax(-1),
                             d.geom_xpos[:, g2].abs().amax(-1)).clamp(min=1.0)
-      dist = con.dist[:, slot:slot + g.ncon].reshape(
-          -1, g.npairs, g.ncon_per_pair)
-      margin = con.includemargin[:, slot:slot + g.ncon:g.ncon_per_pair]
+      margin = mirror(m, ref, g.margin - g.gap).expand(ref.shape[0], -1)
       if g.t1 == GeomType.PLANE:
         heights, corner = plane_box_corners(m, d, g)
         ranked = torch.sort(heights, dim=-1, stable=True).values
@@ -1044,12 +1134,21 @@ def box_choices(m, d):
         value = torch.minimum(ranked[..., 4] - ranked[..., 3], h4.abs())
         held = torch.zeros_like(heights, dtype=torch.bool).scatter_(
             -1, corner, True) & (h4 < 0)[..., None]
+        if g.dynamic:
+          # a top-K group's pair makes a choice only where the lane
+          # selected it
+          chosen = torch.zeros_like(h4, dtype=torch.bool).scatter_(
+              1, selected_pairs(m, con, g, slot), True)
+          held = held & chosen[..., None]
+          value = torch.where(chosen, value, float('inf'))
         part = ('box corners', (held.flatten(1),
                                 value[..., None].expand(heights.shape)
                                 .flatten(1),
                                 scale[..., None].expand(heights.shape)
                                 .flatten(1)))
       else:
+        dist = con.dist[:, slot:slot + g.ncon].reshape(
+            -1, g.npairs, g.ncon_per_pair)
         cand = colliders.box_box_axes(
             d.geom_xpos[:, g1], d.geom_xmat[:, g1],
             mirror(m, ref, m.geom_size[g.g1]), d.geom_xpos[:, g2],
@@ -1161,7 +1260,8 @@ def mesh_choices(m, d, seen=None):
     out[q] = (tuple(torch.cat([a, b], dim=1) for a, b in zip(out[q], x))
               if q in out else x)
     slot += g.ncon
-  assert not seen or not any(seen.values()), 'a mesh collider call unread'
+  assert not seen or not any(seen.get(f) for f in MESH_PROBES), (
+      'a mesh collider call unread')
   return out
 
 
@@ -1269,7 +1369,8 @@ def branches(m, lay, before, after, seen=None):
                mu n + t <= 0 (newton_kernel._ell_terms), on the scaled
                residuals, t over all of a cone's friction rows; scale the
                same sums for n and t
-  and, for a float32 run with constraint rows, 'solve stop' (`solve_stop`:
+  and, for a float32 run with constraint rows, 'solve stop' (`solve_stop`
+  at the Newton solve's own qacc, before noslip where the model runs it:
   no choice, so no state; `first_differences` does not read it,
   `stop_distances` does).  Where the model has dynamic groups, the
   contact quantities and the row zones are keyed by pair (`contact_keys`,
@@ -1405,7 +1506,9 @@ def branches(m, lay, before, after, seen=None):
     if parts:
       out[q] = tuple(torch.cat(x, dim=1) for x in zip(*parts))
   if J.dtype == torch.float32:
-    out['solve stop'] = solve_stop(m, lay, d)
+    newton_x = (seen or {}).get('newton x')
+    out['solve stop'] = solve_stop(m, lay, d,
+                                   newton_x[0] if newton_x else None)
   return out
 
 
@@ -1699,6 +1802,8 @@ def finger_solver_inputs(m, lay, B, gen, dev):
 
 def slice_steps(what):
   """The control steps of each of slice task `what`'s runs."""
+  if what in SLICE12_TASKS:
+    return SLICE12_STEPS
   if what in SLICE11_TASKS:
     return SLICE11_STEPS[what]
   if what in SLICE10_TASKS:
@@ -1735,7 +1840,7 @@ def row_key(what):
   line: its domain, or the whole task name where its domain has several
   entries (the ninth slice's and the tenth's; the cone model's layouts
   are 'cones x1' and 'cones x2')."""
-  if what in SLICE9_K1 + SLICE10_TASKS:
+  if what in SLICE9_K1 + SLICE10_TASKS + SLICE12_TASKS:
     return what
   return what.split('-')[0]
 
@@ -1766,7 +1871,9 @@ def impact_states(what, m, B, gen, dev):
   quadruped's, escape's on a terrain of each lane's own (`model_var`), at
   the bowl's middle or up to 6 m out on its slope, over the terrain there,
   and fetch's ball on the floor by the body or against a wall
-  (`ball_states`).  Controls uniform."""
+  (`ball_states`); dogs standing or lying, fetch's ball beside the head,
+  in the mouth, on the target or over the body (`dog_states`).  Controls
+  uniform."""
   import math as pymath
   import torch
   from dm_control_tpu_torch._src import forward
@@ -1834,6 +1941,8 @@ def impact_states(what, m, B, gen, dev):
     qvel = 0.3 * torch.randn((B, m.nv), **kw)
   elif what == 'jaco-position_reacher_7DOF':
     qpos, qvel, d = jaco_states(m, d, gen)
+  elif what in SLICE12_TASKS:
+    qpos, qvel = dog_states(m, qpos, gen)
   elif what in SLICE8_TASKS:
     for j in range(1, m.njnt):
       qpos[:, int(m.jnt_qposadr[j])] = u(*(float(v) for v in m.jnt_range[j]))
@@ -1853,6 +1962,74 @@ def impact_states(what, m, B, gen, dev):
     qvel[:, int(m.jnt_dofadr[m.name2id('joint', 'joint_0')])] = side
   ctrl = u(-1.0, 1.0, B, m.nu)
   return d.replace(qpos=qpos, qvel=qvel, ctrl=ctrl)
+
+
+def dog_states(m, qpos, gen):
+  """qpos and qvel of dog lanes (qpos: the model's qpos0 per lane, on the
+  card), drawn from `gen`: on even lanes standing at qpos0, every hinge
+  within 0.3 of it, at a random yaw, the feet 0 to 3 cm into the floor; on
+  odd lanes lying, the root 0.15 to 0.3 m up at a random orientation; each
+  0.6 to 1 m from the origin (off fetch's target, which the JAX package's
+  cylinder-box collider takes for a sphere of its radius: a hand on it
+  diverges there as here).  fetch's ball, still: on the floor beside the
+  head (lanes 0 mod 4), in the mouth between the bite sites (1 mod 4), on
+  the target (2 mod 4) or over the body (3 mod 4).  Slow joint
+  velocities.  (tests/test_torch_dog.dog_states draws the same with
+  numpy.)"""
+  import math as pymath
+  import torch
+  from dm_control_tpu_torch._src import forward
+  from dm_control_tpu_torch._src import smooth
+  from dm_control_tpu_torch._src.types import JointType
+  B, dev = qpos.shape[0], qpos.device
+  kw = dict(generator=gen, device=dev)
+  u = lambda lo, hi, *shape: lo + (hi - lo) * torch.rand(shape or (B,), **kw)
+  qpos = qpos.clone()
+  lane = torch.arange(B, device=dev)
+  even = lane % 2 == 0
+  for j in range(m.njnt):
+    if m.jnt_type[j] == JointType.HINGE:
+      q = int(m.jnt_qposadr[j])
+      qpos[:, q] = (qpos[:, q] + u(-0.3, 0.3)).clamp(
+          *(float(v) for v in m.jnt_range[j]))
+  root = int(m.jnt_qposadr[m.name2id('joint', 'root')])
+  yaw = u(-pymath.pi, pymath.pi)
+  quat = torch.randn((B, 4), **kw)
+  zero = torch.zeros_like(yaw)
+  qpos[:, root + 3:root + 7] = torch.where(
+      even[:, None], torch.stack([torch.cos(yaw / 2), zero, zero,
+                                  torch.sin(yaw / 2)], -1),
+      quat / quat.norm(dim=1, keepdim=True))
+  away, r = u(-pymath.pi, pymath.pi), u(0.6, 1.0)
+  qpos[:, root], qpos[:, root + 1] = r * torch.cos(away), r * torch.sin(away)
+  qpos[:, root + 2] = torch.where(
+      even, float(m.qpos0[root + 2]) - u(0.0, 0.03), u(0.15, 0.3))
+  qvel = 0.3 * torch.randn((B, m.nv), **kw)
+  if 'ball_root' in m.names['joint']:
+    kin = smooth.kinematics(m, forward.make_data(
+        m, B, qpos.dtype, dev).replace(qpos=qpos))
+    head = kin.site_xpos[:, m.name2id('site', 'head')]
+    mouth = 0.5 * (kin.site_xpos[:, m.name2id('site', 'upper_bite')]
+                   + kin.site_xpos[:, m.name2id('site', 'lower_bite')])
+    torso = kin.xpos[:, m.name2id('body', 'torso')]
+    rad = float(m.geom_size[m.name2id('geom', 'ball'), 0])
+    ang = u(-pymath.pi, pymath.pi)
+    beside = torch.stack([head[:, 0] + 0.15 * torch.cos(ang),
+                          head[:, 1] + 0.15 * torch.sin(ang),
+                          rad - u(0.0, 1e-3)], -1)
+    on_target = torch.stack([u(-0.05, 0.05), u(-0.05, 0.05),
+                             0.004 + rad - u(0.0, 1e-3)], -1)
+    over = torso + torch.tensor([0.0, 0.0, 0.3], device=dev)
+    kind = (lane % 4)[:, None]
+    ball = int(m.jnt_qposadr[m.name2id('joint', 'ball_root')])
+    qpos[:, ball:ball + 3] = torch.where(
+        kind == 0, beside, torch.where(kind == 1, mouth, torch.where(
+            kind == 2, on_target, over)))
+    qpos[:, ball + 3:ball + 7] = torch.tensor([1.0, 0.0, 0.0, 0.0],
+                                              device=dev)
+    bd = int(m.jnt_dofadr[m.name2id('joint', 'ball_root')])
+    qvel[:, bd:bd + 6] = 0.0
+  return qpos, qvel
 
 
 def jaco_states(m, d, gen):
@@ -2054,6 +2231,88 @@ def k2_task_check(nk, what, m, lay, d, gates=None):
   return args, kw, iters, (x_k - x_p).abs().max().item(), d, cones
 
 
+def plain64(nk, args, lay, **kw):
+  """The plain float64 solve (keyword arguments `kw`) of float32 solver
+  inputs `args`, CHUNK lanes at a time (each lane's solve is its own): x
+  (B, nv)."""
+  import torch
+  return torch.cat([nk.newton_solve_plain(
+      *[a[i:i + CHUNK].double() for a in args], types=lay.types,
+      ell_groups=lay.ell_groups, **kw)[0]
+      for i in range(0, args[0].shape[0], CHUNK)])
+
+
+def core_task_check(nk, lk, what, m, lay, d):
+  """The route past the Newton kernel's dofs (`newton_kernel.
+  newton_solve_core`: the JAX package's XLA core, with K1b as each
+  iteration's factor-and-solve) on `what`'s solver inputs from the
+  states d (the pipeline up to the solve, as `k2_task_check` makes them),
+  at least a quarter of whose lanes must touch: K1b launched exactly once
+  per iteration of the batch loop the core reports, no Newton kernel;
+  held converged by `stop_gates` against the plain float32 core
+  (`newton_solve_plain`, K1b's plain twin inside) and the plain float64
+  one at the model's own tolerance (float64 CHUNK lanes at a time), and
+  after one Newton iteration, without a line search and with one step
+  (on the lanes where float64 moves alpha off 1), by `float32_gates`.
+  Returns (args, kw, iterations, max |core - plain|, the forward Data,
+  the loop's iterations)."""
+  import torch
+  from dm_control_tpu_torch._src import efc
+  from dm_control_tpu_torch._src import forward
+  from dm_control_tpu_torch._src import solver
+  d = forward.step1(m, d, skipsensor=True)
+  d = forward.actuation(m, d)
+  d = forward.fwd_acceleration(m, d)
+  args = (d.efc_J, d.qM, d.efc_aref, d.efc_D, d.efc_frictionloss,
+          d.efc_active.to(torch.float32), d.qacc_smooth, d.qacc_warmstart)
+  kw = dict(niter=int(m.opt.iterations), ls_iter=solver.LS_ITERATIONS,
+            tol=solver.effective_tol(m.opt.tolerance, torch.float32),
+            meaninertia=float(m.stat_meaninertia))
+  B = args[0].shape[0]
+  assert m.nv > nk.MAX_NV
+  lk.reset_launches()
+  nk.reset_launches()
+  x_k, f_k, iters = nk.newton_solve_core(*args, lay=lay, return_iters=True,
+                                         **kw)
+  torch.cuda.synchronize()
+  loops = nk.CORE_LOOPS['loops']
+  launches = dict(lk.LAUNCHES, **nk.LAUNCHES)
+  assert launches == {'cholesky_batched': 0, 'chol_solve_batched': loops,
+                      'cho_solve_batched': 0, 'newton_solve_batched': 0,
+                      'newton_solve_ell': 0}, launches
+  assert loops == int(iters.max()) and nk.CORE_LOOPS['calls'] == 1
+  x_p, _, iters_p = nk.newton_solve_plain(
+      *args, types=lay.types, ell_groups=lay.ell_groups, return_iters=True,
+      **kw)
+  tol64 = solver.effective_tol(m.opt.tolerance, torch.float64)
+  x_64 = plain64(nk, args, lay, **dict(kw, tol=tol64))
+  first = (int((lay.types == efc.EQUALITY).sum()) + len(lay.fric_dof)
+           + len(lay.lim_jnt))
+  active = int(d.efc_active[:, first:].any(dim=1).sum())
+  log(f'# phase kernels: core (K1b inside) on {what} B={B} nefc={lay.nefc} '
+      f'nv={m.nv}: lanes in contact {active}; K1b launches {loops} (the '
+      f'loop\'s iterations); iterations mean {iters.float().mean().item():.2f}'
+      f' max {int(iters.max())} (plain float32: mean '
+      f'{iters_p.float().mean().item():.2f} max {int(iters_p.max())})')
+  assert active >= B // 4, f'core on {what}: too few lanes in contact'
+  assert torch.isfinite(f_k).all() and torch.isfinite(x_k).all()
+  stop_gates(f'core on {what}', x_k, x_p, x_64, lay, args)
+  one = {}
+  for ls in (0, 1):
+    kw1 = dict(kw, niter=1, ls_iter=ls)
+    one[ls] = (nk.newton_solve_core(*args, lay=lay, **kw1)[0],
+               nk.newton_solve_plain(*args, types=lay.types, **kw1)[0],
+               plain64(nk, args, lay, **dict(kw1, tol=tol64)))
+  off = lane_scaled_err(one[1][2], one[0][2]).amax(dim=1) > 1e-3
+  log(f'# phase kernels: core on {what}, one Newton iteration: lanes whose '
+      f'one line-search step moves alpha off 1 '
+      f'{float(off.double().mean()):.4f}')
+  float32_gates(f'core on {what}, one iteration, no line search,', *one[0])
+  float32_gates(f'core on {what}, one iteration, one line-search step, '
+                f'alpha off 1,', *(x[off] for x in one[1]))
+  return args, kw, iters, (x_k - x_p).abs().max().item(), d, loops
+
+
 def topk_live(what, m, d):
   """Print, for each dynamic (top-K) group, the share of lanes on which it
   selected a live pair (an active contact) in d; humanoid's every group
@@ -2151,6 +2410,7 @@ def main() -> int:
   from dm_control_tpu_torch.parallel import BatchedEnv
   from dm_control_tpu_torch.parallel import runner
 
+  t_start = time.perf_counter()
   dev = torch.device('cuda')
   name = torch.cuda.get_device_name(0)
   smi = subprocess.run(
@@ -2168,6 +2428,7 @@ def main() -> int:
       log('#   ' + line.strip())
 
   # -- 2. kernels against their plain versions ----------------------------------
+  t_phase = time.perf_counter()
   gen = torch.Generator(device=dev)
   gen.manual_seed(0)
 
@@ -2365,6 +2626,21 @@ def main() -> int:
     float32_gates(f'K2 on {what}, one iteration, no line search,', *one[0])
     float32_gates(f'K2 on {what}, one iteration, one line-search step, '
                   f'alpha off 1,', *(x[off] for x in one[1]))
+  # the twelfth slice: dog's solve past the Newton kernel's 64 dofs (nv
+  # 79, nefc 1912; nv 85, nefc 3822) through the core with K1b, on states
+  # standing or lying, fetch's ball beside the head, in the mouth, on the
+  # target or over the body, from a generator of their own
+  s12_gen = torch.Generator(device=dev)
+  s12_gen.manual_seed(SLICE12_SEED)
+  core_slice = {}
+  for what in SLICE12_K1:
+    t0 = time.perf_counter()
+    tm = slice_tasks[what].model
+    impacts = impact_states(what, tm, BATCH, s12_gen, dev)
+    broadphase_bits(what, tm, impacts)
+    core_slice[what] = core_task_check(nk, lk, what, tm, efc.layout(tm),
+                                       impacts)
+    log(f'# phase kernels: core on {what}: {time.perf_counter() - t0:.1f} s')
   # past the kernel's 64 dofs (dog's 85) K2 raises on the card and
   # launches nothing: there is no fallback to the plain version
   cmu_lay = efc.layout(slice_tasks['humanoid_CMU-run'].model)
@@ -2457,7 +2733,8 @@ def main() -> int:
   # error where plain float32 misses them; these are the errors their
   # timing rows report
   s8_init = {what: BatchedEnv(slice_tasks[what], BATCH).reset(seed=0).data
-             for what in SLICE8_TASKS + SLICE9_K1 + SLICE10_K1 + SLICE11_K1}
+             for what in SLICE8_TASKS + SLICE9_K1 + SLICE10_K1 + SLICE11_K1
+             + SLICE12_K1}
   # the cone model's n = 18 and 36 on its kernel-phase states
   s8_init.update({what: ell_slice[what][4] for what in cone_models})
   for what, s_d in s8_init.items():
@@ -2483,6 +2760,7 @@ def main() -> int:
             triples['chol_solve_batched'][0],
             lk.cho_solve_batched(triples['cholesky_batched'][0], b))
 
+  log(f'# phase kernels: {time.perf_counter() - t_phase:.1f} s')
   # -- 3. against the float64 path ---------------------------------------------
   # REF_LANES lanes of walker's state after the 40-step rollout, and of the
   # finger-spin lanes in contact; the first 64 lanes' controls from `gen`
@@ -2633,6 +2911,11 @@ def main() -> int:
   log(f'# phase reference: cones x1 {time.perf_counter() - t0:.1f} s')
 
   # -- 5. timing at the main path's shapes ----------------------------------------
+  t_phase = time.perf_counter()
+  # the kernel phase's float64 solves at dog's layouts leave the caching
+  # allocator holding most of the card, and cuSOLVER's handle (created by
+  # the first library call below) is allocated outside it
+  torch.cuda.empty_cache()
   lib = build.library()
   stream = torch.cuda.current_stream().cuda_stream
   rows = []
@@ -2698,7 +2981,7 @@ def main() -> int:
   for what in ('pendulum-swingup', 'reacher-easy', 'hopper-hop',
                'ball_in_cup-catch', 'swimmer-swimmer6', 'fish-swim',
                'humanoid-run', 'quadruped-walk') + SLICE9_K1 + SLICE10_K1 + (
-                   SLICE11_K1 + tuple(cone_models)):
+                   SLICE11_K1 + tuple(cone_models) + SLICE12_K1):
     s_d = s8_init[what] if what in s8_init else BatchedEnv(slice_tasks[what],
                                           BATCH).reset(seed=0).data
     slice_k1[what] = k1_rows(what, s_d.qM.contiguous(),
@@ -2771,6 +3054,28 @@ def main() -> int:
     profiled[key] = (solve, 3)
     profiled_rows[key] = ell_sub[what]
 
+  # the core (K1b inside) at dog's layouts: ms per call of the whole route
+  # (host work and every CUDA kernel of its loop included), its K1b
+  # launches per call and its bound (the Newton solve's bytes and FLOPs for
+  # these lanes' iterations)
+  core_sub = {}
+  for what, (c_args, c_kw, c_iters, c_err, _, c_loops) in core_slice.items():
+    c_m = slice_tasks[what].model
+    c_lay = efc.layout(c_m)
+    b_ms, b_by = bound_ms(
+        k2_bytes(BATCH, c_lay.nefc, c_m.nv),
+        newton_flops(c_lay.nefc, c_m.nv, solver.LS_ITERATIONS, c_iters))
+    core_sub[what] = dict(
+        launches=None, k1b_launches_per_call=c_loops, max_abs_err=c_err,
+        ms=cuda_ms(lambda c_args=c_args, c_lay=c_lay, c_kw=c_kw:
+                   nk.newton_solve_core(*c_args, lay=c_lay, **c_kw), 3),
+        plain_ms=cuda_ms(lambda c_args=c_args, c_lay=c_lay, c_kw=c_kw:
+                         nk.newton_solve_plain(*c_args, types=c_lay.types,
+                                               **c_kw), 1),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        max_iters=int(c_iters.max()), shape=[BATCH, c_lay.nefc, c_m.nv])
+    log(f'# phase timing: core (K1b inside) on {what}: {core_sub[what]}')
+
   # every profiled call's CUDA kernels (one per call) and device time
   for key, (kernels, device_ms) in device_kernels(profiled).items():
     profiled_rows[key].update(device_ms=device_ms, kernels_per_call=kernels)
@@ -2779,7 +3084,9 @@ def main() -> int:
     rows.append(dict(name=k, route='cuda', source=SOURCES[k],
                      replaces=REPLACES[k], **walker_k1[k],
                      finger=finger_k1[k],
-                     **{row_key(t): r[k] for t, r in slice_k1.items()}))
+                     **{row_key(t): r[k] for t, r in slice_k1.items()},
+                     **({'core': core_sub} if k == 'chol_solve_batched'
+                        else {})))
   k1_step = {what: sum(per_step[k] * walker_k1[k][what]
                        for k in walker_k1)
              for what in ('ms', 'kernel_ms', 'device_ms')}
@@ -2804,46 +3111,71 @@ def main() -> int:
                           for k, c in f_cones.items()}), ell_err,
       reps=10, plain_reps=2, max_iters=int(ell_iters.max()), **ell_sub)
 
+  log(f'# phase timing: {time.perf_counter() - t_phase:.1f} s')
+  # the kernel and timing phases' states and solver inputs are not read
+  # again (their keys are): dog's hold several GB each, and dog-fetch's
+  # rollout needs ~41 GB of the card
+  del s8_init, impacts, s_d, s_args, c_args
+  k2_slice, ell_slice, core_slice = (dict.fromkeys(x) for x in (
+      k2_slice, ell_slice, core_slice))
+  profiled.clear()
+  torch.cuda.empty_cache()
+
   # -- 6. the slices: eleven more tasks, reference gates, resets -------------
-  # Each task: SLICE_RUNS runs of reset and `slice_steps` control steps of
+  # Each task: run SLICE_RUN, a reset and `slice_steps` control steps of
   # BATCH lanes, states finite, rewards in its range, every kernel launched
   # exactly `expected_launches` times per control step (no episode ends);
-  # then the reference gate on REF_LANES lanes of the last run's final
-  # states, each task's controls from a generator of its own.
-  slice_launches, slice_sps = {}, {}
+  # then the reference gate on REF_LANES lanes of the run's final states,
+  # each task's controls from a generator of its own.
+  slice_launches, slice_core = {}, {}
   t_slice = time.perf_counter()
   for i_task, what in enumerate(SLICE_TASKS):
     s_task = slice_tasks[what]
+    # the last task's environment and states go before this one's come,
+    # and the blocks they held back to the card
+    s_env = state = rewards = None
+    torch.cuda.empty_cache()
     s_env = BatchedEnv(s_task, BATCH)
     want = expected_launches(s_task)
     steps = slice_steps(what)
-    sps = []
-    for i in range(SLICE_RUNS):
-      state, rewards, t_reset, dt = slice_run(
-          s_env, i_task, i, dev,
-          after_reset=lambda: (lk.reset_launches(), nk.reset_launches()))
-      got = dict(lk.LAUNCHES, **nk.LAUNCHES)
-      sps.append(BATCH * steps / dt)
-      log(f'# phase slice: {what}@{BATCH} run {i}: reset {t_reset:.2f} s; '
-          f'{steps} control steps in {dt:.2f} s ({sps[-1]:.1f} '
-          f'env-steps/s); launches {got}; mean reward '
-          f'{rewards.mean().item():.4f}')
-      for f, x in forward.state_items(forward.state_of(state.data)):
-        assert x.dtype == torch.bool or torch.isfinite(x).all(), (
-            f'{what}: {f} not finite')
-      assert tuple(rewards.shape) == (steps, BATCH)
-      r_lo, r_hi = REWARD_RANGE.get(what, (0.0, 1.0))
-      assert bool(((rewards >= r_lo) & (rewards <= r_hi)).all()), (
-          f'{what}: reward outside [{r_lo}, {r_hi}]')
-      assert not bool(state.episode_id.any()), f'{what}: an episode ended'
-      for k, n in got.items():
-        assert n == want[k] * steps, (
-            f'{what} {k}: {n} launches, expected {want[k] * steps}')
-    slice_sps[what] = sps
+    # the task's own peak: allocated memory at its start (what earlier
+    # phases keep alive) and the largest while it runs
+    torch.cuda.reset_peak_memory_stats()
+    base_bytes = torch.cuda.memory_allocated()
+    state, rewards, t_reset, dt = slice_run(
+        s_env, i_task, SLICE_RUN, dev,
+        after_reset=lambda: (lk.reset_launches(), nk.reset_launches()))
+    got = dict(lk.LAUNCHES, **nk.LAUNCHES)
+    core = dict(nk.CORE_LOOPS)
+    log(f'# phase slice: {what}@{BATCH} run {SLICE_RUN}: reset {t_reset:.2f} '
+        f's; {steps} control steps in {dt:.2f} s ({BATCH * steps / dt:.1f} '
+        f'env-steps/s); launches {got}; core {core}; mean reward '
+        f'{rewards.mean().item():.4f}; peak memory allocated '
+        f'{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, '
+        f'{base_bytes / 2 ** 30:.2f} GiB of it held before the task')
+    for f, x in forward.state_items(forward.state_of(state.data)):
+      assert x.dtype == torch.bool or torch.isfinite(x).all(), (
+          f'{what}: {f} not finite')
+    assert tuple(rewards.shape) == (steps, BATCH)
+    r_lo, r_hi = REWARD_RANGE.get(what, (0.0, 1.0))
+    assert bool(((rewards >= r_lo) & (rewards <= r_hi)).all()), (
+        f'{what}: reward outside [{r_lo}, {r_hi}]')
+    assert not bool(state.episode_id.any()), f'{what}: an episode ended'
+    # the core's K1b launches: exactly one per iteration of its loops
+    assert core['calls'] == core_calls(s_task) * steps, (what, core)
+    want_run = {k: v * steps for k, v in want.items()}
+    want_run['chol_solve_batched'] += core['loops']
+    for k, n in got.items():
+      assert n == want_run[k], (
+          f'{what} {k}: {n} launches, expected {want_run[k]}')
     slice_launches[what] = got
-    log(f'# {what}@{BATCH} env-steps/s: {sorted(sps)[len(sps) // 2]:.1f} '
-        f'(median of {SLICE_RUNS} runs: {", ".join(f"{v:.1f}" for v in sps)})'
-        f'; launches per control step {want}')
+    slice_core[what] = core
+    log(f'# {what}@{BATCH}: launches per control step {want}'
+        + (f' and the core\'s K1b launches ({core})' if core['calls']
+           else ''))
+    if what in UNGATED_TASKS:
+      log(f'# phase reference: {what}: no gate (UNGATED_TASKS)')
+      continue
     t0 = time.perf_counter()
     m_s = s_task.model
     if s_task.before_step is None:
@@ -2882,7 +3214,7 @@ def main() -> int:
     s_task = slice_tasks[what]
     r_env = BatchedEnv(s_task, BATCH, time_limit=limit_steps * (
         s_task.model.opt.timestep * s_task.n_sub_steps()))
-    state = r_env.reset(seed=SLICE_RUNS)
+    state = r_env.reset(seed=SLICE_RUN + 1)
     old = forward.state_of(state.data)['model_var']
     state, _ = r_env.rollout_fn(limit_steps - 1)(state, s_gen)
     drawn = r_env.generator.get_state()
@@ -2935,6 +3267,11 @@ def main() -> int:
         r[k]['launches'] = slice_launches[what][k]
         r[k]['launches_per_control_step'] = r[k]['launches'] / slice_steps(
             what)
+  for what, sub in core_sub.items():
+    sub['launches'] = slice_launches[what]['chol_solve_batched']
+    sub['core_calls'] = slice_core[what]['calls']
+    sub['core_loops'] = slice_core[what]['loops']
+    sub['launches_per_control_step'] = sub['launches'] / slice_steps(what)
   for what in k2_slice:
     sub = k2_sub[row_key(what)]
     sub['launches'] = slice_launches[what]['newton_solve_batched']
@@ -2951,6 +3288,7 @@ def main() -> int:
   for r in [ell_sub['cones x1']] + list(slice_k1['cones x1'].values()):
     r['launches_per_physics_step'] = r['launches'] / CONES_STEPS
 
+  log(f'# chip_smoke.py: {time.perf_counter() - t_start:.1f} s')
   log(smi)
   log(json.dumps({'kernels': rows}, allow_nan=False))
   log(json.dumps({'ok': True, 'device': {

@@ -5,10 +5,10 @@ tasks reach: contact-parameter mixing, the contact frame, the
 plane-sphere, plane-capsule, plane-ellipsoid, plane-cylinder,
 sphere-sphere, sphere-capsule, sphere-ellipsoid, sphere-cylinder,
 capsule-capsule, capsule-ellipsoid, capsule-cylinder,
-ellipsoid-ellipsoid and cylinder-cylinder colliders, the box colliders
-(plane-box, sphere-box, capsule-box and box-box, the last with its
-separating-axis test and face clipping written once over a batch of
-pairs), the heightfield against spheres, capsules, ellipsoids and
+ellipsoid-ellipsoid, ellipsoid-cylinder and cylinder-cylinder colliders,
+the box colliders (plane-box, sphere-box, capsule-box, ellipsoid-box,
+cylinder-box and box-box, the last with its separating-axis test and face
+clipping written once over a batch of pairs), the heightfield against spheres, capsules, ellipsoids and
 cylinders (`hfield_height`, per lane where `model_var` carries
 `hfield_data`), convex meshes against planes, spheres, capsules, boxes
 and meshes (Frank-Wolfe over the hull vertices, `hull_table`), the top-K
@@ -430,6 +430,50 @@ def _capsule_box(c_pos, c_mat, c_size, b_pos, b_mat, b_size):
           torch.cat([o[2] for o in outs], -2))
 
 
+def _dir_radius(e_mat, e_size, n):
+  """An ellipsoid's support radius along world direction n: 1 / |R' n /
+  size|."""
+  nl = torch.einsum('...ij,...i->...j', e_mat, n)
+  return 1.0 / torch.clamp(math.norm_safe(nl / e_size), min=1e-12)
+
+
+def _ellipsoid_as(sphere_fn, e_pos, e_mat, e_size, o_pos, o_mat, o_size):
+  """One contact of an ellipsoid against another geom: the point-sphere
+  collider `sphere_fn` at the ellipsoid's center, then the ellipsoid's
+  support radius along that contact's normal taken off its distance (the
+  JAX package's two-pass directional effective radius)."""
+  d0, p0, n0 = sphere_fn(e_pos, e_mat, torch.zeros_like(e_size), o_pos,
+                         o_mat, o_size)
+  n = n0[..., 0, :]
+  r = _dir_radius(e_mat, e_size, n)
+  dist = d0[..., 0] - r
+  pos = p0[..., 0, :] + n * (r / 2)[..., None]
+  return dist[..., None], pos[..., None, :], n[..., None, :]
+
+
+def _ellipsoid_cylinder(e_pos, e_mat, e_size, c_pos, c_mat, c_size):
+  """Ellipsoid vs cylinder: sphere-cylinder at the ellipsoid's center,
+  less its support radius along the normal."""
+  return _ellipsoid_as(_sphere_cylinder, e_pos, e_mat, e_size, c_pos, c_mat,
+                       c_size)
+
+
+def _ellipsoid_box(e_pos, e_mat, e_size, b_pos, b_mat, b_size):
+  """Ellipsoid vs box: sphere-box at the ellipsoid's center, less its
+  support radius along the normal."""
+  return _ellipsoid_as(_sphere_box, e_pos, e_mat, e_size, b_pos, b_mat,
+                       b_size)
+
+
+def _cylinder_box(c_pos, c_mat, c_size, b_pos, b_mat, b_size):
+  """Cylinder vs box: capsule-box on the cylinder's axis and radius (its
+  two contacts), padded with two empty slots (distance 1e10) to the four
+  the pair type holds."""
+  d2, p2, n2 = _capsule_box(c_pos, c_mat, c_size, b_pos, b_mat, b_size)
+  return (torch.cat([d2, torch.full_like(d2, 1e10)], -1),
+          torch.cat([p2, p2], -2), torch.cat([n2, n2], -2))
+
+
 def _clip_polygon(pts, valid, n, c):
   """Sutherland-Hodgman clip of padded polygons against n . p <= c.
 
@@ -782,7 +826,10 @@ _COLLIDERS = {
     (GeomType.CAPSULE, GeomType.ELLIPSOID): _capsule_ellipsoid,
     (GeomType.CAPSULE, GeomType.CYLINDER): _capsule_cylinder,
     (GeomType.ELLIPSOID, GeomType.ELLIPSOID): _ellipsoid_ellipsoid,
+    (GeomType.ELLIPSOID, GeomType.CYLINDER): _ellipsoid_cylinder,
+    (GeomType.ELLIPSOID, GeomType.BOX): _ellipsoid_box,
     (GeomType.CYLINDER, GeomType.CYLINDER): _cylinder_cylinder,
+    (GeomType.CYLINDER, GeomType.BOX): _cylinder_box,
     (GeomType.PLANE, GeomType.BOX): _plane_box,
     (GeomType.SPHERE, GeomType.BOX): _sphere_box,
     (GeomType.CAPSULE, GeomType.BOX): _capsule_box,

@@ -95,7 +95,8 @@ def _build_groups(m: Model) -> List[PairGroup]:
   for (t1, t2), lst in sorted(m.collision_pairs.items()):
     tp = (GeomType(t1), GeomType(t2))
     if tp not in _PAIR_NCON:
-      raise NotImplementedError(f'collider for {tp}')
+      raise NotImplementedError(
+          f'collider for ({tp[0].name}, {tp[1].name}) is not ported yet')
     for g1, g2, pairinfo in lst:
       condim, friction, solref, solimp, margin, gap = (
           colliders._combine_params(m, g1, g2, pairinfo))

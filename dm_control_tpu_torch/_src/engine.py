@@ -6,7 +6,8 @@ in torch on the CPU, and records the device the Model's per-step arrays
 are mirrored to (`types.mirror`): CUDA unless the caller passes
 `device='cpu'`.  `load_model_from_string` does the same for MJCF text
 (the JAX package's counterpart, engine.py:29), and `model_from_root` for
-an MJCF tree edited in code (cartpole's extra poles, quadruped's arena).
+an MJCF tree edited in code (cartpole's extra poles, quadruped's arena,
+dog's floor).
 Keyword
 arguments of either replace fields of the model's `Option` before its
 constants are derived (the top-K broadphase settings of humanoid and
@@ -43,7 +44,9 @@ def load_model_from_string(xml: str, base_dir: str = '.', device=None,
   return _finalize(_compiler.compile_string(xml, base_dir), device, opt)
 
 
-def model_from_root(root, device=None, **opt) -> Model:
+def model_from_root(root, device=None, base_dir: str = '.', **opt) -> Model:
   """Compile an MJCF element tree (includes already expanded, e.g. by
-  `suite.common.load_xml_root`) and finalize derived constants."""
-  return _finalize(_compiler.MJCFCompiler(root).build(), device, opt)
+  `suite.common.load_xml_root`; its mesh files resolved against
+  base_dir) and finalize derived constants."""
+  return _finalize(_compiler.MJCFCompiler(root, base_dir=base_dir).build(),
+                   device, opt)

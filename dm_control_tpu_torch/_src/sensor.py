@@ -1,8 +1,8 @@
 """Sensors: fill Data.sensordata (reference stages mj_sensorPos/Vel/Acc).
 
 The port of `dm_control_tpu/_src/sensor.py` for the sensor types the
-ported tasks read: `subtreecom`, `subtreelinvel`, `jointpos`,
-`jointvel`, `framepos`, `framexaxis` and `frameyaxis` (of a body, xbody,
+ported tasks read: `subtreecom`, `subtreelinvel`, `subtreeangmom`,
+`jointpos`, `jointvel`, `framepos`, `framexaxis` and `frameyaxis` (of a body, xbody,
 geom or site), `velocimeter` and `gyro` (of a site), `rangefinder` (every
 rangefinder's ray in one `render.raycast`), and in the acc
 stage `touch`, `accelerometer`, `force` and `torque` (of a site; the
@@ -81,6 +81,10 @@ def sensors(m: Model, d: Data, stages: str = 'all') -> Data:
       if linvel is None:
         linvel = _subtree_linvel(m, d)
       val = linvel[:, objid]
+    elif stype == SensorType.SUBTREEANGMOM:
+      if linvel is None:
+        linvel = _subtree_linvel(m, d)
+      val = _subtree_angmom(m, d, objid, linvel)
     elif stype == SensorType.RANGEFINDER:
       if ranges is None:
         ranges = _rangefinders(m, d, selected)
@@ -212,6 +216,27 @@ def _subtree_linvel(m: Model, d: Data) -> torch.Tensor:
   tot = torch.einsum('bc,Bcx->Bbx', sm, mass[:, None] * lin)
   den = torch.clamp(sm @ mass, min=1e-12)
   return tot / den[:, None]
+
+
+def _subtree_angmom(m: Model, d: Data, body: int,
+                    linvel: torch.Tensor) -> torch.Tensor:
+  """(B, 3) angular momentum of `body`'s subtree about its center of
+  mass: over the subtree's bodies c, I_c w_c + m_c (xipos_c - com) x
+  (v_c - v), I_c the world-frame inertia, w_c and v_c the body's angular
+  and com velocities, com and v the subtree's (`linvel`, the
+  `_subtree_linvel` of every body)."""
+  ref = d.qpos
+  mass = mirror(m, ref, m.body_mass)
+  com_root = d.subtree_com[:, mirror(m, ref, m.body_rootid)]
+  ang = d.cvel[..., :3]
+  lin = d.cvel[..., 3:] + math.cross(ang, d.xipos - com_root)
+  inertia = torch.einsum('Bbik,bk,Bbjk->Bbij', d.ximat,
+                         mirror(m, ref, m.body_inertia), d.ximat)
+  spin = torch.einsum('Bbij,Bbj->Bbi', inertia, ang)
+  orbit = mass[:, None] * math.cross(d.xipos - d.subtree_com[:, body, None],
+                                     lin - linvel[:, body, None])
+  sm = mirror(m, ref, tree.get(m).subtree_mask[body])
+  return torch.einsum('c,Bcx->Bx', sm, spin + orbit)
 
 
 def _contact_forces(m: Model, d: Data) -> torch.Tensor:

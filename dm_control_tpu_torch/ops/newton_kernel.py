@@ -1,4 +1,5 @@
-"""Batched projected-Newton constraint solve: CUDA kernel and plain twin.
+"""Batched projected-Newton constraint solve: CUDA kernel, plain twin, and
+the core for layouts past the kernel's dofs.
 
 The port of `dm_control_tpu/ops/newton_kernel.py` (K2).  Per environment
 it minimises 0.5 (x - a)' M (x - a) + sum_i c_i((J x - aref)_i) with the
@@ -20,6 +21,15 @@ where any contact has 4 or 6 rows).  Its own limits replace the TPU
 kernel's VMEM gate: nv <= MAX_NV (the TPU kernel's own limit) and one
 environment's problem within a block's shared memory (`launch_config`);
 anything else raises on the card.
+
+Layouts past MAX_NV (dog's nv 79 and 85) take `newton_solve_core`: the
+JAX package's own route for them (`solver._get_core`'s `fits` gate sends
+them to `_solve_core_xla`, solver.py:262-333), whose Newton step
+`linalg.solve_psd` runs the Pallas K1b kernel under the environment
+vmap.  Here it is `newton_solve_plain` with its factor-and-solve given
+as `linalg_kernel.chol_solve_batched`: K1b on the card, launched once per
+iteration of the batch's loop, the plain twin on the CPU.  It is that
+route, not a fallback: `newton_solve_batched` still raises past MAX_NV.
 """
 
 from __future__ import annotations
@@ -46,11 +56,16 @@ CONE_WIDTHS = (3, 6)
 # launches of each kernel since the last reset_launches() (plain-version
 # calls do not count): K2 and K2-ell
 LAUNCHES = {'newton_solve_batched': 0, 'newton_solve_ell': 0}
+# `newton_solve_core`'s calls and the iterations of their batch loops
+# since the last reset_launches(): one chol_solve_batched (K1b) each
+CORE_LOOPS = {'calls': 0, 'loops': 0}
 
 
 def reset_launches() -> None:
   for k in LAUNCHES:
     LAUNCHES[k] = 0
+  for k in CORE_LOOPS:
+    CORE_LOOPS[k] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -160,7 +175,8 @@ def _ell_groups(lay_groups, device, dtype):
 
 def newton_solve_plain(J, M, aref, d_, fl, active, a, warm, *, types, niter,
                        ls_iter, tol, meaninertia, ell_groups=None,
-                       return_iters=False):
+                       return_iters=False, chol_solve=None,
+                       return_loops=False):
   """Batched projected Newton with per-lane exit (plain torch).
 
   J (B, nefc, nv), M (B, nv, nv), aref/d_/fl/active (B, nefc) with active
@@ -168,8 +184,13 @@ def newton_solve_plain(J, M, aref, d_, fl, active, a, warm, *, types, niter,
   `ell_groups` the layout's elliptic groups ({condim: (rows, mu,
   scale)}, `efc.Layout.ell_groups`).  A lane that meets the exit rule is
   frozen while the others iterate, which is the single-environment loop's
-  result lane by lane.
+  result lane by lane.  Each iteration's Newton step solves H d = -grad
+  for the whole batch with `chol_solve(H, grad)` (default
+  `linalg_kernel.chol_solve_plain`, the factor and the substitutions of
+  the plain K1 versions).  With `return_loops`, the loop's iteration
+  count (the largest lane's, 0 where every lane starts done) comes last.
   """
+  chol_solve = chol_solve or linalg_kernel.chol_solve_plain
   B, nefc, nv = J.shape
   types = torch.as_tensor(types, device=J.device)
   is_eq = types == efc.EQUALITY
@@ -219,8 +240,7 @@ def newton_solve_plain(J, M, aref, d_, fl, active, a, warm, *, types, niter,
     for rows, W in blocks:
       Jc = J[:, rows]                             # (B, ncg, k, nv)
       h = h + torch.einsum('bcjv,bcjk,bckw->bvw', Jc, W, Jc)
-    L = linalg_kernel.cholesky_plain(h)
-    delta = -linalg_kernel.cho_solve_plain(L, grad)
+    delta = -chol_solve(h, grad)
     djar = mv(J, delta)
     dmd = (delta * mv(M, delta)).sum(-1)
     gma = (delta * mxa).sum(-1)
@@ -262,9 +282,32 @@ def newton_solve_plain(J, M, aref, d_, fl, active, a, warm, *, types, niter,
 
   # exact final forces (outputs are a pure function of x)
   f, _, _, _ = terms(mv(J, x) - aref)
-  if return_iters:
-    return x, f, iters
-  return x, f
+  return (x, f) + ((iters,) if return_iters else ()) + (
+      (it,) if return_loops else ())
+
+
+def newton_solve_core(J, M, aref, d_, fl, active, a, warm, *, lay,
+                      niter: int, ls_iter: int, tol: float,
+                      meaninertia: float, return_iters: bool = False):
+  """The Newton solve of layouts past MAX_NV: the counterpart of the JAX
+  package's `_solve_core_xla`, which that package runs for them on the
+  TPU (solver.py:262-333), with its Newton step's factor-and-solve the K1b
+  wrapper `linalg_kernel.chol_solve_batched`, as its `linalg.solve_psd`
+  dispatches to the Pallas K1b there.  On the card that launches K1b once
+  per iteration of the batch's loop (float32, nv <= linalg_kernel.MAX_N;
+  it raises otherwise); on the CPU it takes the plain twin.  Adds one
+  call and the loop's iterations to CORE_LOOPS, from which the K1b
+  launches follow exactly.  Arguments and results as
+  `newton_solve_batched`'s.
+  """
+  out = newton_solve_plain(
+      J, M, aref, d_, fl, active, a, warm, types=lay.types,
+      ell_groups=lay.ell_groups, niter=niter, ls_iter=ls_iter, tol=tol,
+      meaninertia=meaninertia, return_iters=return_iters,
+      chol_solve=linalg_kernel.chol_solve_batched, return_loops=True)
+  CORE_LOOPS['calls'] += 1
+  CORE_LOOPS['loops'] += out[-1]
+  return out[:-1]
 
 
 # ---------------------------------------------------------------------------

@@ -8,9 +8,10 @@ swingup_sparse), point_mass (easy, hard), ball_in_cup (catch), swimmer
 (swimmer6, swimmer15), fish (upright, swim), humanoid (stand, walk, run,
 run_pure_state), humanoid_CMU (stand, run), quadruped (walk, run, escape,
 fetch), manipulator (bring_ball, bring_peg, insert_ball, insert_peg),
-stacker (stack_2, stack_4), lqr (lqr_2_1, lqr_6_2) and jaco
+stacker (stack_2, stack_4), lqr (lqr_2_1, lqr_6_2), jaco
 (position_reacher_7DOF, relative_position_reacher_7DOF,
-configurable_reacher); the one other domain (dog) raises.
+configurable_reacher) and dog (stand, walk, trot, run, fetch): every
+domain of the JAX package.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ from dm_control_tpu_torch.rl import control
 DOMAINS = ('walker', 'finger', 'cheetah', 'hopper', 'pendulum', 'reacher',
            'cartpole', 'acrobot', 'point_mass', 'ball_in_cup', 'swimmer',
            'fish', 'humanoid', 'humanoid_CMU', 'quadruped', 'manipulator',
-           'stacker', 'lqr', 'jaco')
+           'stacker', 'lqr', 'jaco', 'dog')
 
 
 def build_task(domain_name: str, task_name: str,

@@ -16,7 +16,9 @@ JAX package's at seeded states.  The box colliders (plane-box, sphere-box,
 capsule-box, box-box) are held the same way on their own poses and
 degenerate cases, each pair's contacts compared as a set, and stack_2's
 and insert_peg's `collide_all` at states with the props on the floor,
-stacked or in the slot; a pair with no collider raises naming it.
+stacked or in the slot; a pair with no collider raises naming it.  dog's
+three (ellipsoid-box, ellipsoid-cylinder, cylinder-box) are held the same
+way on their own poses.
 The heightfield (escape's terrain, a field of its own per lane in
 `model_var`) is held the same way: its bilinear height and slope at
 points across the grid, on cell edges and off it, and its contacts with
@@ -525,6 +527,111 @@ def test_box_collider_matches_jax(kind, case):
     assert (per_pair == 1).all(), per_pair
 
 
+def _dog_poses(kind, case, rng):
+  """(pos1, mat1, size1, pos2, mat2, size2) numpy arrays for B pairs of
+  the twelfth slice's colliders (dog's): an ellipsoid against a box or a
+  cylinder, a cylinder against a box.  Generic poses; an ellipsoid's
+  center over a face of the box, or beside the cylinder's side, about its
+  support radius along the face's normal away (grazing); its center inside
+  the box; over the cylinder's cap; a cylinder lying on the box's top
+  face, its axis along the face."""
+  box = rng.uniform(0.01, 0.1, (B, 3))
+  mat2 = _rot(rng, B)
+  pos2 = rng.uniform(-0.1, 0.1, (B, 3))
+  if kind.startswith('ellipsoid'):
+    ell = rng.uniform(0.02, 0.1, (B, 3))
+    mat1 = _rot(rng, B)
+    size2 = box if kind == 'ellipsoid_box' else _size(rng, B)
+
+    def reach(n_local):
+      """The ellipsoid's support radius along mat2 @ n_local."""
+      n = np.einsum('bij,bj->bi', mat2, n_local)
+      return np.linalg.norm(ell * np.einsum('bij,bi->bj', mat1, n), axis=1)
+
+    if kind == 'ellipsoid_box' and case == 'grazing':
+      local = box * rng.uniform(-0.9, 0.9, (B, 3))
+      ax = rng.randint(3, size=B)
+      sgn = rng.choice([-1.0, 1.0], B)
+      n_local = np.zeros((B, 3))
+      n_local[np.arange(B), ax] = sgn
+      local[np.arange(B), ax] = sgn * (box[np.arange(B), ax] + reach(n_local)
+                                       + rng.uniform(-0.005, 0.005, B))
+    elif case == 'inside':
+      local = box * rng.uniform(-0.9, 0.9, (B, 3))
+    elif case in ('side', 'cap'):
+      R, hl = size2[:, 0], size2[:, 1]
+      ang = rng.uniform(-np.pi, np.pi, B)
+      u = np.stack([np.cos(ang), np.sin(ang), np.zeros(B)], -1)
+      ez = np.tile([0.0, 0.0, 1.0], (B, 1))
+      if case == 'side':
+        local = (u * (R + reach(u) + rng.uniform(-0.005, 0.005, B))[:, None]
+                 + ez * (hl * rng.uniform(-0.9, 0.9, B))[:, None])
+      else:
+        sgn = rng.choice([-1.0, 1.0], B)[:, None]
+        local = (u * (R * rng.uniform(0, 0.9, B))[:, None]
+                 + sgn * ez * (hl + reach(sgn * ez)
+                               + rng.uniform(-0.005, 0.005, B))[:, None])
+    else:
+      local = rng.uniform(-0.15, 0.15, (B, 3))
+    return (pos2 + np.einsum('bij,bj->bi', mat2, local), mat1, ell, pos2,
+            mat2, size2)
+  cyl = _size(rng, B)
+  if case == 'parallel':
+    # the axis's ends over the face
+    cyl[:, 1] = box[:, 0] * rng.uniform(0.3, 0.9, B)
+    mat1 = mat2 @ _axis_rot(1, np.full(B, np.pi / 2))
+    local = np.stack([rng.uniform(-0.1, 0.1, B) * box[:, 0],
+                      rng.uniform(-0.5, 0.5, B) * box[:, 1],
+                      box[:, 2] + cyl[:, 0] + rng.uniform(-0.005, 0.005, B)],
+                     -1)
+    return (pos2 + np.einsum('bij,bj->bi', mat2, local), mat1, cyl, pos2,
+            mat2, box)
+  return pos2 + rng.uniform(-0.15, 0.15, (B, 3)), _rot(rng, B), cyl, pos2, \
+      mat2, box
+
+
+DOG_CASES = {
+    'ellipsoid_box': ('generic', 'grazing', 'inside'),
+    'ellipsoid_cylinder': ('generic', 'side', 'cap'),
+    'cylinder_box': ('generic', 'parallel'),
+}
+DOG_PARAMS = [(k, c) for k, cases in DOG_CASES.items() for c in cases]
+
+
+@pytest.mark.parametrize('kind,case', DOG_PARAMS,
+                         ids=[f'{k}-{c}' for k, c in DOG_PARAMS])
+def test_dog_collider_matches_jax(kind, case):
+  """dog's three colliders (ellipsoid-box, ellipsoid-cylinder: one contact
+  from the point collider at the ellipsoid's center less its support
+  radius along the normal; cylinder-box: capsule-box's two contacts and
+  two empty slots) on seeded numpy poses, float64, against the JAX
+  package's: each pair's contacts compared as a set (`_as_sets`), dist
+  within 1e-9 scaled on every slot, pos and normal on the slots that hold
+  a contact."""
+  seed = 200 + DOG_PARAMS.index((kind, case))
+  args = _dog_poses(kind, case, np.random.RandomState(seed))
+  ref = getattr(jcolliders, '_' + kind)(*[jnp.asarray(a) for a in args])
+  out = getattr(colliders, '_' + kind)(*[torch.tensor(a) for a in args])
+  ref = _as_sets(*[np.asarray(r) for r in ref])
+  out = _as_sets(*[o.numpy() for o in out])
+  has = ref[0] < 1e9
+  np.testing.assert_array_equal(out[0] < 1e9, has)
+  print(f'{kind}/{case}: {int((ref[0] < 0).sum())} of {int(has.sum())} '
+        f'contacts penetrating; max err', end='')
+  for name, a, r in zip(('dist', 'pos', 'normal'), out, ref):
+    assert a.shape == r.shape, (name, a.shape, r.shape)
+    err = _scaled(a[has], r[has]) if name != 'dist' else _scaled(a, r)
+    print(f' {name} {err:.1e}', end='')
+    assert err <= TOL, f'{kind}/{case} {name}: {err:.2e}'
+  print()
+  assert (ref[0] < 0.01).any() and (ref[0][has] > -0.5).all()
+  if case in ('grazing', 'side', 'cap', 'parallel'):
+    # about touching: both signs of the distance on some pairs
+    near = ref[0][has]
+    assert (near < 0).any() and (near > 0).any() and (
+        np.abs(near) < 0.01).mean() >= 0.5, near
+
+
 def test_stacker_collide_all_matches_jax():
   """stack_2's and insert_peg's candidate pairs, their box groups (plane-
   box, sphere-box, capsule-box, box-box) among them, at seeded states with
@@ -593,19 +700,18 @@ def test_stacker_collide_all_matches_jax():
 
 
 def test_unported_pair_raises_naming_it():
-  """A geom pair with no collider in the port (cylinder-box) raises
-  NotImplementedError naming the pair when it collides."""
+  """A geom pair with no collider in the port (heightfield-box) raises
+  NotImplementedError naming the pair when its model is compiled (its
+  collision groups are built)."""
   import xml.etree.ElementTree as ET
   root = ET.fromstring(
-      '<mujoco><worldbody>'
-      '<body><joint type="free"/><geom type="cylinder" size=".1 .1"/></body>'
+      '<mujoco><asset><hfield name="h" nrow="3" ncol="3" size="1 1 .1 .1"/>'
+      '</asset><worldbody><geom type="hfield" hfield="h"/>'
       '<body pos="0 0 1"><joint type="free"/>'
       '<geom type="box" size=".1 .1 .1"/></body>'
       '</worldbody></mujoco>')
-  m = engine.model_from_root(root, device='cpu')
-  d = forward.make_data(m, 2, torch.float64, 'cpu')
-  with pytest.raises(NotImplementedError, match=r'\(CYLINDER, BOX\)'):
-    collision.collide(m, smooth.kinematics(m, d))
+  with pytest.raises(NotImplementedError, match=r'\(HFIELD, BOX\)'):
+    engine.model_from_root(root, device='cpu')
 
 
 @functools.lru_cache(maxsize=None)

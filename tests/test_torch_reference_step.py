@@ -19,10 +19,10 @@ versions, the batched torch solve) and the JAX package's float32 step
 (XLA core on the CPU) against the port's float64 step, on 16 lanes of
 walker-walk, finger-spin, cheetah-run and hopper-hop drawn with numpy,
 all three recording their choices through the same `branches`, and the
-port's counts to the JAX package's.  humanoid_CMU and fetch, whose
-float32 steps (the JAX package's too) miss float64 on some lanes by the
-gate's rule, are held by their counts and median lanes against the JAX
-package's float32 step (`FLOAT32_LIMITED`).  The port's float32 step is also
+port's counts to the JAX package's.  humanoid_CMU, quadruped-fetch and
+dog-fetch, whose float32 steps (the JAX package's too) miss float64 on
+some lanes by the gate's rule, are held by their counts and median lanes
+against the JAX package's float32 step (`FLOAT32_LIMITED`).  The port's float32 step is also
 held to the JAX package's directly: by the gate's rule where their
 choices differ, and where they are the same by the median lane and
 within K2's largest error for two float32 Newton solves.  And the gate's
@@ -195,6 +195,15 @@ def _prop_states(jm, rng, n):
   return qpos, qvel, rng.uniform(-1, 1, (n, jm.nu))
 
 
+def _dog_states(jm, rng, n):
+  """n dogs standing (feet pressed into the floor) or lying, away from
+  fetch's target, fetch's ball beside the head, in the mouth, on the
+  target or over the body (`test_torch_dog.dog_states`)."""
+  from test_torch_dog import dog_states
+  qpos, qvel, _ = dog_states(jm, rng, n)
+  return qpos, qvel, rng.uniform(-1, 1, (n, jm.nu))
+
+
 def _jax_step(jm, n_sub, qpos, qvel, ctrl, warm=None, act=None,
               model_var=None):
   """The JAX package's control step at float32, in its substeps' stage
@@ -281,7 +290,7 @@ def run_steps(what, n):
   """One control step of n lanes of task `what` (walker-walk, finger-spin,
   cheetah-run, hopper-hop, ..., quadruped-walk, manipulator-bring_ball,
   manipulator-insert_peg, stacker-stack_2, humanoid_CMU-run,
-  quadruped-escape, quadruped-fetch) drawn with
+  quadruped-escape, quadruped-fetch, dog-stand, dog-fetch) drawn with
   numpy (seed 5):
   the port's at float32 and at
   float64 and the JAX package's at float32, each with its choices
@@ -299,7 +308,7 @@ def run_steps(what, n):
           'humanoid_CMU': _body_states, 'quadruped': _body_states,
           'manipulator': _prop_states, 'stacker': _prop_states,
           'quadruped-escape': _escape_states,
-          'quadruped-fetch': _fetch_states}
+          'quadruped-fetch': _fetch_states, 'dog': _dog_states}
   qpos, qvel, ctrl, *mv = draw.get(what, draw.get(domain, _planar_states))(
       jm, rng, n)
   model_var = mv[0] if mv else {}
@@ -331,7 +340,7 @@ def run_steps(what, n):
                                         'manipulator-bring_ball',
                                         'manipulator-insert_peg',
                                         'stacker-stack_2',
-                                        'quadruped-escape'])
+                                        'quadruped-escape', 'dog-stand'])
 def steps(request):
   """`run_steps` of BATCH lanes of each task."""
   return request.param, run_steps(request.param, BATCH)[0]
@@ -415,8 +424,12 @@ def test_port_float32_step_matches_jax_under_the_gate_rule(steps):
 # 9.6e-5) and fetch (the ball at rest on the floor or at a wall, its
 # direct stiffness 1e4: each fails 9 of 64, largely the same lanes, whose
 # float32 solves both stop 5.21 from the float64 optimum of their inputs;
-# `tools/reference_step_cpu.py --lanes 64`).
-FLOAT32_LIMITED = ['humanoid_CMU-run', 'quadruped-fetch']
+# `tools/reference_step_cpu.py --lanes 64`) and dog-fetch (the ball
+# pinched in the mouth, lane 1 of the test's 16: the port's float32 step
+# 4.77e-2 from float64, excused by a row zone 3.13 bands out, the JAX
+# package's 1.07e-1, the two 0.174 apart with the same choices, past
+# K2's largest error for two float32 solves).
+FLOAT32_LIMITED = ['humanoid_CMU-run', 'quadruped-fetch', 'dog-fetch']
 
 
 @pytest.mark.parametrize('what', FLOAT32_LIMITED)

@@ -1,5 +1,9 @@
 """The port's sensors against the JAX package's, float64 on the CPU.
 
+subtreeangmom (dog's torso_angmom): a small tree built in the test, a
+free torso with hinged and ball-jointed limbs of skewed inertia, at seeded
+states through `step1`; every entry within TOL.
+
 The rangefinder: escape's 20 at states on the terrain (a field per lane
 in model_var), and `render.raycast` alone on rays that hit the terrain,
 the floor or a geom, pass a body they exclude, or hit nothing.
@@ -256,3 +260,63 @@ def test_raycast_hit_miss_geom_and_hfield_match_jax(escape_rays):
   assert (ref[:, 3] != ref[:, 2]).any()
   assert (ref[:, 4] > 0).any()
   np.testing.assert_allclose(ref[:, 5], 8.0, rtol=1e-12)
+
+
+ANGMOM_XML = """<mujoco>
+  <worldbody>
+    <body name="torso" pos="0 0 1"><freejoint/>
+      <geom type="box" size=".2 .1 .05" mass="3"/>
+      <body name="arm" pos=".2 0 0">
+        <joint name="shoulder" type="hinge" axis="0 1 .3"/>
+        <geom type="capsule" fromto="0 0 0 .3 0 .1" size=".03" mass=".7"/>
+        <body name="hand" pos=".3 0 .1">
+          <joint name="wrist" type="ball"/>
+          <geom type="ellipsoid" size=".05 .02 .04" mass=".2"/>
+        </body>
+      </body>
+      <body name="leg" pos="-.2 0 -.05">
+        <joint name="hip" type="hinge" axis="1 0 0"/>
+        <geom type="cylinder" fromto="0 0 0 0 .05 -.3" size=".04" mass="1"/>
+      </body>
+    </body>
+  </worldbody>
+  <sensor>
+    <subtreeangmom body="torso"/>
+    <subtreeangmom body="arm"/>
+    <subtreeangmom body="hand"/>
+    <subtreelinvel body="arm"/>
+  </sensor>
+</mujoco>"""
+
+
+def test_subtreeangmom_matches_jax():
+  """subtreeangmom of the whole tree, of a limb and of a leaf, beside the
+  subtreelinvel it reads, on a small model at seeded states (random
+  orientations, joint angles and velocities) through `step1`: every
+  entry of sensordata within TOL scaled by max(1, |ref|)."""
+  from dm_control_tpu._src import engine as jengine
+  from dm_control_tpu_torch._src import engine
+  jm = jengine.load_model_from_string(ANGMOM_XML)
+  m = engine.load_model_from_string(ANGMOM_XML, device='cpu')
+  assert [SensorType(int(t)) for t in m.sensor_type].count(
+      SensorType.SUBTREEANGMOM) == 3
+  rng = np.random.RandomState(12)
+  qpos = np.tile(m.qpos0, (B, 1))
+  for q in (3, 8):                                 # the free and ball quats
+    quat = rng.randn(B, 4)
+    qpos[:, q:q + 4] = quat / np.linalg.norm(quat, axis=1, keepdims=True)
+  qpos[:, [7, 12]] = rng.uniform(-2, 2, (B, 2))
+  qpos[:, :3] = rng.uniform(-1, 1, (B, 3))
+  qvel = 2 * rng.randn(B, m.nv)
+  d0 = jforward.make_data(jm)
+  ref = jax.jit(jax.vmap(lambda q, v: jforward.step1(
+      jm, d0.replace(qpos=q, qvel=v)).sensordata))(jnp.asarray(qpos),
+                                                   jnp.asarray(qvel))
+  d = forward.step1(m, forward.make_data(m, B, torch.float64, 'cpu').replace(
+      qpos=torch.tensor(qpos), qvel=torch.tensor(qvel)))
+  out, ref = d.sensordata.numpy(), np.asarray(ref)
+  assert out.shape == ref.shape == (B, 12)
+  err = np.abs(out - ref) / np.maximum(1.0, np.abs(ref))
+  print(f'subtreeangmom: sensordata max scaled err {err.max():.2e}')
+  assert err.max() <= TOL
+  assert (np.abs(ref[:, :9]) > 1e-3).all(axis=0).any()

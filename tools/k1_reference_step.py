@@ -18,7 +18,7 @@ cheetah-run, hopper-hop, pendulum-swingup, reacher-easy,
 cartpole-swingup, acrobot-swingup, finger-turn_easy, point_mass-easy,
 ball_in_cup-catch, swimmer-swimmer6, fish-swim, humanoid-run,
 quadruped-walk, the four manipulator tasks, humanoid_CMU-run,
-quadruped-escape and quadruped-fetch, and
+quadruped-escape, quadruped-fetch, lqr-lqr_6_2, jaco and dog's five, and
 `chip_smoke.STACKER_TASKS`, which chip_smoke.py holds in its kernel
 phase only) start, as in
 chip_smoke.py's phase slice, from the final states of its last rollout
@@ -125,7 +125,7 @@ def main():
     if name in wanted:
       t = suite.build_task(*name.split('-'))
       state, _, _, _ = cs.slice_run(BatchedEnv(t, BATCH), i_task,
-                                    cs.SLICE_RUNS - 1, dev)
+                                    cs.SLICE_RUN, dev)
       tasks.append((name, t, state.data, t.n_sub_steps(),
                     cs.slice_controls(i_task, t.model.nu, cs.REF_LANES,
                                       dev)))

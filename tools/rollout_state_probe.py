@@ -97,7 +97,7 @@ def final_state(what, dev):
   last slice run, {name: tensor}, on the card."""
   i_task = cs.SLICE_TASKS.index(what)
   env = BatchedEnv(suite.build_task(*what.split('-')), BATCH)
-  state, rewards, _, _ = cs.slice_run(env, i_task, cs.SLICE_RUNS - 1, dev)
+  state, rewards, _, _ = cs.slice_run(env, i_task, cs.SLICE_RUN, dev)
   out = dict(forward.state_items(forward.state_of(state.data)))
   out['rewards'] = rewards
   return out

@@ -20,6 +20,12 @@ window of `--steps` control steps three ways and prints, per control step
   * cProfile: host time by Python function (cProfile slows the host, so
     read its shares, not its times), and the share of `types.mirror`.
 
+Where the task's solve takes the core past the Newton kernel's dofs
+(dog), the untraced window also times each core call with CUDA events
+(its loop synchronises the stream every iteration, so the events span
+its host work too) and prints the core's ms per control step and share
+of the wall; K1b's kernels inside it are among the K1 kernels.
+
 Prints the card's name and power limit, the host's architecture, the cores
 this process may use and the load average first.
 """
@@ -39,6 +45,7 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from dm_control_tpu_torch import suite  # noqa: E402
+from dm_control_tpu_torch.ops import newton_kernel as nk  # noqa: E402
 from dm_control_tpu_torch.parallel import BatchedEnv  # noqa: E402
 
 BATCH = 4096
@@ -51,7 +58,8 @@ TASKS = {what: tuple(what.split('-')) for what in (
     'quadruped-walk', 'manipulator-bring_ball', 'manipulator-bring_peg',
     'manipulator-insert_ball', 'manipulator-insert_peg', 'stacker-stack_2',
     'stacker-stack_4', 'humanoid_CMU-run', 'quadruped-escape',
-    'quadruped-fetch', 'lqr-lqr_6_2', 'jaco-position_reacher_7DOF')}
+    'quadruped-fetch', 'lqr-lqr_6_2', 'jaco-position_reacher_7DOF',
+    'dog-stand', 'dog-walk', 'dog-trot', 'dog-run', 'dog-fetch')}
 
 
 def main():
@@ -74,12 +82,33 @@ def main():
   state = env.reset()
   state, _ = env.rollout_fn(args.warm)(state, gen)   # walkers on the floor
   run = env.rollout_fn(steps)
+  core_ms = []
+  solve = nk.newton_solve_core
+
+  def timed_core(*a, **k):
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = solve(*a, **k)
+    end.record()
+    end.synchronize()
+    core_ms.append(start.elapsed_time(end))
+    return out
 
   torch.cuda.synchronize()
+  nk.newton_solve_core = timed_core
+  nk.reset_launches()
   t0 = time.perf_counter()
   state, _ = run(state, gen)
   torch.cuda.synchronize()
   wall = time.perf_counter() - t0
+  nk.newton_solve_core = solve
+  if core_ms:
+    print(f'core (K1b inside): {len(core_ms) / steps:.0f} calls and '
+          f'{nk.CORE_LOOPS["loops"] / steps:.1f} K1b launches per control '
+          f'step, {sum(core_ms) / steps:.2f} ms per control step (CUDA '
+          f'events around each call), {sum(core_ms) / 1e3 / wall:.3f} of the '
+          f'untraced wall')
 
   with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
     t0 = time.perf_counter()
