@@ -171,7 +171,29 @@ any failure exits non-zero and no phase catches its own failure:
      episode: reacher's, swimmer's and fish's lanes hold the target
      geom_pos their fresh init drew, the others their reset pool entry
      (finger-turn's target site_pos, quadruped's act, insert_peg's
-     body_pos and body_quat, escape's hfield_data included).
+     body_pos and body_quat, escape's hfield_data included);
+  7. train (after phase slice; generators of its own, TRAIN_SEED): K1's
+     autograd Functions (`_src/linalg.py`) at (4096, n), n = 9, 27 and 62,
+     forward and backward through the kernels' forward, each output and
+     cotangent held by `ell_gates` against the same Functions with the
+     plain forward at float32 and at float64 (`k1_autograd`); lqr_2_1 and
+     lqr_6_2: `lqr_solver.linearize` through the kernels (float32; K1a and
+     K1c launched exactly once per pipeline, none in the backward) and
+     through the plain versions (float64), A, B and K held against
+     float64, then LQR_LANES = 256 lanes regulated under u = -K x for
+     LQR_STEPS control steps, each one replay of a CUDA graph of
+     `forward.step` (its K1 launches recorded at capture): every lane's
+     |(qpos, qvel)| under 1e-2 and reward over 0.999 at the end
+     (`lqr_phase`); SAC: `make_sac_trainer('cheetah', 'run', 4096)` with
+     the default SACConfig (hidden 256 x 256, learn batch 256, replay
+     2^17), TRAIN_STEPS = 20 train steps, each kernel's launches exactly
+     20 x `expected_launches` (no lane resets), metrics finite, the actor
+     moved, then one update on the card against the same update at
+     float64 on the CPU (the state through `bridge`, the same batch and
+     normal draws): gradients within SAC_GRAD_TOL of each tensor's largest
+     entry, updated parameters within SAC_PARAM_TOL x lr (`sac_phase`).
+     `python3 chip_smoke.py --train-only` runs the build and this phase
+     alone, without the contract's last line.
 
 Output: the card's name and power limit (nvidia-smi), env-steps/s of
 walker-walk@4096 and finger-spin@4096 (each the median of three runs)
@@ -181,7 +203,12 @@ carries its time at each ninth-slice layout and at the cone model's two
 18, 36, 79 and 85, the K1b row also the core's route at dog's two
 layouts ('core': ms per call of the whole route, its K1b launches per
 call and in the slice run, its bound), the K2 row at the tenth slice's
-three layouts and jaco's, keyed by task), one
+three layouts and jaco's, keyed by task; the K1 rows' 'autograd' (ms per
+forward, per forward + backward, the plain and the torch.linalg forward
++ backward, at n = 9, 27, 62) and 'lqr' (launches of each linearize and
+rollout), and the train path's launches ('train': K1a/b/c and K2 in the
+20 SAC train steps)), the train phase's lqr and SAC numbers (env-steps/s,
+updates/s, the update's share), one
 `{"kernels": [...]}` JSON line, and last the
 `{"ok": true, "device": {...}}` line.  The nvcc/ptxas log of the build
 is in dm_control_tpu_torch/_build/build.log; its register and spill lines
@@ -587,11 +614,12 @@ def ell_bytes(lay, B, nv):
   return k2_bytes(B, lay.nefc, nv) + 4 * (n_scales + n_cones(lay) + lay.nefc)
 
 
-def k2_check(what, x, ref, gate, bounds=None):
+def k2_check(what, x, ref, gate, bounds=None, quiet=False):
   """Print the lane-scaled error of x against ref, and the
-  component-scaled one for the record; with `gate`, assert the K2 bounds
-  (or `bounds`, (mean, max, lanes)) on the lane-scaled one.  Returns the
-  lane-scaled (mean, max, lanes above 1e-3)."""
+  component-scaled one for the record (not when `quiet`); with `gate`,
+  assert the K2 bounds (or `bounds`, (mean, max, lanes)) on the
+  lane-scaled one.  Returns the lane-scaled (mean, max, lanes above
+  1e-3)."""
   B = x.shape[0]
   stats = {}
   for how, err in (('lane-scaled', lane_scaled_err(x, ref)),
@@ -599,8 +627,9 @@ def k2_check(what, x, ref, gate, bounds=None):
     mean, mx = err.mean().item(), err.max().item()
     lanes_bad = int((err.max(dim=1).values > 1e-3).sum())
     stats[how] = (mean, mx, lanes_bad)
-    log(f'#   {what}, {how}: mean {mean:.2e} max {mx:.2e} '
-        f'lanes>1e-3 {lanes_bad}')
+    if not quiet:
+      log(f'#   {what}, {how}: mean {mean:.2e} max {mx:.2e} '
+          f'lanes>1e-3 {lanes_bad}')
   if gate:
     b_mean, b_max, b_lanes = bounds or (K2_MEAN, K2_MAX, int(K2_LANES * B))
     mean, mx, lanes_bad = stats['lane-scaled']
@@ -610,22 +639,26 @@ def k2_check(what, x, ref, gate, bounds=None):
   return stats['lane-scaled']
 
 
-def ell_gates(what, x_k, x_p, x_64):
+def ell_gates(what, x_k, x_p, x_64, quiet=False):
   """K2's bounds on the kernel's x_k against the plain float32 solve x_p
   and the plain float64 one x_64 (K2-ell's solves, and K1's modes on
   real mass matrices).  Where plain float32 itself misses a
   bound against float64, the kernel is held to no more than 2x plain
-  float32's own error on that statistic."""
-  k2_check(f'{what} kernel vs plain float32', x_k, x_p, gate=True)
+  float32's own error on that statistic.  Returns the lane-scaled (mean,
+  max, lanes above 1e-3) of the kernel against plain float32 and against
+  float64; `quiet` prints none of the statistics."""
+  vs_p = k2_check(f'{what} kernel vs plain float32', x_k, x_p, gate=True,
+                  quiet=quiet)
   p32 = k2_check(f'{what} plain float32 vs plain float64', x_p.double(),
-                 x_64, gate=False)
+                 x_64, gate=False, quiet=quiet)
   limits = (K2_MEAN, K2_MAX, int(K2_LANES * x_k.shape[0]))
   bounds = tuple(lim if p <= lim else 2 * p for p, lim in zip(p32, limits))
   if bounds != limits:
     log(f'#   plain float32 misses a K2 bound against float64: the kernel '
         f'is held to (mean, max, lanes) <= {bounds}')
-  k2_check(f'{what} kernel vs plain float64', x_k.double(), x_64,
-           gate=True, bounds=bounds)
+  vs_64 = k2_check(f'{what} kernel vs plain float64', x_k.double(), x_64,
+                   gate=True, bounds=bounds, quiet=quiet)
+  return vs_p, vs_64
 
 
 def float32_gates(what, x_k, x_p, x_64):
@@ -2391,6 +2424,391 @@ def cone_zones(lay, J, aref, active, x, condim=None):
                               ('mid', mid))}
 
 
+# -- phase train: gradients through the step, and SAC on the card ------------
+# the phase's generator seed; K1's autograd Functions at cheetah's n = 9,
+# humanoid's 27 and humanoid_CMU's 62; lqr's rollout lanes and control
+# steps: lqr_2_1 the 2500 of the JAX package's tests/test_extras.py:18-35,
+# lqr_6_2 6000, as its slowest closed-loop mode (|eigenvalue| 0.99913 of
+# A - BK) leaves up to 0.12 of a start on the sqrt(2) sphere after 2500
+# steps and 4.3e-3 after 6000 (the float64 linear map's norm on the
+# positions); the SAC train steps
+TRAIN_SEED = 80
+TRAIN_K1 = (9, 27, 62)
+LQR_LANES = 256
+LQR_STEPS = {'lqr_2_1': 2500, 'lqr_6_2': 6000}
+TRAIN_STEPS = 20
+# lqr on the card: A and B from the kernels (float32) within LQR_AB_TOL of
+# the float64 plain path's, K within LQR_K_TOL, each relative to the
+# matrix's largest entry (on the CPU, float32 against float64: 1.2e-7,
+# 3.7e-7 and 6.4e-6 at lqr_6_2); at the end of the rollout every lane's
+# |(qpos, qvel)| under LQR_X_TOL and its reward over LQR_REWARD (the JAX
+# package's test)
+LQR_AB_TOL, LQR_K_TOL = 1e-5, 1e-4
+LQR_X_TOL, LQR_REWARD = 1e-2, 0.999
+# one SAC update on the card against the same update at float64 on the
+# CPU: each gradient tensor within SAC_GRAD_TOL of its largest entry; each
+# updated parameter within SAC_PARAM_TOL x lr (Adam's step is lr m / (sqrt(v)
+# + eps), |m| <= ~sqrt(v): a float32 gradient near zero that flips its sign
+# moves a parameter up to ~2 lr from the float64 one)
+SAC_GRAD_TOL, SAC_PARAM_TOL = 1e-3, 2.0
+
+
+def data_tensors(d):
+  """Every tensor of a batched Data (its Contact's and model_var's too),
+  in a fixed order."""
+  import dataclasses
+  for f in dataclasses.fields(d):
+    x = getattr(d, f.name)
+    if f.name == 'contact':
+      yield from data_tensors(x)
+    elif f.name == 'model_var':
+      yield from (v for _, v in sorted((x or {}).items()))
+    else:
+      yield x
+
+
+def k1_autograd(dev, gen):
+  """K1's autograd Functions (`_src/linalg.py`) on the card at (BATCH, n)
+  for n in TRAIN_K1: forward and backward (random cotangents) with the
+  kernels' forward, held by `ell_gates` against the same Functions with
+  the plain forward at float32 and at float64 (outputs and every input's
+  cotangent, each flattened per lane); ms per forward, per forward +
+  backward, the plain forward + backward's, and the one torch.linalg
+  call's forward + backward (`library_forward_backward_ms`).  The
+  backward is torch ops on the saved factor or solution (the JAX package's
+  tangent path is plain jax.scipy code), so its time is the Function's,
+  not a kernel's.  Returns {kernel: {'n=<n>': stats}}."""
+  import contextlib
+  import torch
+  from dm_control_tpu_torch._src import linalg
+  from dm_control_tpu_torch.ops import linalg_kernel as lk
+  out = {k: {} for k in K1_PLAIN}
+  for n in TRAIN_K1:
+    a = torch.randn((BATCH, n, n), generator=gen, device=dev)
+    A = a @ a.transpose(1, 2) + n * torch.eye(n, device=dev)
+    b = torch.randn((BATCH, n), generator=gen, device=dev)
+    L = lk.cholesky_plain(A)
+    l_bar = torch.randn((BATCH, n, n), generator=gen, device=dev)
+    x_bar = torch.randn((BATCH, n), generator=gen, device=dev)
+    mat, vec = BATCH * n * n * 4, BATCH * n * 4
+    # (Function, inputs, cotangent, library call, bytes: inputs and
+    # cotangent read once, output and input cotangents written once;
+    # FLOPs of forward and backward as written)
+    cases = {
+        'cholesky_batched': (
+            linalg.cholesky, (A,), l_bar, torch.linalg.cholesky, 4 * mat,
+            BATCH * (n ** 3 / 3 + 4 * n ** 3)),
+        'cho_solve_batched': (
+            linalg.cho_solve, (L, b), x_bar,
+            lambda l_, b_: torch.cholesky_solve(b_[..., None], l_)[..., 0],
+            2 * mat + 4 * vec, BATCH * (2 * n ** 3 + 6 * n * n)),
+        'chol_solve_batched': (
+            linalg.solve_psd, (A, b), x_bar, torch.linalg.solve,
+            2 * mat + 4 * vec, BATCH * (2 * n ** 3 / 3 + 7 * n * n))}
+    for k, (fn, args, cot, library, nbytes, flops) in cases.items():
+
+      def fwd_bwd(dtype, plain, fn=fn, args=args, cot=cot):
+        ins = [x.to(dtype).detach().requires_grad_() for x in args]
+        with linalg.plain() if plain else contextlib.nullcontext():
+          y = fn(*ins)
+          grads = torch.autograd.grad(y, ins, cot.to(dtype))
+        return [y.detach()] + list(grads)
+
+      got = fwd_bwd(torch.float32, False)
+      plain32 = fwd_bwd(torch.float32, True)
+      ref = fwd_bwd(torch.float64, True)
+      names = ['output'] + [f'cotangent {i}' for i in range(len(args))]
+      errs = {}
+      for what, x_k, x_p, x_64 in zip(names, got, plain32, ref):
+        flat = [x.reshape(BATCH, -1) for x in (x_k, x_p, x_64)]
+        vs_p, vs_64 = ell_gates(f'{k} autograd n={n} {what}', *flat,
+                                quiet=True)
+        errs[what] = (flat[0] - flat[1]).abs().max().item()
+        log(f'#   {k} autograd n={n} {what}: lane-scaled (mean, max, lanes '
+            f'over 1e-3) kernel vs plain float32 {vs_p}, vs float64 {vs_64}')
+      b_ms, b_by = bound_ms(nbytes, flops)
+      out[k][f'n={n}'] = dict(
+          shape=[BATCH, n, n], max_abs_err_vs_plain=errs,
+          forward_ms=cuda_ms(lambda fn=fn, args=args: fn(*args), 20),
+          forward_backward_ms=cuda_ms(
+              lambda: fwd_bwd(torch.float32, False), 20),
+          plain_forward_backward_ms=cuda_ms(
+              lambda: fwd_bwd(torch.float32, True), 3),
+          library_forward_backward_ms=cuda_ms(
+              lambda fn=library: fwd_bwd(torch.float32, False, fn=fn), 20),
+          bound_ms=b_ms, bound_by=b_by)
+      log(f'# phase train: {k} autograd n={n}: {out[k][f"n={n}"]}')
+  return out
+
+
+def lqr_rollout(task, k, seed, steps, lk, dev):
+  """LQR_LANES lanes of `task` from its episode init (the sqrt(2) sphere)
+  under u = -K x for `steps` control steps of `forward.step` on the card
+  at float32, replayed from one CUDA graph of a control step: the policy,
+  the step, and the step's Data copied back into the graph's input.
+  Returns (final Data, seconds of the replays, launches of each K1 kernel
+  recorded in the graph: the launches of every replay)."""
+  import dataclasses
+  import torch
+  from dm_control_tpu_torch._src import forward
+  from dm_control_tpu_torch.parallel import BatchedEnv
+  m = task.model
+  d = BatchedEnv(task, LQR_LANES).reset(seed=seed).data
+  assert torch.allclose(d.qpos.norm(dim=1), torch.full(
+      (LQR_LANES,), math.sqrt(2.0), device=dev)), 'lqr: start off the sphere'
+  gain = torch.tensor(k, dtype=torch.float32, device=dev)
+
+  def clone(x):
+    if dataclasses.is_dataclass(x):
+      return x.replace(**{f.name: clone(getattr(x, f.name))
+                          for f in dataclasses.fields(x)})
+    if isinstance(x, dict):
+      return {key: v.clone() for key, v in x.items()}
+    return x.clone()
+
+  def control(d):
+    x = torch.cat([d.qpos, d.qvel], dim=1)
+    return forward.step(m, d.replace(ctrl=-(x @ gain.T)))
+
+  static = clone(d)             # the graph's input, no field aliasing another
+  side = torch.cuda.Stream()
+  side.wait_stream(torch.cuda.current_stream())
+  with torch.cuda.stream(side):
+    for _ in range(2):          # cuBLAS handles, the Model's mirrored arrays
+      control(static)
+  torch.cuda.current_stream().wait_stream(side)
+  torch.cuda.synchronize()
+  lk.reset_launches()
+  graph = torch.cuda.CUDAGraph()
+  with torch.cuda.graph(graph):
+    new = control(static)
+    for x, y in zip(data_tensors(static), data_tensors(new)):
+      if x.data_ptr() != y.data_ptr():
+        x.copy_(y)
+  recorded = dict(lk.LAUNCHES)
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  for _ in range(steps):
+    graph.replay()
+  torch.cuda.synchronize()
+  return static, time.perf_counter() - t0, recorded
+
+
+def lqr_phase(lk, dev):
+  """lqr_2_1 and lqr_6_2 on the card: `lqr_solver.linearize` through the
+  kernels (float32; K1a and K1c launched exactly once per forward and
+  per step, none in the backward) and through the plain versions
+  (float64, `plain=True`; no launch); A, B and K held against float64;
+  then LQR_LANES lanes regulated by the kernels' K (`lqr_rollout`).
+  Returns {task: stats}."""
+  import numpy as np
+  import torch
+  from dm_control_tpu_torch import suite
+  from dm_control_tpu_torch.utils import lqr_solver
+  out = {}
+  for i, name in enumerate(LQR_STEPS):
+    task = suite.build_task('lqr', name, device=dev)
+    n_sub, nq = task.n_sub_steps(), task.model.nq
+    runs = {}
+    for dtype, plain in ((torch.float32, False), (torch.float64, True)):
+      torch.cuda.synchronize()
+      lk.reset_launches()
+      t0 = time.perf_counter()
+      ab = lqr_solver.linearize(task, dtype=dtype, plain=plain)
+      runs[plain] = (ab, time.perf_counter() - t0, dict(lk.LAUNCHES))
+    (a32, b32), t32, launches = runs[False]
+    (a64, b64), t64, plain_launches = runs[True]
+    want = {'cholesky_batched': 1 + n_sub, 'chol_solve_batched': 0,
+            'cho_solve_batched': 1 + n_sub}
+    assert launches == want, f'lqr {name} linearize: {launches} != {want}'
+    assert not any(plain_launches.values()), plain_launches
+    k32 = lqr_solver.riccati_gain(a32, b32, nq)
+    k64 = lqr_solver.riccati_gain(a64, b64, nq)
+    rel = {what: np.abs(x - ref).max() / np.abs(ref).max()
+           for what, x, ref in (('A', a32, a64), ('B', b32, b64),
+                                ('K', k32, k64))}
+    radius = float(np.abs(np.linalg.eigvals(a64 - b64 @ k32)).max())
+    log(f'# phase train: lqr {name} linearize: kernels float32 {t32:.3f} s '
+        f'(launches {launches}), plain float64 {t64:.3f} s; error relative '
+        f'to the largest entry A {rel["A"]:.2e} B {rel["B"]:.2e} K '
+        f'{rel["K"]:.2e}; spectral radius of A - B K {radius:.6f} (float64 '
+        f'A, B; the kernels\' K)')
+    assert rel['A'] <= LQR_AB_TOL and rel['B'] <= LQR_AB_TOL, rel
+    assert rel['K'] <= LQR_K_TOL and radius < 1.0, (rel, radius)
+    steps = LQR_STEPS[name]
+    d, dt, per_step = lqr_rollout(task, k32, TRAIN_SEED + i, steps, lk, dev)
+    want = {'cholesky_batched': 1, 'chol_solve_batched': 0,
+            'cho_solve_batched': 1}
+    assert per_step == want, f'lqr {name} rollout graph: {per_step}'
+    norm = torch.sqrt((d.qpos * d.qpos).sum(1) + (d.qvel * d.qvel).sum(1))
+    reward = task.get_reward(task.model, d)
+    log(f'# phase train: lqr {name} rollout: {LQR_LANES} lanes x {steps} '
+        f'control steps in {dt:.2f} s ({1e3 * dt / steps:.4f} ms per step, '
+        f'one CUDA graph replay each, K1 launches per replay {per_step}); '
+        f'|x| at the end max {norm.max().item():.3e} median '
+        f'{norm.median().item():.3e}; reward min {reward.min().item():.6f}')
+    assert bool(torch.isfinite(norm).all()), f'lqr {name}: not finite'
+    assert bool((norm < LQR_X_TOL).all()), (
+        f'lqr {name}: |x| {norm.max().item():.3e} >= {LQR_X_TOL}')
+    assert bool((reward > LQR_REWARD).all()), (
+        f'lqr {name}: reward {reward.min().item():.6f} <= {LQR_REWARD}')
+    out[name] = dict(
+        linearize_s=t32, linearize_float64_plain_s=t64,
+        linearize_launches=launches, rel_err=rel, spectral_radius=radius,
+        rollout_steps=steps, rollout_s=dt, rollout_launches={
+            key: v * steps for key, v in per_step.items()},
+        max_final_norm=norm.max().item(),
+        min_final_reward=reward.min().item())
+  return out
+
+
+def sac_phase(lk, nk, dev):
+  """`make_sac_trainer('cheetah', 'run', BATCH)` with the default
+  SACConfig: TRAIN_STEPS train steps, each kernel's launches exactly
+  TRAIN_STEPS x `expected_launches` (no lane resets: cheetah has no
+  termination and no time limit here), metrics finite, the actor moved;
+  env-steps/s and updates/s (medians of the steps after the first) and
+  the share of a step in `update`; then one update on the card against the
+  same update at float64 on the CPU (the state through the bridge, the
+  same batch and normal draws).  Returns (stats, launches)."""
+  import torch
+  from dm_control_tpu_torch import bridge
+  from dm_control_tpu_torch import suite
+  from dm_control_tpu_torch.parallel import distributed
+  from dm_control_tpu_torch.rl import sac as sac_lib
+  t0 = time.perf_counter()
+  carry, train = distributed.make_sac_trainer('cheetah', 'run', BATCH,
+                                              seed=TRAIN_SEED, device=dev)
+  learner, env = train.sac, train.env
+  torch.cuda.synchronize()
+  t_build = time.perf_counter() - t0
+  actor0 = [p.detach().clone() for p in carry[0].actor.parameters()]
+  update, update_s = learner.update, []
+
+  def timed_update(*args, **kw):
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    result = update(*args, **kw)
+    torch.cuda.synchronize()
+    update_s.append(time.perf_counter() - t)
+    return result
+
+  learner.update = timed_update
+  step_s, history = [], []
+  torch.cuda.synchronize()
+  lk.reset_launches()
+  nk.reset_launches()
+  for _ in range(TRAIN_STEPS):
+    t = time.perf_counter()
+    carry, metrics = train(carry)
+    torch.cuda.synchronize()
+    step_s.append(time.perf_counter() - t)
+    history.append(metrics)
+  launches = dict(lk.LAUNCHES, **nk.LAUNCHES)
+  del learner.update
+  state, run_state, replay, _ = carry
+  want = {k: v * TRAIN_STEPS for k, v in expected_launches(env.task).items()}
+  assert launches == want, f'SAC train steps: {launches} != {want}'
+  assert not bool(run_state.episode_id.any()), 'SAC: an episode ended'
+  assert int(state.step) == TRAIN_STEPS and replay.size == (
+      TRAIN_STEPS * BATCH)
+  for metrics in history:
+    for k, v in metrics.items():
+      assert math.isfinite(float(v)), f'SAC metric {k} not finite'
+  moved = sum((p.detach() - p0).abs().sum().item()
+              for p, p0 in zip(state.actor.parameters(), actor0))
+  assert moved > 0, 'SAC: the actor did not change'
+  later = sorted(step_s[1:])
+  mid = later[len(later) // 2]
+  share = sorted(u / s for u, s in zip(update_s[1:], step_s[1:]))
+  stats = dict(
+      build_s=t_build, train_steps=TRAIN_STEPS, first_step_s=step_s[0],
+      step_ms_median=1e3 * mid, env_steps_per_s=BATCH / mid,
+      updates_per_s=1.0 / mid,
+      update_ms_median=1e3 * sorted(update_s[1:])[len(later) // 2],
+      update_share_median=share[len(share) // 2],
+      last_metrics={k: float(v) for k, v in history[-1].items()})
+  log(f'# phase train: SAC cheetah-run@{BATCH} (hidden '
+      f'{learner.config.hidden}, learn batch {learner.config.learn_batch}, '
+      f'replay {learner.config.replay_capacity}): trainer built in '
+      f'{t_build:.2f} s; {TRAIN_STEPS} train steps, launches {launches} '
+      f'(= {TRAIN_STEPS} x expected); {stats}')
+
+  # one update on the card against the same update at float64 on the CPU
+  gen = torch.Generator(device=dev)
+  gen.manual_seed(TRAIN_SEED + 1)
+  cfg = learner.config
+  batch = sac_lib.replay_sample(replay, gen, cfg.learn_batch)
+  noise = [torch.randn((cfg.learn_batch, learner.act_dim), generator=gen,
+                       device=dev) for _ in range(2)]
+  cpu = sac_lib.SAC(suite.build_task('cheetah', 'run', device='cpu'), cfg,
+                    dtype=torch.float64)
+  cpu_state = bridge.sac_state_from_numpy(bridge.sac_state_to_numpy(state),
+                                          'cpu', torch.float64)
+  to64 = lambda xs: [x.detach().cpu().double() for x in xs]
+  batch64, noise64 = to64(batch), to64(noise)
+  g32, _ = learner.gradients(state, batch, noise=noise)
+  g64, _ = cpu.gradients(cpu_state, batch64, noise=noise64)
+  grad_rel = max((a.detach().cpu().double() - b).abs().max().item()
+                 / max(b.abs().max().item(), 1e-30)
+                 for a, b in zip(g32, g64))
+  _, m32 = learner.update(state, batch, noise=noise)
+  _, m64 = cpu.update(cpu_state, batch64, noise=noise64)
+  after32 = bridge.sac_state_to_numpy(state)
+  after64 = bridge.sac_state_to_numpy(cpu_state)
+  param_err = 0.0
+  for key in ('actor', 'q1', 'q2', 'q1_target', 'q2_target'):
+    for l32, l64 in zip(after32[key], after64[key]):
+      for f in ('w', 'b'):
+        param_err = max(param_err, float(abs(l32[f] - l64[f]).max()))
+  param_err = max(param_err, float(abs(after32['log_alpha']
+                                       - after64['log_alpha'])))
+  metric_err = {k: abs(float(m32[k]) - float(m64[k])) for k in m64}
+  log(f'# phase train: SAC update, card float32 vs CPU float64 (same state, '
+      f'batch, draws): gradients max error relative to each tensor\'s '
+      f'largest entry {grad_rel:.2e} (bound {SAC_GRAD_TOL}); updated '
+      f'parameters max abs error {param_err:.2e} (bound {SAC_PARAM_TOL} x '
+      f'lr = {SAC_PARAM_TOL * cfg.lr:.1e}); metrics {metric_err}')
+  assert grad_rel <= SAC_GRAD_TOL, grad_rel
+  assert param_err <= SAC_PARAM_TOL * cfg.lr, param_err
+  stats.update(grad_rel_err=grad_rel, param_abs_err=param_err)
+  return stats, launches
+
+
+def train_phase(lk, nk, rows, dev):
+  """Phase train (see the module docstring); adds this phase's entries to
+  the kernel rows `rows`."""
+  import torch
+  t_phase = time.perf_counter()
+  gen = torch.Generator(device=dev)
+  gen.manual_seed(TRAIN_SEED)
+  autograd = k1_autograd(dev, gen)
+  t_k1 = time.perf_counter() - t_phase
+  t0 = time.perf_counter()
+  lqr = lqr_phase(lk, dev)
+  t_lqr = time.perf_counter() - t0
+  torch.cuda.synchronize()
+  lk.reset_launches()
+  nk.reset_launches()
+  t0 = time.perf_counter()
+  sac, launches = sac_phase(lk, nk, dev)
+  t_sac = time.perf_counter() - t0
+  for r in rows:
+    k = r['name']
+    if k in launches and launches[k]:
+      r['train'] = dict(task='cheetah-run', batch=BATCH, steps=TRAIN_STEPS,
+                        launches=launches[k],
+                        launches_per_train_step=launches[k] / TRAIN_STEPS)
+    if k in autograd:
+      r['autograd'] = autograd[k]
+      r['lqr'] = {name: dict(linearize_launches=s['linearize_launches'][k],
+                             rollout_launches=s['rollout_launches'][k])
+                  for name, s in lqr.items()}
+  log(f'# phase train: {time.perf_counter() - t_phase:.1f} s (K1 autograd '
+      f'{t_k1:.1f}, lqr {t_lqr:.1f}, SAC {t_sac:.1f}); lqr {lqr}; SAC {sac}')
+  return sac
+
+
 def main() -> int:
   import torch
   if not torch.cuda.is_available():
@@ -2426,6 +2844,12 @@ def main() -> int:
   for line in build.build_log.splitlines():
     if 'registers' in line or 'spill' in line:
       log('#   ' + line.strip())
+  if '--train-only' in sys.argv[1:]:
+    # phase train alone, without the contract's last line
+    train_phase(lk, nk, [], dev)
+    log(f'# chip_smoke.py --train-only: {time.perf_counter() - t_start:.1f} s')
+    log(smi)
+    return 0
 
   # -- 2. kernels against their plain versions ----------------------------------
   t_phase = time.perf_counter()
@@ -3287,6 +3711,11 @@ def main() -> int:
   ell_sub['cones x1']['launches'] = cone_launches['newton_solve_ell']
   for r in [ell_sub['cones x1']] + list(slice_k1['cones x1'].values()):
     r['launches_per_physics_step'] = r['launches'] / CONES_STEPS
+
+  # -- 7. train: gradients through the step, SAC on the card -----------------
+  s_env = state = rewards = r_env = None
+  torch.cuda.empty_cache()
+  train_phase(lk, nk, rows, dev)
 
   log(f'# chip_smoke.py: {time.perf_counter() - t_start:.1f} s')
   log(smi)

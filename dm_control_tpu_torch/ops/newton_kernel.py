@@ -286,6 +286,16 @@ def newton_solve_plain(J, M, aref, d_, fl, active, a, warm, *, types, niter,
       (it,) if return_loops else ())
 
 
+def _no_gradient(name, *tensors) -> None:
+  """Raise where autograd would record the solve: neither the kernel nor
+  the torch core has a derivative rule, as the JAX package's
+  `pallas_call` has no JVP."""
+  if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+    raise NotImplementedError(
+        f'{name}: the Newton solve has no gradient; call it under '
+        'torch.no_grad() or on inputs that do not require grad')
+
+
 def newton_solve_core(J, M, aref, d_, fl, active, a, warm, *, lay,
                       niter: int, ls_iter: int, tol: float,
                       meaninertia: float, return_iters: bool = False):
@@ -298,8 +308,10 @@ def newton_solve_core(J, M, aref, d_, fl, active, a, warm, *, lay,
   it raises otherwise); on the CPU it takes the plain twin.  Adds one
   call and the loop's iterations to CORE_LOOPS, from which the K1b
   launches follow exactly.  Arguments and results as
-  `newton_solve_batched`'s.
+  `newton_solve_batched`'s.  Raises NotImplementedError where an input
+  requires grad.
   """
+  _no_gradient('newton_solve_core', J, M, aref, d_, fl, active, a, warm)
   out = newton_solve_plain(
       J, M, aref, d_, fl, active, a, warm, types=lay.types,
       ell_groups=lay.ell_groups, niter=niter, ls_iter=ls_iter, tol=tol,
@@ -400,8 +412,10 @@ def newton_solve_batched(J, M, aref, d_, fl, active, a, warm, *, lay,
   Args (batch-first): J (B, nefc, nv), M (B, nv, nv), aref/d_/fl/active
   (B, nefc) with active as 0/1 floats, a/warm (B, nv); lay: the model's
   efc.Layout.  Returns qacc (B, nv), force (B, nefc) and, if asked, the
-  per-lane iteration count (B,).
+  per-lane iteration count (B,).  Raises NotImplementedError where an
+  input requires grad, on any device.
   """
+  _no_gradient('newton_solve_batched', J, M, aref, d_, fl, active, a, warm)
   kw = dict(niter=niter, ls_iter=ls_iter, tol=tol, meaninertia=meaninertia,
             return_iters=return_iters)
   if J.device.type == 'cpu':

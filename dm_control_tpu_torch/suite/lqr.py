@@ -7,8 +7,8 @@ model equals the JAX package's field for field.  Constraints are
 disabled: the step runs K1 only.  Each episode starts on the sphere
 |qpos| = sqrt(2); the reward 1 - (state cost + 0.1 control cost) has no
 lower bound, the time limit is infinite, and an episode ends (discount 0)
-once |(qpos, qvel)| < 1e-6.  The analytic-policy check of the JAX package
-(utils/lqr_solver.py) differentiates through the step and is not ported.
+once |(qpos, qvel)| < 1e-6.  The analytic policy (`utils/lqr_solver.py`)
+differentiates through the step: its K1 calls are autograd Functions.
 """
 
 from __future__ import annotations
