@@ -102,8 +102,11 @@ any failure exits non-zero and no phase catches its own failure:
      matched, where each of its float32 Newton solves stopped within BAND
      * EPS32 * scale of the cost of the float64 optimum of its own inputs
      (`solve stop`) and its error is within STOP_TOL = 5e-2, and fails
-     otherwise; the kernels' run may excuse at most twice the lanes that
-     the same step with K1 as plain PyTorch excuses, plus one;
+     otherwise (a lane that fails is judged again against the float64
+     path run on the CPU for such lanes alone, `cpu_reference`: the
+     card's plain float64 Newton solve can depend on the batch); the
+     kernels' run may excuse at most twice the lanes that the same step
+     with K1 as plain PyTorch excuses, plus one;
   4. rollout: BatchedEnv(walker-walk, batch_size=4096) on the card, three
      runs of reset and 20 control steps (200 physics substeps) through
      `rollout_fn`; then
@@ -193,6 +196,32 @@ any failure exits non-zero and no phase catches its own failure:
      normal draws): gradients within SAC_GRAD_TOL of each tensor's largest
      entry, updated parameters within SAC_PARAM_TOL x lr (`sac_phase`).
      `python3 chip_smoke.py --train-only` runs the build and this phase
+     alone, without the contract's last line;
+  8. composer (after phase train; generators of its own, COMPOSER_SEED):
+     the composer's BatchedEnvironment at 4096 lanes over the locomotion
+     tasks (`COMPOSER_TASKS`: go_to_target with the Ant, the CMU humanoid
+     and the jumping ball, run_through_corridor, random_goal_maze and
+     escape with the Ant, two_touch with the rodent), one forward.step per
+     physics substep and the observation pipeline after it, a reset and 5
+     control steps each (CMU 3, rodent 2): states finite, every
+     observation of its spec's shape and finite, rewards in each task's
+     range (`COMPOSER_REWARD_VALUES`: the indicators' 0 or 1, two_touch's
+     pulses 0, 0.2 or 1), no auto-reset, every kernel's launches exactly
+     `composer_launches` per control step and, for the rodent, the core's
+     calls `composer_core_calls` with K1b once per iteration of its loops;
+     K1 at n = 14 (the Ant), 8 (the ball) and 73 (the rodent) on their
+     initial mass matrices (`composer_k1`: `ell_gates` and the bit checks),
+     K2 at the Ant's (4096, 284, 14), the corridor's (4096, 420, 14), the
+     maze's (4096, 572, 14), the CMU's (4096, 768, 62) and the ball's
+     (4096, 81, 8) layouts and the core at the rodent's (4096, 1561, 73)
+     on the step's states with the most lanes in contact
+     (`k2_task_check`, `core_task_check`); phase 3's gate on 256 lanes of
+     each task's final states but COMPOSER_UNGATED's; then go_to_target
+     (Ant) and two_touch with episode limits that end every lane's episode
+     at the last control step: each lane's state, model_var (two_touch's
+     latch, colours and machine state included) and buffers its fresh
+     draw, its substep counter 1, and a forward's launches more.
+     `python3 chip_smoke.py --composer-only` runs the build and this phase
      alone, without the contract's last line.
 
 Output: the card's name and power limit (nvidia-smi), env-steps/s of
@@ -207,8 +236,11 @@ three layouts and jaco's, keyed by task; the K1 rows' 'autograd' (ms per
 forward, per forward + backward, the plain and the torch.linalg forward
 + backward, at n = 9, 27, 62) and 'lqr' (launches of each linearize and
 rollout), and the train path's launches ('train': K1a/b/c and K2 in the
-20 SAC train steps)), the train phase's lqr and SAC numbers (env-steps/s,
-updates/s, the update's share), one
+20 SAC train steps), and the composer's entries at its tasks' shapes, keyed
+by task: K1 at n = 14, 8 and 73, K2 at the Ant's, corridor's, maze's,
+CMU's and ball's layouts, the core at the rodent's under the K1b row's 'core'), the train
+phase's lqr and SAC numbers (env-steps/s, updates/s, the update's share),
+env-steps/s of each composer task@4096 (its one run), one
 `{"kernels": [...]}` JSON line, and last the
 `{"ok": true, "device": {...}}` line.  The nvcc/ptxas log of the build
 is in dm_control_tpu_torch/_build/build.log; its register and spill lines
@@ -909,8 +941,10 @@ def state_fields(m):
 # stood within BAND * EPS32 * scale of its threshold in the float64 run
 # on every differing element: a choice that float32 rounding flips.  Any
 # other lane over REF_TOL fails; the excused lanes are counted against
-# the same step run with K1 as plain PyTorch (`gate_failures`).  PERF.md
-# derives BAND and shows what flips.
+# the same step run with K1 as plain PyTorch (`gate_failures`).  A lane
+# that fails is judged again against the float64 path run on the CPU for
+# the failed lanes alone (`cpu_reference`).  PERF.md derives BAND and
+# shows what flips.
 REF_TOL = 1e-2
 EPS32 = 2.0 ** -23          # float32 spacing at 1 (torch.finfo().eps)
 BAND = 64
@@ -1697,9 +1731,10 @@ def reference_gate(what, m, data, ctrl, n_sub, lk):
   float64 path, run on the card through the plain versions of every
   kernel (`plain_kernels`: the CPU path's arithmetic), every run
   recording its discrete choices (`branches`); each lane's verdict
-  (`lane_verdicts`), and the kernels' run held to the plain run's
-  (`gate_failures`).  Returns the kernels' run's largest errors {qpos,
-  qvel[, act]}."""
+  (`lane_verdicts`; a lane that fails is judged again against the CPU's
+  float64 run of it, `cpu_reference`), and the kernels' run held to the
+  plain run's (`gate_failures`).  Returns the kernels' run's largest
+  errors {qpos, qvel[, act]}."""
   import torch
   from dm_control_tpu_torch.ops import newton_kernel as nk
   lanes = slice(0, ctrl.shape[0])
@@ -1712,15 +1747,29 @@ def reference_gate(what, m, data, ctrl, n_sub, lk):
   with plain_k1(lk):
     runs['plain'] = one_step(m, data, lanes, ctrl, n_sub, torch.float32,
                              ctrl.device, record=True)
+
+  def judged(ref):
+    out = {}
+    for route, run in runs.items():
+      errs = {f: scaled_err(run[f].cpu().double(), ref[f]).amax(dim=1)
+              for f in state_fields(m)}
+      err = torch.stack(list(errs.values())).amax(dim=0)
+      first = first_differences(run['branches'], ref['branches'],
+                                ctrl.shape[0])
+      stops = stop_distances(run['branches'], ctrl.shape[0])
+      out[route] = (errs, err, first, stops,
+                    lane_verdicts(err, first, BAND, stops))
+    return out
+
+  by_route = judged(ref)
+  failed = [i for i in range(ctrl.shape[0])
+            if any(v[4][i] == 'failed' for v in by_route.values())]
+  if failed:
+    ref = cpu_reference(what, m, data, ctrl, n_sub, ref,
+                        torch.tensor(failed))
+    by_route = judged(ref)
   counts, largest, gated = {}, {}, {}
-  for route, out in runs.items():
-    errs = {f: scaled_err(out[f].cpu().double(), ref[f]).amax(dim=1)
-            for f in state_fields(m)}
-    err = torch.stack(list(errs.values())).amax(dim=0)
-    first = first_differences(out['branches'], ref['branches'],
-                              ctrl.shape[0])
-    stops = stop_distances(out['branches'], ctrl.shape[0])
-    verdicts = lane_verdicts(err, first, BAND, stops)
+  for route, (errs, err, first, stops, verdicts) in by_route.items():
     gated[route] = verdicts
     counts[route] = {v: verdicts.count(v)
                      for v in ('held', 'excused', 'failed')}
@@ -1739,6 +1788,39 @@ def reference_gate(what, m, data, ctrl, n_sub, lk):
   failures = gate_failures(gated['kernels'], gated['plain'])
   assert not failures, f'{what} reference gate: {"; ".join(failures)}'
   return largest['kernels']
+
+
+def cpu_reference(what, m, data, ctrl, n_sub, ref, idx):
+  """The reference gate's float64 run `ref` (on the card, its fields and
+  `branches` on the CPU) with lanes `idx` (a CPU index tensor) run again
+  by the port's float64 path on the CPU, those lanes alone: the lanes a
+  float32 run fails against the card's run are judged against the CPU's.
+  The card's plain float64 Newton solve can depend on the batch (ROADMAP
+  queue 3, item 8).  Logs each lane's distance between the two float64
+  runs."""
+  import torch
+  at = idx.to(ctrl.device)
+  cpu = one_step(m, data, at, ctrl[at], n_sub, torch.float64, 'cpu',
+                 record=True)
+  gap = torch.stack([scaled_err(cpu[f], ref[f][idx]).amax(dim=1)
+                     for f in state_fields(m)]).amax(dim=0)
+  out = dict(ref)
+  for f in state_fields(m):
+    out[f] = ref[f].clone()
+    out[f][idx] = cpu[f]
+  out['branches'] = []
+  for b, b_cpu in zip(ref['branches'], cpu['branches'], strict=True):
+    assert b.keys() == b_cpu.keys(), (what, b.keys(), b_cpu.keys())
+    stage = {}
+    for q, v in b.items():
+      stage[q] = tuple(None if t is None else t.clone().index_put_(
+          (idx,), t_cpu) for t, t_cpu in zip(v, b_cpu[q], strict=True))
+    out['branches'].append(stage)
+  log(f'# phase reference: {what}: lanes {idx.tolist()} failed, '
+      f'float64 run again on the CPU, those lanes alone; its distance from '
+      f'the card\'s float64 run (max scaled err of '
+      f'{"/".join(state_fields(m))}) {[float(f"{g:.3g}") for g in gap]}')
+  return out
 
 
 # escape's rangefinder observation on the card against the float64 CPU
@@ -2809,6 +2891,374 @@ def train_phase(lk, nk, rows, dev):
   return sac
 
 
+# -- 8. composer: the locomotion tier through BatchedEnvironment -------------
+# The fourteenth slice's tasks through the composer's BatchedEnvironment (one
+# `forward.step` per physics substep, the observation pipeline after each):
+# the Ant walker on go_to_target, run_through_corridor, random_goal_maze and
+# escape (nv 14; maze's 32 box walls, escape's per-lane heightfield), the CMU
+# humanoid on go_to_target (nv 62: K2's two dofs per lane at a new layout),
+# the rodent on two_touch (nv 73: the core with K1b) and the jumping ball on
+# go_to_target (nv 8); the phase's generator seed, each task's control
+# steps (5 where not named), and the tasks held without the reference gate
+# (ROADMAP queue 3, item 7; `tools/composer_reference_lanes.py` runs their
+# gates and writes their lanes, `tools/reference_step_cpu.py --tasks
+# composer:T --states FILE` replays them on the CPU): two_touch, whose
+# rodent's float32 Newton solve (the core, as dog's) fails 188 lanes with K1
+# as kernels and 201 with K1 plain, where the JAX package's float32 step
+# fails 25 of the first 32 as the card does; and go_to_target with the CMU
+# humanoid, which fails only the excused-count rule (4 lanes with every
+# choice matched and solves within the band, against 0 with K1 plain; the
+# JAX package's float32 step excuses 4 other lanes of the same states)
+COMPOSER_SEED = 90
+COMPOSER_TASKS = ('go_to_target-ant', 'go_to_target-cmu',
+                  'run_through_corridor', 'random_goal_maze', 'escape',
+                  'two_touch', 'go_to_target-jumping_ball')
+COMPOSER_STEPS = {'go_to_target-cmu': 3, 'two_touch': 2}
+COMPOSER_UNGATED = ('go_to_target-cmu', 'two_touch')
+# the tasks whose states hold K2 (or, past 64 dofs, the core) at their
+# layouts, and the tasks whose initial mass matrices hold K1 at n = 14, 8
+# and 73
+COMPOSER_K2 = ('go_to_target-ant', 'go_to_target-cmu', 'run_through_corridor',
+               'random_goal_maze', 'two_touch', 'go_to_target-jumping_ball')
+COMPOSER_K1 = ('go_to_target-ant', 'go_to_target-jumping_ball', 'two_touch')
+# the episode limits (control steps, and the task's control timestep) of
+# the runs in which every lane resets
+COMPOSER_LIMITS = {'go_to_target-ant': (2, 0.025), 'two_touch': (1, 0.03)}
+# each task's rewards, read from its reward function (locomotion/tasks.py):
+# go_to_target's and random_goal_maze's indicators take 0 or 1; two_touch's
+# pulses 0, touch_reward 0.2 or timing_reward 1.0 (aliveness_reward 0); the
+# corridor's and escape's linear tolerances lie in [0, 1]
+COMPOSER_REWARD_VALUES = {'go_to_target-ant': (0.0, 1.0),
+                          'go_to_target-cmu': (0.0, 1.0),
+                          'go_to_target-jumping_ball': (0.0, 1.0),
+                          'random_goal_maze': (0.0, 1.0),
+                          'two_touch': (0.0, 0.2, 1.0)}
+
+
+def composer_env(what, batch, time_limit=None, device=None):
+  """The port's BatchedEnvironment of composer task `what` (COMPOSER_TASKS)
+  at `batch` lanes on `device` (the card unless named)."""
+  from dm_control_tpu_torch.locomotion import tasks
+  from dm_control_tpu_torch.locomotion import walkers
+  kw = dict(batch_size=batch, device=device)
+  if time_limit is not None:
+    kw['time_limit'] = time_limit
+  if what.startswith('go_to_target-'):
+    walker = {'ant': walkers.Ant, 'cmu': walkers.CMUHumanoid,
+              'jumping_ball': walkers.JumpingBallWithHead}[what.split('-')[1]]
+    return tasks.go_to_target(walker=walker(), **kw)
+  return getattr(tasks, what)(**kw)
+
+
+def composer_launches(env):
+  """Each kernel's launches per control step of composer environment
+  `env`: n physics substeps, each one `forward.step`: the acc stage (K1c,
+  then K2, or K2-ell where the model's contacts are elliptic, if it has
+  constraint rows), Euler's implicit damping (K1b, where a dof is damped)
+  and step1 (K1a); under RK4 three more pipelines per step (K1a, K1c and a
+  solve each) and no K1b.  Past the Newton kernel's dofs (the rodent) the
+  solve is the core, whose K1b launches (its loop iterations,
+  `newton_kernel.CORE_LOOPS`) come on top; `composer_core_calls` counts its
+  calls.  Unlike `substeps` (`expected_launches`) there is no extra step1
+  sync per control step."""
+  import numpy as np
+  from dm_control_tpu_torch._src import efc
+  from dm_control_tpu_torch._src.types import Integrator
+  from dm_control_tpu_torch.ops import newton_kernel as nk
+  m, n = env.model, env.n_sub_steps
+  lay = efc.layout(m)
+  rk4 = m.opt.integrator == Integrator.RK4
+  stages = (4 if rk4 else 1) * n
+  solves = stages if lay.nefc and m.nv <= nk.MAX_NV else 0
+  ell = bool(lay.ell_groups)
+  return {'cholesky_batched': stages, 'cho_solve_batched': stages,
+          'chol_solve_batched': 0 if rk4 or not np.any(m.dof_damping > 0)
+                                else n,
+          'newton_solve_batched': 0 if ell else solves,
+          'newton_solve_ell': solves if ell else 0}
+
+
+def composer_core_calls(env):
+  """The core's calls per control step of composer environment `env`: one
+  per acc stage where the model is past the Newton kernel's dofs."""
+  from dm_control_tpu_torch._src import efc
+  from dm_control_tpu_torch._src.types import Integrator
+  from dm_control_tpu_torch.ops import newton_kernel as nk
+  m = env.model
+  stages = (4 if m.opt.integrator == Integrator.RK4 else 1) * env.n_sub_steps
+  return stages if efc.layout(m).nefc and m.nv > nk.MAX_NV else 0
+
+
+def composer_controls(i_task, nu, lanes, dev):
+  """Composer task number `i_task`'s controls (its rollout's, its gate's),
+  uniform in [-1, 1] (every locomotion actuator's range), from a generator
+  of its own."""
+  import torch
+  gen = torch.Generator(device=dev)
+  gen.manual_seed(COMPOSER_SEED + 1 + i_task)
+  return lambda n=lanes: torch.rand((n, nu), generator=gen,
+                                    device=dev) * 2 - 1
+
+
+def lanes_in_contact(m, d):
+  """Lanes of d with an active row past the equalities, friction losses
+  and joint limits (a contact)."""
+  from dm_control_tpu_torch._src import efc
+  lay = efc.layout(m)
+  first = (int((lay.types == efc.EQUALITY).sum()) + len(lay.fric_dof)
+           + len(lay.lim_jnt))
+  return int(d.efc_active[:, first:].any(dim=1).sum())
+
+
+def composer_k1(lk, what, A, b, launches, reps=50):
+  """K1a/b/c on composer task `what`'s initial (B, n, n) mass matrices and
+  (B, n) smooth forces: each mode held by `ell_gates` against its plain
+  float32 and float64 versions, the bit checks (`k1_bits`), then its
+  kernels line entry (wrapper, plain and torch.linalg times, bound)."""
+  B, n, _ = A.shape
+  L_ref = lk.cholesky_plain(A)
+  A64, b64, L64 = A.double(), b.double(), L_ref.double()
+  triples = {
+      'cholesky_batched': (lk.cholesky_batched(A), L_ref,
+                           lk.cholesky_plain(A64)),
+      'chol_solve_batched': (lk.chol_solve_batched(A, b),
+                             lk.chol_solve_plain(A, b),
+                             lk.chol_solve_plain(A64, b64)),
+      'cho_solve_batched': (lk.cho_solve_batched(L_ref, b),
+                            lk.cho_solve_plain(L_ref, b),
+                            lk.cho_solve_plain(L64, b64))}
+  for k, (x, ref, x_64) in triples.items():
+    ell_gates(f'{k} n={n} on {what}\'s initial states', x.flatten(1),
+              ref.flatten(1), x_64.flatten(1))
+  k1_bits(lk, A, b, triples['cholesky_batched'][0],
+          triples['chol_solve_batched'][0],
+          lk.cho_solve_batched(triples['cholesky_batched'][0], b))
+  import torch
+  mat, vec = B * n * n * 4, B * n * 4
+  calls = {
+      'cholesky_batched': (lambda: lk.cholesky_batched(A),
+                           lambda: lk.cholesky_plain(A),
+                           lambda: torch.linalg.cholesky(A), 2 * mat,
+                           B * n ** 3 / 3),
+      'chol_solve_batched': (lambda: lk.chol_solve_batched(A, b),
+                             lambda: lk.chol_solve_plain(A, b),
+                             lambda: torch.linalg.solve(A, b), mat + 2 * vec,
+                             B * (n ** 3 / 3 + 2 * n * n)),
+      'cho_solve_batched': (lambda: lk.cho_solve_batched(L_ref, b),
+                            lambda: lk.cho_solve_plain(L_ref, b),
+                            lambda: torch.cholesky_solve(b[..., None], L_ref),
+                            mat + 2 * vec, B * 2 * n * n)}
+  out = {}
+  for k, (fn, plain, library, nbytes, flops) in calls.items():
+    b_ms, b_by = bound_ms(nbytes, flops)
+    x, ref = triples[k][:2]
+    out[k] = dict(launches=launches[k],
+                  max_abs_err=(x - ref).abs().max().item(),
+                  ms=cuda_ms(fn, reps), plain_ms=cuda_ms(plain, 5),
+                  bound_ms=b_ms, bound_by=b_by,
+                  library_ms=cuda_ms(library, reps), shape=[B, n, n])
+  log(f'# phase composer: K1 n={n} on {what}: {out}')
+  return out
+
+
+def composer_phase(lk, nk, rows, dev):
+  """Phase composer (see the module docstring); adds this phase's entries
+  to the kernel rows `rows`."""
+  import numpy as np
+  import torch
+  from dm_control_tpu_torch._src import efc
+  from dm_control_tpu_torch._src import forward
+  from dm_control_tpu_torch._src import solver
+  t_phase = time.perf_counter()
+  k1_sub, k2_sub, core_sub, sps = {}, {}, {}, {}
+  for i_task, what in enumerate(COMPOSER_TASKS):
+    # the last task's environment and states go before this one's come
+    env = carry = best = obs = None
+    torch.cuda.empty_cache()
+    t_task = time.perf_counter()
+    env = composer_env(what, BATCH)
+    m = env.model
+    lay = efc.layout(m)
+    per_step, calls = composer_launches(env), composer_core_calls(env)
+    per_reset = reset_launches(env)
+    steps = COMPOSER_STEPS.get(what, 5)
+    controls = composer_controls(i_task, m.nu, BATCH, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    carry = env.reset(seed=i_task)
+    torch.cuda.synchronize()
+    t_reset = time.perf_counter() - t0
+    if what in COMPOSER_K1:
+      init_k1 = (carry.data.qM.contiguous(), carry.data.qfrc_smooth.contiguous())
+    lk.reset_launches()
+    nk.reset_launches()
+    resets0 = env.reset_calls
+    rewards, best, in_contact = [], None, []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+      carry, (obs, reward, done) = env.step(carry, controls())
+      rewards.append(reward)
+      if what in COMPOSER_K2:
+        # the solver inputs of K2's check: the step's states with the most
+        # lanes in contact (the Ant's kick off its knee limits leaves it
+        # airborne after its first control step)
+        in_contact.append(lanes_in_contact(m, carry.data))
+        if in_contact[-1] == max(in_contact):
+          best = carry.data
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    got = dict(lk.LAUNCHES, **nk.LAUNCHES)
+    core = dict(nk.CORE_LOOPS)
+    resets = env.reset_calls - resets0
+    rewards = torch.stack(rewards)
+    sps[what] = BATCH * steps / dt
+    log(f'# phase composer: {what}@{BATCH} (nv {m.nv}, nefc {lay.nefc}, '
+        f'{env.n_sub_steps} substeps, {len(obs)} observables): reset '
+        f'{t_reset:.2f} s; {steps} control steps in {dt:.2f} s '
+        f'({sps[what]:.1f} env-steps/s); launches {got}; core {core}; '
+        f'auto-resets {resets}; rewards {sorted(set(rewards.flatten().tolist()))[:8]} '
+        f'(mean {rewards.mean().item():.4f}); lanes in contact after each '
+        f'step {in_contact}; peak memory allocated '
+        f'{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB')
+    for f, x in forward.state_items(forward.state_of(carry.data)):
+      assert x.dtype == torch.bool or torch.isfinite(x).all(), (
+          f'{what}: {f} not finite')
+    shapes = env.pipeline.shapes
+    assert obs.keys() == shapes.keys(), (what, obs.keys())
+    for k, x in obs.items():
+      assert tuple(x.shape) == (BATCH,) + shapes[k], (what, k, x.shape)
+      assert bool(torch.isfinite(x).all()), f'{what}: observation {k}'
+    assert tuple(rewards.shape) == (steps, BATCH)
+    allowed = COMPOSER_REWARD_VALUES.get(what)
+    if allowed is None:
+      assert bool(((rewards >= 0) & (rewards <= 1)).all()), (
+          f'{what}: reward outside [0, 1]')
+    else:
+      ok = torch.zeros_like(rewards, dtype=torch.bool)
+      for v in allowed:
+        ok |= rewards == torch.tensor(v, dtype=rewards.dtype)
+      assert bool(ok.all()), f'{what}: a reward outside {allowed}'
+    assert resets == 0, f'{what}: {resets} auto-resets in the rollout'
+    assert core['calls'] == calls * steps, (what, core)
+    want = {k: v * steps for k, v in per_step.items()}
+    want['chol_solve_batched'] += core['loops']
+    assert got == want, f'{what}: launches {got}, expected {want}'
+    log(f'# {what}@{BATCH}: launches per control step {per_step}'
+        + (f' and the core\'s K1b launches ({core})' if calls else ''))
+
+    # the kernels at the task's layouts, held against their plain versions
+    if what in COMPOSER_K1:
+      k1_sub[what] = composer_k1(lk, what, *init_k1, got)
+      init_k1 = None
+    if what in COMPOSER_K2 and m.nv <= nk.MAX_NV:
+      args, kw, iters, err, _, _ = k2_task_check(nk, what, m, lay, best)
+      b_ms, b_by = bound_ms(k2_bytes(BATCH, lay.nefc, m.nv),
+                            newton_flops(lay.nefc, m.nv, solver.LS_ITERATIONS,
+                                         iters))
+      k2_sub[what] = dict(
+          launches=got['newton_solve_batched'], max_abs_err=err,
+          ms=cuda_ms(lambda: nk.newton_solve_batched(*args, lay=lay, **kw),
+                     10),
+          plain_ms=cuda_ms(lambda: nk.newton_solve_plain(
+              *args, types=lay.types, **kw), 2),
+          bound_ms=b_ms, bound_by=b_by, library_ms=None,
+          max_iters=int(iters.max()), shape=[BATCH, lay.nefc, m.nv],
+          launch_config=list(nk.launch_config(lay.nefc, m.nv, 0)),
+          launches_per_control_step=got['newton_solve_batched'] / steps)
+      log(f'# phase composer: K2 on {what}: {k2_sub[what]}')
+    elif what in COMPOSER_K2:
+      args, kw, iters, err, _, loops = core_task_check(nk, lk, what, m, lay,
+                                                       best)
+      b_ms, b_by = bound_ms(k2_bytes(BATCH, lay.nefc, m.nv),
+                            newton_flops(lay.nefc, m.nv, solver.LS_ITERATIONS,
+                                         iters))
+      core_sub[what] = dict(
+          launches=got['chol_solve_batched'], k1b_launches_per_call=loops,
+          core_calls=core['calls'], core_loops=core['loops'],
+          max_abs_err=err,
+          ms=cuda_ms(lambda: nk.newton_solve_core(*args, lay=lay, **kw), 3),
+          plain_ms=cuda_ms(lambda: nk.newton_solve_plain(
+              *args, types=lay.types, **kw), 1),
+          bound_ms=b_ms, bound_by=b_by, library_ms=None,
+          max_iters=int(iters.max()), shape=[BATCH, lay.nefc, m.nv],
+          launches_per_control_step=got['chol_solve_batched'] / steps)
+      log(f'# phase composer: core (K1b inside) on {what}: {core_sub[what]}')
+    args = best = None
+    # the reference gate on the run's final states
+    if what in COMPOSER_UNGATED:
+      log(f'# phase composer: {what}: no gate (COMPOSER_UNGATED)')
+    else:
+      t0 = time.perf_counter()
+      reference_gate(what, m, carry.data, controls(REF_LANES),
+                     env.n_sub_steps, lk)
+      log(f'# phase reference: {what} {time.perf_counter() - t0:.1f} s')
+    log(f'# phase composer: {what}: {time.perf_counter() - t_task:.1f} s')
+
+  # Episode limits that end every lane's episode at the last control step:
+  # each lane's state, model_var and buffers are then its fresh draw (the
+  # same generator state drawn again), its substep counter 1, and the step
+  # launches a forward's kernels more
+  env = carry = obs = None
+  torch.cuda.empty_cache()
+  for what, (limit, control_dt) in COMPOSER_LIMITS.items():
+    i_task = COMPOSER_TASKS.index(what)
+    env = composer_env(what, BATCH, time_limit=limit * control_dt)
+    assert env.step_limit == limit, (what, env.step_limit)
+    controls = composer_controls(i_task, env.model.nu, BATCH, dev)
+    carry = env.reset(seed=len(COMPOSER_TASKS) + i_task)
+    old = dict(carry.data.model_var)
+    for _ in range(limit - 1):
+      carry, _ = env.step(carry, controls())
+    drawn = env.generator.get_state()
+    torch.cuda.synchronize()
+    lk.reset_launches()
+    nk.reset_launches()
+    carry, (obs, reward, done) = env.step(carry, controls())
+    torch.cuda.synchronize()
+    got = dict(lk.LAUNCHES, **nk.LAUNCHES)
+    core = dict(nk.CORE_LOOPS)
+    assert bool(done.all()) and env.reset_calls == 1, (what, env.reset_calls)
+    env.generator.set_state(drawn)
+    fresh, fresh_obs = env._loop.fresh(BATCH, env.generator)
+    assert set(carry.data.model_var) == set(fresh.model_var) == set(old)
+    for k, v in carry.data.model_var.items():
+      assert torch.equal(v, fresh.model_var[k]), f'{what}: {k} not its draw'
+    moved = carry.data.model_var['geom_pos'] != old['geom_pos']
+    assert bool(moved.flatten(1).any(dim=1).all()), (
+        f'{what}: a lane kept its old geom_pos')
+    for f in ('qpos', 'qvel', 'act', 'time'):
+      assert torch.equal(getattr(carry.data, f), getattr(fresh, f)), f
+    for n, st in carry.obs_state.items():
+      for k, x in st.items():
+        assert torch.equal(x, fresh_obs[n][k]), f'{what}: buffer {n} {k}'
+    assert bool((carry.substep == 1).all())
+    want = {k: v * 1 + n for (k, v), n in zip(
+        composer_launches(env).items(), reset_launches(env).values())}
+    want['chol_solve_batched'] += core['loops']
+    assert core['calls'] == composer_core_calls(env) + (
+        1 if composer_core_calls(env) else 0), (what, core)
+    assert got == want, f'{what} reset step: launches {got}, expected {want}'
+    log(f'# phase composer: {what}@{BATCH}, episode limit {limit} control '
+        f'steps: every lane reset; model_var {sorted(carry.data.model_var)}, '
+        f'state and buffers per lane as drawn; launches {got}; core {core}')
+  env = carry = obs = fresh = fresh_obs = None
+  torch.cuda.empty_cache()
+
+  for r in rows:
+    if r['name'] in ('cholesky_batched', 'chol_solve_batched',
+                     'cho_solve_batched'):
+      for what, sub in k1_sub.items():
+        r[what] = dict(sub[r['name']], launches_per_control_step=sub[
+            r['name']]['launches'] / COMPOSER_STEPS.get(what, 5))
+      if r['name'] == 'chol_solve_batched':
+        r.setdefault('core', {}).update(core_sub)
+    if r['name'] == 'newton_solve_batched':
+      r.update(k2_sub)
+  log(f'# phase composer: {time.perf_counter() - t_phase:.1f} s; '
+      f'env-steps/s {sps}')
+  return sps
+
+
 def main() -> int:
   import torch
   if not torch.cuda.is_available():
@@ -2848,6 +3298,13 @@ def main() -> int:
     # phase train alone, without the contract's last line
     train_phase(lk, nk, [], dev)
     log(f'# chip_smoke.py --train-only: {time.perf_counter() - t_start:.1f} s')
+    log(smi)
+    return 0
+  if '--composer-only' in sys.argv[1:]:
+    # phase composer alone, without the contract's last line
+    composer_phase(lk, nk, [], dev)
+    log(f'# chip_smoke.py --composer-only: '
+        f'{time.perf_counter() - t_start:.1f} s')
     log(smi)
     return 0
 
@@ -3716,6 +4173,10 @@ def main() -> int:
   s_env = state = rewards = r_env = None
   torch.cuda.empty_cache()
   train_phase(lk, nk, rows, dev)
+
+  # -- 8. composer: the locomotion tier through BatchedEnvironment ------------
+  torch.cuda.empty_cache()
+  composer_phase(lk, nk, rows, dev)
 
   log(f'# chip_smoke.py: {time.perf_counter() - t_start:.1f} s')
   log(smi)

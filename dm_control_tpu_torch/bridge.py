@@ -12,6 +12,10 @@ boolean fields keep their own.
 
 A SAC learner's state crosses as a dict of numpy arrays in the JAX
 package's `SACState` layout (`sac_state_from_numpy`, `sac_state_to_numpy`).
+A composer `BatchedEnvironment`'s carry crosses as its Data's flat dict,
+its observation buffers and its substep counters
+(`composer_carry_from_numpy`); the JAX carry's PRNG key does not cross,
+since torch generators do not reproduce `jax.random`.
 """
 
 from __future__ import annotations
@@ -67,6 +71,28 @@ def data_to_numpy(d: Data) -> Dict[str, np.ndarray]:
       continue
     out[f.name] = getattr(d, f.name).detach().cpu().numpy()
   return out
+
+
+def composer_carry_from_numpy(fields: Dict[str, np.ndarray],
+                              obs_state: Dict[str, Dict[str, np.ndarray]],
+                              substep: np.ndarray, device,
+                              dtype: torch.dtype):
+  """A port `composer.Carry` from the JAX `BatchedEnvironment` carry
+  (d, obs_state, substep, key), as numpy, without its key.
+
+  `fields` is the flat dict of the batched Data (`data_from_numpy`'s
+  keys, the lanes' `model_var` under 'model_var.<name>'); `obs_state`
+  maps each observable to its ring buffer {'values' (B, capacity, ...),
+  'visible_at' (B, capacity), 'write_idx' (B,)}; `substep` is (B,).
+  Floating buffers take `dtype`; the counters stay int32."""
+  from dm_control_tpu_torch.composer.environment import Carry
+  buffers = {
+      name: {k: (_to_tensor(x, device, dtype) if k == 'values'
+                 else torch.tensor(np.asarray(x, np.int32), device=device))
+             for k, x in st.items()}
+      for name, st in obs_state.items()}
+  return Carry(data_from_numpy(fields, device, dtype), buffers,
+               torch.tensor(np.asarray(substep, np.int32), device=device))
 
 
 # ---------------------------------------------------------------------------

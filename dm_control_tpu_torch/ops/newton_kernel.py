@@ -258,8 +258,15 @@ def newton_solve_plain(J, M, aref, d_, fl, active, a, warm, *, types, niter,
       lo = torch.where(dp < 0, torch.maximum(lo, alpha), lo)
       hi = torch.where(dp > 0, torch.minimum(hi, alpha), hi)
       alpha_n = alpha - dp / torch.clamp(ddp, min=1e-14)
-      alpha = torch.where((alpha_n > lo) & (alpha_n < hi), alpha_n,
-                          0.5 * (lo + hi))
+      inside = (alpha_n > lo) & (alpha_n < hi)
+      if J.dtype == torch.float64:
+        # a Newton step that leaves alpha where it is stays, where the
+        # JAX package bisects: at the minimizer, where rounding has just
+        # made alpha the bracket's end, the search then leaves it and the
+        # solve can stop far from its optimum without improving.  float32
+        # keeps the JAX package's rule, as K2's kernel does.
+        inside = inside | (alpha_n == alpha)
+      alpha = torch.where(inside, alpha_n, 0.5 * (lo + hi))
 
     x_new = x + alpha[:, None] * delta
     jar_new = jar + alpha[:, None] * djar

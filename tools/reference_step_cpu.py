@@ -29,7 +29,9 @@ iteration counts, and the cost at the optimum with its float32 spacing:
 a float32 solve stops where a step's cost change is below that spacing.
 
 With `--states FILE` (lanes written on the card by
-`tools/k1_reference_step.py --dump`; one task in `--tasks`) it replays
+`tools/k1_reference_step.py --dump`, or by
+`tools/composer_reference_lanes.py` for a composer task, named
+`composer:<task>`; one task in `--tasks`) it replays
 instead one control step of those lanes from their card states (their
 qacc_warmstart included) through the port at float32 and at float64 and
 through the JAX package at float32, and prints for each lane and run its
@@ -146,12 +148,31 @@ def stage_qaccs(pm, d, ctrl, n_sub, dtype):
   return seen
 
 
-def replay(what, path):
-  """One control step of the lanes in `path` (module docstring)."""
+def models(what):
+  """(port Model on the CPU, physics substeps per control step, JAX
+  Model) of suite task `what` or composer task `composer:<task>`."""
+  if what.startswith('composer:'):
+    import test_torch_locomotion as loco
+    name = what.split(':')[1]
+    case = {'go_to_target-ant': 'go_to_target-ant',
+            'go_to_target-cmu': 'go_to_target-cmu',
+            'go_to_target-jumping_ball': 'go_to_target-jumping_ball',
+            'run_through_corridor': 'run_through_corridor-empty',
+            'random_goal_maze': 'random_goal_maze', 'escape': 'escape',
+            'two_touch': 'two_touch'}[name]
+    jtask, task = loco._task_pair(case)
+    pm = task.model
+    n_sub = max(1, int(round(task.control_timestep / pm.opt.timestep)))
+    return pm, n_sub, jtask.model
   domain, task_name = what.split('-')
   task = suite.build_task(domain, task_name, device='cpu')
-  pm, n_sub = task.model, task.n_sub_steps()
-  jm = jsuite.build_task(domain, task_name).model
+  return (task.model, task.n_sub_steps(),
+          jsuite.build_task(domain, task_name).model)
+
+
+def replay(what, path):
+  """One control step of the lanes in `path` (module docstring)."""
+  pm, n_sub, jm = models(what)
   z = np.load(path)
   ctrl = torch.tensor(z['ctrl'], dtype=torch.float64)
   n = ctrl.shape[0]

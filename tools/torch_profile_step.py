@@ -4,6 +4,7 @@ Run on a machine with one CUDA device, from the root of a checkout:
 
     python3 tools/torch_profile_step.py [--task walker-walk|finger-spin|humanoid-run|...]
         [--steps 3] [--warm 30]
+    python3 tools/torch_profile_step.py --task composer:go_to_target-ant [--steps 3] [--warm 5]
 
 Builds the task (walker-walk by default) at batch 4096 (bench.py's batch)
 on the card, warms it up (`--warm` control steps), then runs the same
@@ -19,6 +20,14 @@ window of `--steps` control steps three ways and prints, per control step
     kernel's (factor, fused solve, substitution: each mode apart);
   * cProfile: host time by Python function (cProfile slows the host, so
     read its shares, not its times), and the share of `types.mirror`.
+
+A `composer:` task (one of `chip_smoke.COMPOSER_TASKS`) runs the
+composer's BatchedEnvironment instead, with uniform controls in [-1, 1]
+(warm-up `--warm` control steps from the reset; they end no episode at
+the default 5), and also prints the observation pipeline's cost: the
+share of host time under cProfile inside `ObservationPipeline.update` and
+`read` (cumulative), and the untraced wall of the same window with
+`update` made a no-op, beside the wall with it.
 
 Where the task's solve takes the core past the Newton kernel's dofs
 (dog), the untraced window also times each core call with CUDA events
@@ -62,11 +71,28 @@ TASKS = {what: tuple(what.split('-')) for what in (
     'dog-stand', 'dog-walk', 'dog-trot', 'dog-run', 'dog-fetch')}
 
 
+def composer_rollout(env, steps):
+  """A (carry, generator) -> (carry, None) loop of `steps` control steps
+  of composer environment `env`, controls uniform in [-1, 1]."""
+  nu = env.model.nu
+
+  def run(carry, gen):
+    for _ in range(steps):
+      u = torch.rand((BATCH, nu), generator=gen, device='cuda')
+      carry, _ = env.step(carry, 2 * u - 1)
+    return carry, None
+  return run
+
+
 def main():
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-  parser.add_argument('--task', choices=sorted(TASKS), default='walker-walk')
+  import chip_smoke
+  composer = [f'composer:{t}' for t in chip_smoke.COMPOSER_TASKS]
+  parser.add_argument('--task', choices=sorted(TASKS) + composer,
+                      default='walker-walk')
   parser.add_argument('--steps', type=int, default=STEPS)
-  parser.add_argument('--warm', type=int, default=30)
+  parser.add_argument('--warm', type=int, default=None,
+                      help='30 control steps; 5 for a composer task')
   args = parser.parse_args()
   task, steps = args.task, args.steps
   if not torch.cuda.is_available():
@@ -76,12 +102,20 @@ def main():
       capture_output=True, text=True, check=True).stdout.strip())
   print(f'host: {platform.machine()}; {len(os.sched_getaffinity(0))} cores; '
         f'load average {os.getloadavg()}')
-  env = BatchedEnv(suite.build_task(*TASKS[task]), BATCH)
   gen = torch.Generator(device='cuda')
   gen.manual_seed(0)
-  state = env.reset()
-  state, _ = env.rollout_fn(args.warm)(state, gen)   # walkers on the floor
-  run = env.rollout_fn(steps)
+  if task.startswith('composer:'):
+    env = chip_smoke.composer_env(task.split(':')[1], BATCH)
+    state = env.reset()
+    state, _ = composer_rollout(env, 5 if args.warm is None else args.warm)(
+        state, gen)
+    run = composer_rollout(env, steps)
+  else:
+    env = BatchedEnv(suite.build_task(*TASKS[task]), BATCH)
+    state = env.reset()
+    state, _ = env.rollout_fn(30 if args.warm is None else args.warm)(
+        state, gen)   # walkers on the floor
+    run = env.rollout_fn(steps)
   core_ms = []
   solve = nk.newton_solve_core
 
@@ -159,6 +193,29 @@ def main():
     if fn == 'mirror' and path.endswith('types.py'):
       print(f'types.mirror: {ncalls / steps:.0f} calls per control step, '
             f'{cumtime / total:.3f} of host time (cumulative)')
+    if fn in ('update', 'read') and path.endswith('observation.py'):
+      print(f'ObservationPipeline.{fn}: {ncalls / steps:.0f} calls per '
+            f'control step, {cumtime / total:.3f} of host time (cumulative)')
+
+  if task.startswith('composer:'):
+    pipeline = env.pipeline
+    update = pipeline.update
+    pipeline.update = lambda state_, *a, **k: state_
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, _ = run(state, gen)
+    torch.cuda.synchronize()
+    bare = time.perf_counter() - t0
+    pipeline.update = update
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, _ = run(state, gen)
+    torch.cuda.synchronize()
+    full = time.perf_counter() - t0
+    print(f'observation pipeline: {full / steps * 1e3:.2f} ms per control '
+          f'step with it, {bare / steps * 1e3:.2f} ms with update a no-op '
+          f'(untraced; {len(pipeline.shapes)} observables, '
+          f'{env.n_sub_steps} updates per control step)')
 
 
 if __name__ == '__main__':
