@@ -165,7 +165,8 @@ any failure exits non-zero and no phase catches its own failure:
      under the top-K broadphase, or for plane-box pairs, the contacts
      keyed by pair or box corner, with the selection and the box
      colliders' choices recorded: `branches`; jaco's controls its
-     actions made by `before_step`), and escape's rangefinder
+     actions made by `before_step`, and its gate over 25 of the control
+     step's 100 physics steps, `GATE_SUBSTEPS`), and escape's rangefinder
      observation held per lane to the float64 CPU path's from the same
      state (`rangefinder_check`); then reacher-easy, finger-turn_easy,
      cheetah-run, ball_in_cup-catch, swimmer-swimmer6, fish-swim,
@@ -222,7 +223,30 @@ any failure exits non-zero and no phase catches its own failure:
      latch, colours and machine state included) and buffers its fresh
      draw, its substep counter 1, and a forward's launches more.
      `python3 chip_smoke.py --composer-only` runs the build and this phase
-     alone, without the contract's last line.
+     alone, without the contract's last line;
+  9. manipulation (after phase composer; generators of its own,
+     MANIPULATION_SEED): the manipulation tier's BatchedEnvironment at 4096
+     lanes over `MANIPULATION_TASKS` (place_cradle, nv 19; stack_2_bricks,
+     nv 25, the brick pin and goal hints; reassemble_5_bricks, nv 43, K2's
+     two-dofs-per-lane family), RK4 at 1 ms, 40 physics steps per control
+     step, position targets within 0.1 rad of the arm's angles: a reset and
+     one control step at an episode limit of one control step, so that the
+     step also resets every lane: the stepped states (kept by an after_step
+     hook of the phase's) finite and not diverged, rewards in [0, 1],
+     launches exactly `composer_launches` plus a forward's
+     (`reset_launches`), each lane's state, model_var (site_pos, body_pos,
+     body_quat, duplo_pin, duplo_pin_qpos, the int32 duplo_order) and
+     buffers its fresh draw, every observation of its spec's shape and
+     finite; K1 at n = 19, 25 and 43 on the initial mass matrices
+     (`composer_k1`) and K2 at the three layouts on the stepped states
+     (`k2_task_check` with `stop_gates`: the kernel's and plain float32's
+     solves stop far from float64 on many lanes where the cost is flat to
+     float32); the tasks of MANIPULATION_UNGATED, whose float32 steps miss
+     float64 past the gate's rule as the JAX package's do, write their
+     256 gated lanes to chiprun_out/ for `tools/reference_step_cpu.py`
+     instead of the reference gate.  `python3 chip_smoke.py
+     --manipulation-only` runs the build and this phase alone, without the
+     contract's last line.
 
 Output: the card's name and power limit (nvidia-smi), env-steps/s of
 walker-walk@4096 and finger-spin@4096 (each the median of three runs)
@@ -240,7 +264,9 @@ rollout), and the train path's launches ('train': K1a/b/c and K2 in the
 by task: K1 at n = 14, 8 and 73, K2 at the Ant's, corridor's, maze's,
 CMU's and ball's layouts, the core at the rodent's under the K1b row's 'core'), the train
 phase's lqr and SAC numbers (env-steps/s, updates/s, the update's share),
-env-steps/s of each composer task@4096 (its one run), one
+env-steps/s of each composer task@4096 (its one run) and of each
+manipulation task@4096 (one control step with every lane's reset; the K1
+rows and the K2 row carry entries at its shapes, keyed by task), one
 `{"kernels": [...]}` JSON line, and last the
 `{"ok": true, "device": {...}}` line.  The nvcc/ptxas log of the build
 is in dm_control_tpu_torch/_build/build.log; its register and spill lines
@@ -316,6 +342,12 @@ SLICE11_K1 = ('jaco-position_reacher_7DOF', 'lqr-lqr_6_2')
 # jaco: the fence subtracts 1 per extreme joint outside it (3 of them) and
 # the action penalty at most 7 x 0.1^2; lqr's reward 1 - cost is unbounded
 # below
+# the reference gate's physics steps where it holds less than a control
+# step: jaco's gate over its 100 RK4 physics steps took 210.7 s of a
+# 1,015 s script (PR 15, call 4) and held all 256 lanes with every choice
+# matched (largest error 5.31e-4); a quarter of the control step keeps the
+# script within its time with the same verdicts
+GATE_SUBSTEPS = {'jaco-position_reacher_7DOF': 25}
 REWARD_RANGE = {'jaco-position_reacher_7DOF': (-3.07, 1.0),
                 'lqr-lqr_6_2': (-math.inf, 1.0)}
 # the twelfth slice's tasks (dog: nv 79 for stand, walk, trot and run, 85
@@ -765,8 +797,9 @@ def stop_gates(what, x_k, x_p, x_64, lay, args):
       f'{what}: the kernel is float32-limited on more than twice plain '
       f'float32\'s lanes, plus one')
   held = ~(k_lim | p_lim)
-  ell_gates(f'{what} on the {int(held.sum())} lanes neither float32 solve '
-            f'is limited on', x_k[held], x_p[held], x_64[held])
+  if held.any():
+    ell_gates(f'{what} on the {int(held.sum())} lanes neither float32 solve '
+              f'is limited on', x_k[held], x_p[held], x_64[held])
 
 
 def n_cones(lay):
@@ -1189,7 +1222,8 @@ def box_choices(m, d):
   for g in collision.groups(m):
     if GeomType.BOX in (g.t1, g.t2) and g.t1 in (GeomType.PLANE,
                                                  GeomType.BOX):
-      assert not g.dynamic or g.t1 == GeomType.PLANE, 'a top-K box-box group'
+      assert not g.dynamic or g.t1 == GeomType.PLANE, (
+          f'a top-K {g.t1.name.lower()}-{g.t2.name.lower()} group')
       g1, g2 = mirror(m, ref, g.g1), mirror(m, ref, g.g2)
       scale = torch.maximum(d.geom_xpos[:, g1].abs().amax(-1),
                             d.geom_xpos[:, g2].abs().amax(-1)).clamp(min=1.0)
@@ -2332,7 +2366,8 @@ def k2_task_check(nk, what, m, lay, d, gates=None):
   assert active >= B // 4, f'{name} on {what}: too few lanes in contact'
   assert torch.isfinite(f_k).all() and torch.isfinite(x_k).all()
   if gates is not None:
-    gates(f'K2-ell on {what}', x_k, x_p, x_64, lay, args)
+    gates(f'{"K2-ell" if lay.ell_groups else "K2"} on {what}', x_k, x_p,
+          x_64, lay, args)
   elif lay.ell_groups:
     ell_gates(f'K2-ell on {what}', x_k, x_p, x_64)
   else:
@@ -3259,6 +3294,198 @@ def composer_phase(lk, nk, rows, dev):
   return sps
 
 
+# The manipulation tier (`dm_control_tpu_torch.manipulation`) through the
+# composer's BatchedEnvironment: place_cradle (nv 19; the cradle's condim-6
+# spheres), stack_2_bricks (nv 25; the pin hook, the goal hints,
+# capsule-cylinder and box-box) and reassemble_5 (nv 43: K2's
+# two-dofs-per-lane family); every model RK4 at 1 ms, 40 physics steps per
+# control step.  The phase's generator seed, the tasks, and the tasks held
+# without the reference gate (ROADMAP queue 3, item 9): all three, whose
+# float32 steps miss float64 past the gate's rule on most lanes, as the JAX
+# package's float32 step does on the same lanes (`tools/reference_step_cpu.py
+# --tasks manipulation:T --states FILE`); reassemble_5's top-K box-mesh
+# group is besides one `box_choices` cannot record
+MANIPULATION_SEED = 100
+MANIPULATION_TASKS = ('place_cradle_features', 'stack_2_bricks_features',
+                      'reassemble_5_bricks_random_order_features')
+MANIPULATION_UNGATED = MANIPULATION_TASKS
+
+
+def manipulation_env(what, batch, device=None):
+  """The port's BatchedEnvironment of manipulation task `what` at `batch`
+  lanes on `device` (the card unless named)."""
+  from dm_control_tpu_torch import manipulation
+  return manipulation.load(what, batch_size=batch, device=device)
+
+
+def manipulation_controls(i_task, m, dev):
+  """Manipulation task number `i_task`'s controls: each position
+  actuator's target within 0.1 rad of its joint's current angle, clamped
+  to its control range (the jaco's actuators are position servos), from a
+  generator of the task's own; a function of the Data and the lanes."""
+  import numpy as np
+  import torch
+  gen = torch.Generator(device=dev)
+  gen.manual_seed(MANIPULATION_SEED + 1 + i_task)
+  qadr = torch.as_tensor(np.asarray(m.jnt_qposadr)[
+      np.asarray(m.actuator_trnid)[:, 0]], device=dev)
+  lo, hi = (torch.as_tensor(np.asarray(m.actuator_ctrlrange)[:, k],
+                            dtype=torch.float32, device=dev) for k in (0, 1))
+
+  def controls(d, n=None):
+    q = d.qpos[:n, qadr] if n else d.qpos[:, qadr]
+    u = torch.rand(q.shape, generator=gen, device=dev) * 0.2 - 0.1
+    return torch.minimum(torch.maximum(q.float() + u, lo), hi)
+  return controls
+
+
+def manipulation_phase(lk, nk, rows, dev):
+  """Phase manipulation (see the module docstring); adds this phase's
+  entries to the kernel rows `rows`."""
+  import numpy as np
+  import torch
+  from dm_control_tpu_torch._src import efc
+  from dm_control_tpu_torch._src import forward
+  from dm_control_tpu_torch._src import solver
+  t_phase = time.perf_counter()
+  k1_sub, k2_sub, sps, per_steps = {}, {}, {}, {}
+  for i_task, what in enumerate(MANIPULATION_TASKS):
+    env = carry = obs = stepped = fresh = fresh_obs = None
+    torch.cuda.empty_cache()
+    t_task = time.perf_counter()
+    env = manipulation_env(what, BATCH)
+    m = env.model
+    lay = efc.layout(m)
+    per_step, per_reset = composer_launches(env), reset_launches(env)
+    per_steps[what] = per_step
+    assert composer_core_calls(env) == 0 and m.nv <= nk.MAX_NV
+    controls = manipulation_controls(i_task, m, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    carry = env.reset(seed=i_task)
+    torch.cuda.synchronize()
+    t_reset = time.perf_counter() - t0
+    init_k1 = (carry.data.qM.contiguous(), carry.data.qfrc_smooth.contiguous())
+    # One control step at an episode limit of 1 ends every lane's episode,
+    # so the step also resets every lane: the stepped states are kept by an
+    # after_step hook of the phase's own (the step's last stage before the
+    # reset), and each lane's state, model_var and buffers after the step
+    # are its fresh draw (the same generator state drawn again), its
+    # substep counter 1, and the step launches a forward's kernels more.
+    env.step_limit = 1
+    kept = []
+    env._loop.hooks['after_step'].append(
+        (lambda m_, d, gen, prefix: kept.append(d) or d, None))
+    drawn = env.generator.get_state()
+    ctrl = controls(carry.data)
+    lk.reset_launches()
+    nk.reset_launches()
+    t0 = time.perf_counter()
+    carry, (obs, reward, done) = env.step(carry, ctrl)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    got = dict(lk.LAUNCHES, **nk.LAUNCHES)
+    (stepped,) = kept
+    sps[what] = BATCH / dt
+    log(f'# phase manipulation: {what}@{BATCH} (nv {m.nv}, nefc {lay.nefc}, '
+        f'{env.n_sub_steps} RK4 physics steps per control step, {len(obs)} '
+        f'observables): reset {t_reset:.2f} s; one control step and every '
+        f'lane\'s reset in {dt:.2f} s ({sps[what]:.1f} env-steps/s); '
+        f'launches {got}; rewards mean {reward.mean().item():.4f} max '
+        f'{reward.max().item():.4f}; lanes in contact '
+        f'{lanes_in_contact(m, stepped)}; peak memory allocated '
+        f'{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB')
+    for f, x in forward.state_items(forward.state_of(stepped)):
+      assert x.dtype == torch.bool or torch.isfinite(x).all(), (
+          f'{what}: {f} not finite')
+    assert not bool(stepped.diverged.any()), f'{what}: a lane diverged'
+    assert bool(((reward >= 0) & (reward <= 1)).all()), (
+        f'{what}: reward outside [0, 1]')
+    want = {k: v + per_reset[k] for k, v in per_step.items()}
+    assert got == want, f'{what}: launches {got}, expected {want}'
+    assert bool(done.all()) and env.reset_calls == 1, (what, env.reset_calls)
+    env.generator.set_state(drawn)
+    fresh, fresh_obs = env._loop.fresh(BATCH, env.generator)
+    assert set(carry.data.model_var) == set(fresh.model_var)
+    for k, v in carry.data.model_var.items():
+      assert v.dtype == fresh.model_var[k].dtype, (what, k)
+      assert torch.equal(v, fresh.model_var[k]), f'{what}: {k} not its draw'
+      moved = (v != stepped.model_var[k]).flatten(1).any(dim=1)
+      log(f'#   {what}: model_var {k} {tuple(v.shape[1:])} {v.dtype}: '
+          f'lanes whose value the reset changed {int(moved.sum())}')
+    for f in ('qpos', 'qvel', 'act', 'time'):
+      assert torch.equal(getattr(carry.data, f), getattr(fresh, f)), f
+    shapes = env.pipeline.shapes
+    assert obs.keys() == shapes.keys(), (what, obs.keys())
+    for n, st in carry.obs_state.items():
+      for k, x in st.items():
+        assert torch.equal(x, fresh_obs[n][k]), f'{what}: buffer {n} {k}'
+    for k, x in obs.items():
+      assert tuple(x.shape) == (BATCH,) + shapes[k], (what, k, x.shape)
+      assert bool(torch.isfinite(x).all()), f'{what}: observation {k}'
+    assert bool((carry.substep == 1).all())
+    log(f'# {what}@{BATCH}: launches per control step {per_step}, and '
+        f'{per_reset} for the reset of every lane; every lane\'s state, '
+        f'model_var and buffers as drawn')
+    carry = obs = fresh = fresh_obs = None
+
+    # the kernels at the task's layouts, held against their plain versions:
+    # K2's float32 solves (the kernel's and the plain one alike) stop far
+    # from float64 on many lanes where the cost is flat to float32
+    # (`stop_gates`)
+    k1_sub[what] = composer_k1(lk, what, *init_k1, got)
+    init_k1 = None
+    args, kw, iters, err, _, _ = k2_task_check(nk, what, m, lay, stepped,
+                                               gates=stop_gates)
+    b_ms, b_by = bound_ms(k2_bytes(BATCH, lay.nefc, m.nv),
+                          newton_flops(lay.nefc, m.nv, solver.LS_ITERATIONS,
+                                       iters))
+    k2_sub[what] = dict(
+        launches=got['newton_solve_batched'], max_abs_err=err,
+        ms=cuda_ms(lambda: nk.newton_solve_batched(*args, lay=lay, **kw), 10),
+        plain_ms=cuda_ms(lambda: nk.newton_solve_plain(
+            *args, types=lay.types, **kw), 2),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        max_iters=int(iters.max()), shape=[BATCH, lay.nefc, m.nv],
+        launch_config=list(nk.launch_config(lay.nefc, m.nv, 0)),
+        launches_per_control_step=per_step['newton_solve_batched'])
+    log(f'# phase manipulation: K2 on {what}: {k2_sub[what]}')
+    args = None
+    gate_ctrl = controls(stepped, REF_LANES)
+    if what in MANIPULATION_UNGATED:
+      # the gated lanes, for `tools/reference_step_cpu.py --tasks
+      # manipulation:<task> --states FILE`
+      lanes = torch.arange(REF_LANES, device=dev)
+      out = {f: x[lanes].cpu().numpy()
+             for f, x in forward.state_items(forward.state_of(stepped))}
+      out.update(ctrl=gate_ctrl.cpu().numpy(), lane=lanes.cpu().numpy())
+      os.makedirs('chiprun_out', exist_ok=True)
+      path = f'chiprun_out/reference_lanes_manipulation-{what}.npz'
+      np.savez(path, **out)
+      log(f'# phase manipulation: {what}: no gate (MANIPULATION_UNGATED); '
+          f'its {REF_LANES} lanes written to {path}')
+    else:
+      t0 = time.perf_counter()
+      reference_gate(what, m, stepped, gate_ctrl, env.n_sub_steps, lk)
+      log(f'# phase reference: {what} {time.perf_counter() - t0:.1f} s')
+    log(f'# phase manipulation: {what}: {time.perf_counter() - t_task:.1f} s')
+  env = stepped = None
+  torch.cuda.empty_cache()
+
+  for r in rows:
+    if r['name'] in ('cholesky_batched', 'chol_solve_batched',
+                     'cho_solve_batched'):
+      for what, sub in k1_sub.items():
+        r[what] = dict(sub[r['name']], launches_per_control_step=per_steps[
+            what][r['name']])
+    if r['name'] == 'newton_solve_batched':
+      r.update(k2_sub)
+  log(f'# phase manipulation: {time.perf_counter() - t_phase:.1f} s; '
+      f'env-steps/s {sps}; seconds per control step (with every lane\'s '
+      f'reset) { {k: BATCH / v for k, v in sps.items()} }')
+  return sps
+
+
 def main() -> int:
   import torch
   if not torch.cuda.is_available():
@@ -3298,6 +3525,13 @@ def main() -> int:
     # phase train alone, without the contract's last line
     train_phase(lk, nk, [], dev)
     log(f'# chip_smoke.py --train-only: {time.perf_counter() - t_start:.1f} s')
+    log(smi)
+    return 0
+  if '--manipulation-only' in sys.argv[1:]:
+    # phase manipulation alone, without the contract's last line
+    manipulation_phase(lk, nk, [], dev)
+    log(f'# chip_smoke.py --manipulation-only: '
+        f'{time.perf_counter() - t_start:.1f} s')
     log(smi)
     return 0
   if '--composer-only' in sys.argv[1:]:
@@ -4072,7 +4306,8 @@ def main() -> int:
           model_var={k: v[:REF_LANES]
                      for k, v in (state.data.model_var or {}).items()})
       ctrl = s_task.before_step(m_s, head, lo + (hi - lo) * (u + 1) / 2).ctrl
-    reference_gate(what, m_s, state.data, ctrl, s_task.n_sub_steps(), lk)
+    reference_gate(what, m_s, state.data, ctrl,
+                   GATE_SUBSTEPS.get(what, s_task.n_sub_steps()), lk)
     if what == 'quadruped-escape':
       rangefinder_check(m_s, suite.build_task(*what.split('-'),
                                               device='cpu').model, state.data)
@@ -4177,6 +4412,10 @@ def main() -> int:
   # -- 8. composer: the locomotion tier through BatchedEnvironment ------------
   torch.cuda.empty_cache()
   composer_phase(lk, nk, rows, dev)
+
+  # -- 9. manipulation: the Jaco tier through BatchedEnvironment --------------
+  torch.cuda.empty_cache()
+  manipulation_phase(lk, nk, rows, dev)
 
   log(f'# chip_smoke.py: {time.perf_counter() - t_start:.1f} s')
   log(smi)

@@ -57,6 +57,48 @@ def quat_mul(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
   ], dim=-1)
 
 
+def quat_conj(q: torch.Tensor) -> torch.Tensor:
+  return q * q.new_tensor([1.0, -1.0, -1.0, -1.0])
+
+
+def mat_to_quat(m: torch.Tensor) -> torch.Tensor:
+  """3x3 rotation matrix -> unit quaternion (w, x, y, z), w >= 0: of the
+  four constructions, the one with the largest pivot."""
+  m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+  m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+  m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+  tr = m00 + m11 + m22
+  cases = torch.stack([
+      torch.stack([1.0 + tr, m21 - m12, m02 - m20, m10 - m01], -1),
+      torch.stack([m21 - m12, 1.0 + m00 - m11 - m22, m01 + m10, m02 + m20],
+                  -1),
+      torch.stack([m02 - m20, m01 + m10, 1.0 - m00 + m11 - m22, m12 + m21],
+                  -1),
+      torch.stack([m10 - m01, m02 + m20, m12 + m21, 1.0 - m00 - m11 + m22],
+                  -1)], dim=-2)
+  pivots = torch.stack([1.0 + tr, 1.0 + m00 - m11 - m22,
+                        1.0 - m00 + m11 - m22, 1.0 - m00 - m11 + m22], -1)
+  best = pivots.argmax(dim=-1)
+  q = torch.take_along_dim(cases, best[..., None, None], dim=-2)[..., 0, :]
+  q = normalize(q)
+  return torch.where(q[..., 0:1] < 0, -q, q)
+
+
+def _quat_log_vel(dq: torch.Tensor) -> torch.Tensor:
+  """2 * log(dq) as an axis * angle 3-vector, angle wrapped to [-pi, pi]."""
+  sin_half = norm_safe(dq[..., 1:])
+  axis = normalize(dq[..., 1:])
+  angle = 2.0 * torch.atan2(sin_half, dq[..., 0])
+  angle = torch.where(angle > torch.pi, angle - 2 * torch.pi, angle)
+  return axis * angle[..., None]
+
+
+def quat_sub_world(qa: torch.Tensor, qb: torch.Tensor) -> torch.Tensor:
+  """World-frame velocity taking qb to qa in unit time: log(qa * qb^-1),
+  the frame of the angular Jacobian (`smooth.jac`'s jacr)."""
+  return _quat_log_vel(quat_mul(qa, quat_conj(qb)))
+
+
 def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
   """Rotate vector v by quaternion q (world = q * v_local)."""
   u = q[..., 1:]

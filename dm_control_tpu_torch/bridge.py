@@ -14,8 +14,11 @@ A SAC learner's state crosses as a dict of numpy arrays in the JAX
 package's `SACState` layout (`sac_state_from_numpy`, `sac_state_to_numpy`).
 A composer `BatchedEnvironment`'s carry crosses as its Data's flat dict,
 its observation buffers and its substep counters
-(`composer_carry_from_numpy`); the JAX carry's PRNG key does not cross,
-since torch generators do not reproduce `jax.random`.
+(`composer_carry_from_numpy`), each `model_var` key with it (the
+manipulation tier's `site_pos`, `body_pos`, `body_quat`, `lift_target`,
+`duplo_pin`, `duplo_pin_qpos` and the int32 `duplo_order`); the JAX
+carry's PRNG key does not cross, since torch generators do not reproduce
+`jax.random`.
 """
 
 from __future__ import annotations

@@ -13,8 +13,8 @@ dm_control.composer:
   * `BatchedEnvironment` steps B lanes on the card, `Environment` one
     lane with the dm_env interface (`rl.specs`).
 
-`initializers` and `colors` are used only by the manipulation tier and
-are not ported yet.
+`initializers` (PropPlacer, ToolCenterPointInitializer) and `colors`
+serve the manipulation tier.
 """
 
 from dm_control_tpu_torch.composer.entity import Entity, attach  # noqa: F401

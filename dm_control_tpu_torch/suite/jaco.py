@@ -10,6 +10,9 @@ per lane (`geom_pos` in `Data.model_var`); `before_step` maps the agent's
 the 13 position controls with the hand closed, and charges the action's
 size and the virtual fence at the DH extremes of the requested pose
 (`_jaco_penalty` in `Data.model_var`, added to the reward).
+The 6-DoF model file, `jaco_j2s6s300_position.xml`, compiles through
+`_model`; the reacher task takes the 7-DoF file only, as in the JAX
+package, whose task cannot load the 6-DoF file.
 """
 
 from __future__ import annotations
@@ -86,8 +89,15 @@ def _make_task(xml_name, relative_step, relative_rad_max, fence_t,
                target_type, fixed_target_t, target_size, action_penalty,
                degrees_of_freedom, device) -> control.TaskDef:
   if xml_name != _XML_7DOF:
+    # The 6-DoF file compiles (`_model`), but the reacher task cannot run
+    # on it, in the JAX package either: it declares no 'target' geom
+    # (the JAX package's task raises KeyError there), its 12 joints do not
+    # take the 13 home angles or the 7 arm joints, and its actuators are
+    # velocity servos where the task sends position targets
     raise NotImplementedError(
-        f'jaco model {xml_name!r} is not ported: only {_XML_7DOF!r}')
+        f'the jaco reacher task runs on {_XML_7DOF!r} only: {xml_name!r} '
+        f'declares no target geom, 6 arm joints and velocity actuators '
+        f'(its model loads through jaco._model)')
   m = _model(xml_name, device)
   fence = dict(fence_t)
   dof = degrees_of_freedom

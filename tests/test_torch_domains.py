@@ -718,6 +718,47 @@ def test_jaco_rejects_other_models():
     jaco.configurable_reacher('cpu', xml_name='jaco_j2s6s300_position.xml')
 
 
+def test_jaco_6dof_model_and_steps_match_jax():
+  """jaco's 6-DoF model file (`jaco_j2s6s300_position.xml`: the arm.stl
+  mesh, no gravity, velocity actuators) compiles to the JAX package's Model
+  field for field, and two of jaco's control steps (200 RK4 physics steps)
+  from 2 states in the joint ranges under velocity controls in [-1, 1]
+  keep qpos and qvel within TOL of the JAX package's, at float64 on the
+  CPU.  (The reacher task itself takes the 7-DoF file only, in both
+  packages: the JAX package's raises KeyError on this one.)"""
+  from dm_control_tpu.suite import jaco as jjaco
+  from dm_control_tpu_torch.suite import jaco
+  from test_torch_model import SETCONST_FIELDS, _assert_same
+  xml = 'jaco_j2s6s300_position.xml'
+  jm, m = jjaco._model(xml), jaco._model(xml, 'cpu')
+  for f in dataclasses.fields(jm):
+    if f.name in SETCONST_FIELDS:
+      assert _scaled(getattr(m, f.name), getattr(jm, f.name)) <= 1e-12
+    else:
+      _assert_same(f.name, getattr(jm, f.name), getattr(m, f.name))
+  assert (m.nq, m.nv, m.nu) == (12, 12, 12)
+  n = 2
+  rng = np.random.RandomState(12)
+  lo, hi = np.asarray(jm.jnt_range).T
+  qpos = rng.uniform(np.maximum(lo, -np.pi), np.minimum(hi, np.pi), (n, 12))
+  qvel = 0.3 * rng.randn(n, 12)
+  ctrl = rng.uniform(-1, 1, (n, 12))
+  d0 = jforward.make_data(jm)
+  jd = _jax_batch(lambda q, v: jforward.forward(jm, d0.replace(
+      qpos=q, qvel=v)))(jnp.asarray(qpos), jnp.asarray(qvel))
+  jd = _jax_substeps(jm, 200)(jd, jnp.asarray(ctrl))
+  d = forward.forward(m, forward.make_data(m, n, torch.float64, 'cpu').replace(
+      qpos=torch.tensor(qpos), qvel=torch.tensor(qvel)))
+  d = forward.substeps(m, d.replace(ctrl=torch.tensor(ctrl)), 200)
+  err = {'qpos': _scaled(d.qpos.numpy(), jd.qpos),
+         'qvel': _scaled(d.qvel.numpy(), jd.qvel)}
+  print(f'jaco 6-DoF: 200 RK4 physics steps, contacts at the end '
+        f'{d.efc_active.sum(1).tolist()}; max scaled err '
+        + ', '.join(f'{k} {e:.2e}' for k, e in err.items()))
+  assert all(e <= TOL for e in err.values()), err
+  assert _scaled(qpos, d.qpos.numpy()) > 0.1        # the arm moved
+
+
 @pytest.mark.parametrize('task_name', ['lqr_2_1', 'lqr_6_2'])
 def test_lqr_matches_jax(task_name):
   """lqr's model equals the JAX package's field for field (its numpy

@@ -31,16 +31,22 @@ a float32 solve stops where a step's cost change is below that spacing.
 With `--states FILE` (lanes written on the card by
 `tools/k1_reference_step.py --dump`, or by
 `tools/composer_reference_lanes.py` for a composer task, named
-`composer:<task>`; one task in `--tasks`) it replays
+`composer:<task>`, or by `chip_smoke.py`'s phase manipulation for an
+ungated manipulation task, named `manipulation:<task>`; one task in
+`--tasks`) it replays
 instead one control step of those lanes from their card states (their
 qacc_warmstart included) through the port at float32 and at float64 and
 through the JAX package at float32, and prints for each lane and run its
 error against the port's float64, the gate's verdict with what decided
 it, and at every acc stage the largest lane-scaled difference of its
-qacc from float64's.
+qacc from float64's.  An RK4 model's lanes (the manipulation tier) are
+replayed through the port at float32 (with its verdicts) and float64 and
+through the JAX package's `substeps` at float32 and float64, each lane's
+error against the port's float64 printed.
 """
 
 import argparse
+import contextlib
 import os
 import sys
 
@@ -61,11 +67,13 @@ import chip_smoke as cs  # noqa: E402
 import test_torch_reference_step as ref_step  # noqa: E402
 from dm_control_tpu import suite as jsuite  # noqa: E402
 from dm_control_tpu._src import efc as jefc  # noqa: E402
+from dm_control_tpu._src import forward as jforward  # noqa: E402
 from dm_control_tpu._src import solver as jsolver  # noqa: E402
 from dm_control_tpu_torch import suite  # noqa: E402
 from dm_control_tpu_torch._src import efc  # noqa: E402
 from dm_control_tpu_torch._src import forward  # noqa: E402
 from dm_control_tpu_torch._src import solver  # noqa: E402
+from dm_control_tpu_torch._src.types import Integrator  # noqa: E402
 from dm_control_tpu_torch.ops import newton_kernel as nk  # noqa: E402
 
 
@@ -151,6 +159,12 @@ def stage_qaccs(pm, d, ctrl, n_sub, dtype):
 def models(what):
   """(port Model on the CPU, physics substeps per control step, JAX
   Model) of suite task `what` or composer task `composer:<task>`."""
+  if what.startswith('manipulation:'):
+    import test_torch_manipulation as manip
+    jtask, task = manip._task_pair(what.split(':')[1])
+    pm = task.model
+    n_sub = max(1, int(round(task.control_timestep / pm.opt.timestep)))
+    return pm, n_sub, jtask.model
   if what.startswith('composer:'):
     import test_torch_locomotion as loco
     name = what.split(':')[1]
@@ -170,6 +184,73 @@ def models(what):
           jsuite.build_task(domain, task_name).model)
 
 
+def _jax_substeps(jm, n_sub, z, dtype):
+  """qpos and qvel after the JAX package's control step (`substeps`, RK4
+  or Euler as the model says) of the lanes in npz `z` at `dtype`."""
+  d0 = jforward.make_data(jm, dtype)
+  cast = lambda x: jnp.asarray(x, dtype)
+
+  def one(q, v, u, w, mv):
+    d = d0.replace(qpos=q, qvel=v, ctrl=u, qacc_warmstart=w, model_var=mv)
+    d = jforward.substeps(jm, d, n_sub)
+    return d.qpos, d.qvel
+
+  mv = {k.split('.', 1)[1]: (cast(z[k]) if z[k].dtype.kind == 'f'
+                             else jnp.asarray(z[k]))
+        for k in z.files if k.startswith('model_var.')}
+  # at float32 with 64-bit mode off, as on the TPU: under it the JAX
+  # package's rk4 weights (numpy float64) promote a float32 step's state
+  ctx = (jax.enable_x64(False) if dtype == jnp.float32
+         else contextlib.nullcontext())
+  with ctx:
+    q, v = jax.jit(jax.vmap(one))(cast(z['qpos']), cast(z['qvel']),
+                                  cast(z['ctrl']), cast(z['qacc_warmstart']),
+                                  mv)
+  return {'qpos': torch.tensor(np.asarray(q, np.float64)),
+          'qvel': torch.tensor(np.asarray(v, np.float64))}
+
+
+def replay_rk4(what, pm, n_sub, jm, z, d, ctrl):
+  """One control step of an RK4 model's lanes (four acc stages per
+  physics step, which `_jax_step` does not record): the port at float32
+  (its gate verdict per lane) and the JAX package at float32 and at
+  float64, each against the port's float64."""
+  n = ctrl.shape[0]
+  jruns = {name: _jax_substeps(jm, n_sub, z, dt)
+           for name, dt in (('jax float32', jnp.float32),
+                            ('jax float64', jnp.float64))}
+  try:
+    runs = {str(dt).split('.')[1]: cs.one_step(
+        pm, d, slice(0, n), ctrl, n_sub, dt, 'cpu', record=True)
+        for dt in (torch.float32, torch.float64)}
+  except AssertionError as e:
+    # the gate records no choices of a top-K box-mesh group (reassemble_5)
+    print(f'{what}: the gate cannot record this model\'s choices ({e}); '
+          f'errors only', flush=True)
+    runs = {str(dt).split('.')[1]: cs.one_step(
+        pm, d, slice(0, n), ctrl, n_sub, dt, 'cpu')
+        for dt in (torch.float32, torch.float64)}
+  ref = runs['float64']
+  err = ref_step._lane_err(runs['float32'], ref)
+  verdicts = reasons = [''] * n
+  if 'branches' in ref:
+    first = cs.first_differences(runs['float32']['branches'],
+                                 ref['branches'], n)
+    stops = cs.stop_distances(runs['float32']['branches'])
+    verdicts = cs.lane_verdicts(err, first, cs.BAND, stops)
+    reasons = [': ' + cs.lane_reason(f, s) for f, s in zip(first, stops)]
+  jerr = {name: ref_step._lane_err(run, ref) for name, run in jruns.items()}
+  for i in range(n):
+    print(f'{what}: lane {z["lane"][i]}: port float32 vs the port\'s '
+          f'float64 {err[i].item():.3g} {verdicts[i]}{reasons[i]}; '
+          + ', '.join(f'{k} {e[i].item():.3g}' for k, e in jerr.items()),
+          flush=True)
+  for k, e in [('port float32', err)] + list(jerr.items()):
+    print(f'{what}: {k} vs the port\'s float64 over {n} lanes: '
+          f'{quantiles(e)}; over {cs.REF_TOL:g} {int((e > cs.REF_TOL).sum())}',
+          flush=True)
+
+
 def replay(what, path):
   """One control step of the lanes in `path` (module docstring)."""
   pm, n_sub, jm = models(what)
@@ -182,6 +263,9 @@ def replay(what, path):
       model_var={k.split('.', 1)[1]: cast(x) for k, x in st.items()
                  if k.startswith('model_var.')},
       **{k: cast(x) for k, x in st.items() if '.' not in k})
+  if pm.opt.integrator == Integrator.RK4:
+    replay_rk4(what, pm, n_sub, jm, z, d, ctrl)
+    return
   runs = {str(dt).split('.')[1]: cs.one_step(
       pm, d, slice(0, n), ctrl, n_sub, dt, 'cpu', record=True)
       for dt in (torch.float32, torch.float64)}
